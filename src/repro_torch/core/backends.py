@@ -1,0 +1,262 @@
+"""Attention-backend registry: one seam for every attention implementation.
+
+An :class:`AttentionBackend` declares its :class:`Capabilities`
+(attention kinds × prefill/decode phases × dense/paged cache protocols)
+and call sites select by *name + capability query* via :func:`resolve`.
+
+Registered backends of the port:
+
+  reference     O(N²) masked-softmax oracle (``core/moba.py``)
+  xla           plain PyTorch gather path for paged serving (alias:
+                ``sparse``) — the name is the reference's
+  flash         Hopper kernels: the hand-written CUDA paged-decode
+                kernel (``kernels/moba_decode.py``) (alias: ``kernel``)
+
+Dense and sliding-window kinds share one implementation across backends
+(base-class methods); MoBA is where backends differ.  Paged *prefill* is
+shared too: the ragged reference path is the only implementation with
+per-sequence ``kv_len`` masking.  The cache-free (training) MoBA paths of
+``xla`` and ``flash`` — the gather-and-densify forward and FlashMoBA —
+come with the training slice (ROADMAP.md), so those two backends declare
+the paged cache only.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import AttentionConfig
+from repro_torch.core.attention import dense_attention
+from repro_torch.core.moba import (moba_attention_reference,
+                                   moba_paged_decode_attention,
+                                   moba_paged_prefill_attention)
+
+KINDS = ("dense", "swa", "moba")
+PHASES = ("prefill", "decode")
+CACHES = ("dense", "paged")
+
+
+class BackendCapabilityError(ValueError):
+    """Requested (backend, kind, phase, cache) combination is unsupported.
+
+    The message names the backends that *do* support the combination."""
+
+
+@dataclasses.dataclass(frozen=True)
+class Capabilities:
+    """What a backend can run.  ``caches`` uses 'dense' for the
+    cache-free (training) path and 'paged' for the serving engine's
+    block-table pools."""
+
+    kinds: Tuple[str, ...] = KINDS
+    phases: Tuple[str, ...] = PHASES
+    caches: Tuple[str, ...] = CACHES
+
+    def supports(self, kind: str, phase: str, cache: str = "dense") -> bool:
+        return (kind in self.kinds and phase in self.phases
+                and cache in self.caches)
+
+
+class AttentionBackend:
+    """Protocol + shared implementations.  Subclasses override the
+    ``moba_*`` hooks; dense/swa attention and paged prefill are shared."""
+
+    name: str = ""
+    aliases: Tuple[str, ...] = ()
+    capabilities: Capabilities = Capabilities()
+
+    @staticmethod
+    def _window(cfg: AttentionConfig, kind: str) -> int:
+        return cfg.window if kind == "swa" else 0
+
+    # --------------------------------------------------- full sequence
+    def prefill(self, cfg: AttentionConfig, kind: str, q, k, v, *,
+                q_positions=None, causal: bool = True) -> torch.Tensor:
+        """Cache-free multi-token attention."""
+        if kind == "moba":
+            return self.moba_prefill(cfg, q, k, v, q_positions=q_positions)
+        return dense_attention(q, k, v, causal=causal,
+                               q_positions=q_positions,
+                               window=self._window(cfg, kind),
+                               scale=cfg.scale)
+
+    # --------------------------------------------------------- paged KV
+    def paged_prefill(self, cfg: AttentionConfig, kind: str, q, k, v, *,
+                      post_len, positions) -> torch.Tensor:
+        """Ragged fresh prefill (right-padded rows; ``post_len`` is the
+        per-sequence valid length after this step)."""
+        if kind == "moba":
+            return moba_attention_reference(
+                q, k, v, cfg.moba, q_positions=positions,
+                kv_len=post_len[:, None, None, None], scale=cfg.scale)
+        return dense_attention(q, k, v, causal=True, q_positions=positions,
+                               kv_len=post_len,
+                               window=self._window(cfg, kind),
+                               scale=cfg.scale)
+
+    def paged_chunk_prefill(self, cfg: AttentionConfig, kind: str, q, cache,
+                            block_table, kv_len, q_len) -> torch.Tensor:
+        """Chunked prefill: multi-token attention for a ragged chunk whose
+        K/V (and every earlier chunk's) are already appended to ``cache``;
+        query i,j sits at position ``kv_len[i] + j``."""
+        from repro_torch.serving import paged_cache as PC
+        if kind == "moba":
+            return moba_paged_prefill_attention(
+                q, cache["pages_k"], cache["pages_v"], cache["centroids"],
+                block_table, kv_len, q_len, cfg.moba, scale=cfg.scale)
+        kf, vf = PC.paged_gather_kv(cache, block_table)
+        positions = kv_len[:, None] + torch.arange(q.shape[2],
+                                                   device=q.device)
+        return dense_attention(q, kf, vf, causal=True,
+                               q_positions=positions,
+                               kv_len=kv_len + q_len,
+                               window=self._window(cfg, kind),
+                               scale=cfg.scale)
+
+    def paged_decode(self, cfg: AttentionConfig, kind: str, q, cache,
+                     block_table, kv_len, *, positions=None
+                     ) -> torch.Tensor:
+        """Single-token attention against a paged pool through the block
+        table.  ``kv_len`` is the post-append per-sequence length."""
+        from repro_torch.serving import paged_cache as PC
+        if kind == "moba":
+            return self.moba_paged_decode(cfg, q, cache, block_table,
+                                          kv_len)
+        if kind == "swa":
+            return PC.swa_windowed_decode_attention(
+                q, cache, block_table, kv_len, cfg.window, scale=cfg.scale)
+        kf, vf = PC.paged_gather_kv(cache, block_table)
+        return dense_attention(q, kf, vf, causal=True,
+                               q_positions=positions, kv_len=kv_len,
+                               scale=cfg.scale)
+
+    # ------------------------------------------------ MoBA-specific hooks
+    def moba_prefill(self, cfg: AttentionConfig, q, k, v, *,
+                     q_positions=None) -> torch.Tensor:
+        raise NotImplementedError(f"{self.name}: moba prefill")
+
+    def moba_paged_decode(self, cfg: AttentionConfig, q, cache, block_table,
+                          kv_len) -> torch.Tensor:
+        return moba_paged_decode_attention(
+            q, cache["pages_k"], cache["pages_v"], cache["centroids"],
+            block_table, kv_len, cfg.moba, scale=cfg.scale)
+
+
+class ReferenceBackend(AttentionBackend):
+    """O(N²) masked-softmax oracle — the correctness anchor."""
+
+    name = "reference"
+
+    def moba_prefill(self, cfg, q, k, v, *, q_positions=None):
+        return moba_attention_reference(q, k, v, cfg.moba,
+                                        q_positions=q_positions,
+                                        scale=cfg.scale)
+
+
+class XLABackend(AttentionBackend):
+    """Plain PyTorch gather path (the reference's ``xla`` backend)."""
+
+    name = "xla"
+    aliases = ("sparse",)
+    capabilities = Capabilities(caches=("paged",))
+
+
+class FlashBackend(AttentionBackend):
+    """Hopper kernel path: paged MoBA decode through the CUDA kernel
+    (CPU tensors take its plain version, see ``kernels/moba_decode.py``).
+    ``decode_grid`` keeps the reference's grid option; both values reach
+    the one Hopper kernel."""
+
+    name = "flash"
+    aliases = ("kernel",)
+    capabilities = Capabilities(caches=("paged",))
+    decode_grid: str = "grouped"
+
+    def moba_paged_decode(self, cfg, q, cache, block_table, kv_len):
+        from repro_torch.kernels import moba_decode
+        return moba_decode.moba_paged_decode(
+            q, cache["pages_k"], cache["pages_v"], cache["centroids"],
+            block_table, kv_len, cfg.moba, scale=cfg.scale,
+            grid=self.decode_grid)
+
+
+# ---------------------------------------------------------------- registry
+_REGISTRY: Dict[str, AttentionBackend] = {}
+_ALIASES: Dict[str, str] = {}
+
+
+def register(backend: AttentionBackend) -> AttentionBackend:
+    if not backend.name:
+        raise ValueError("backend must set a name")
+    for key in (backend.name,) + backend.aliases:
+        taken = _ALIASES.get(key)
+        if taken is not None and taken != backend.name:
+            raise ValueError(f"backend name/alias {key!r} already "
+                             f"registered for {taken!r}")
+    _REGISTRY[backend.name] = backend
+    for key in (backend.name,) + backend.aliases:
+        _ALIASES[key] = backend.name
+    return backend
+
+
+def get(name: str) -> AttentionBackend:
+    canonical = _ALIASES.get(name)
+    if canonical is None:
+        raise BackendCapabilityError(
+            f"unknown attention backend {name!r}; registered: "
+            f"{sorted(_ALIASES)}")
+    return _REGISTRY[canonical]
+
+
+def parse_backend_spec(spec: str) -> str:
+    """``name[:option,...]`` → registered backend name, applying each
+    option to the backend instance.  Options: ``grouped`` / ``flat`` set
+    the paged-decode grid of backends that carry one.  Unknown names or
+    options raise :class:`BackendCapabilityError`."""
+    name, _, optstr = spec.partition(":")
+    if not optstr:
+        return name
+    be = get(name)
+    for opt in optstr.split(","):
+        opt = opt.strip()
+        if opt in ("grouped", "flat"):
+            if not hasattr(be, "decode_grid"):
+                raise BackendCapabilityError(
+                    f"backend {be.name!r} has no decode-grid option; "
+                    f"got {spec!r}")
+            be.decode_grid = opt
+        else:
+            raise BackendCapabilityError(
+                f"unknown backend option {opt!r} in {spec!r}; expected "
+                f"grouped | flat")
+    return name
+
+
+def resolve_backend_spec(spec, *, default: str = "reference") -> str:
+    """THE backend-spec resolver every surface shares: an empty/None
+    ``spec`` falls back to ``default``; otherwise the ``name[:option,...]``
+    string is parsed and the name validated eagerly against the registry.
+    Returns the backend name as given (aliases preserved)."""
+    spec = (spec or "").strip() or default
+    name = parse_backend_spec(spec)
+    get(name)
+    return name
+
+
+def resolve(name: str, *, kind: str, phase: str,
+            cache: str = "dense") -> AttentionBackend:
+    """Name + capability query: the single entry point call sites use."""
+    be = get(name)
+    if not be.capabilities.supports(kind, phase, cache):
+        able = [b.name for b in _REGISTRY.values()
+                if b.capabilities.supports(kind, phase, cache)]
+        raise BackendCapabilityError(
+            f"backend {be.name!r} does not support kind={kind!r} "
+            f"phase={phase!r} cache={cache!r}; backends that do: {able}")
+    return be
+
+
+for _be in (ReferenceBackend(), XLABackend(), FlashBackend()):
+    register(_be)

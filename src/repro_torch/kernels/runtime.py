@@ -1,0 +1,91 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point.
+:func:`load_library` compiles it with ``nvcc`` for ``sm_90a`` into a
+shared library under ``kernels/build/`` (listed in ``.gitignore``),
+named by a hash of the source and the flags, and loads it with
+``ctypes``.  A rebuilt source gets a new name, so a stale library is
+never loaded.  Nothing builds at import time: the first launch builds,
+and ``chip_smoke.py`` calls :func:`build` up front to time it.
+
+A missing ``nvcc`` or a failed compile raises; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+from typing import Dict, Iterable
+
+CSRC = pathlib.Path(__file__).parent / "csrc"
+BUILD = pathlib.Path(__file__).parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
+                       "CUDA kernels build from source at first use")
+
+
+def library_path(name: str) -> pathlib.Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every named kernel whose library is missing, one ``nvcc``
+    per source, all started together.  Returns each compile's ptxas
+    report (empty for a library that was already built)."""
+    names = list(names)
+    BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+        os.close(fd)
+        procs[name] = (out, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports = {n: "" for n in names}
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{name}:\n{log}")
+        else:
+            os.replace(tmp, out)        # atomic: readers see whole files
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return reports
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library for kernel ``name``, building it first if
+    needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        _LOADED[name] = lib
+    return lib

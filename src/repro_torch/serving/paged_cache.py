@@ -1,0 +1,258 @@
+"""Paged KV cache with a per-page centroid cache (device side, PyTorch).
+
+A page holds ``page_size`` tokens of K and V for every kv head of one
+layer slot.  ``page_size`` equals the MoBA ``block_size``, so **one page
+is exactly one routable block**: the per-page centroid cache doubles as
+the decode routing table.
+
+Layout: pools are token-major ``(num_pages, page_size, hkv, dh)`` so the
+flat ``(num_pages*page_size, hkv, dh)`` scatter/gather view used by the
+append paths is a free reshape.  The reference updates its pools
+functionally under ``jit`` with buffer donation; here the appends write
+the pools **in place** and return the same dict.
+
+Invalid writes (padded rows, unassigned pages) were dropped by the
+reference's ``scatter(mode="drop")``.  Torch indexing raises on an
+out-of-range index instead, and masking with a boolean index would wait
+for the device, so :func:`_scatter_rows` redirects every dropped row onto
+the first kept row — same index, same bytes — which keeps the write
+deterministic and free of host synchronisation.
+
+Centroid semantics match the dense cache exactly:
+  * prefill recomputes each touched page's centroid from the stored keys;
+  * decode folds the new key in with one rank-1 update
+    ``c ← (c·m + k)/(m+1)``.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quantization as Q
+
+# leaves indexed by physical page id on their (first non-group) axis —
+# the unit that page-granular ops (swap save/restore) move
+PAGE_LEAVES = ("pages_k", "pages_v", "centroids")
+
+
+def resolve_page_size(cfg: ModelConfig) -> int:
+    """Page size = MoBA block size when any layer routes; else 16."""
+    a = cfg.attention
+    if a.moba is not None and any(k == "moba" for k in cfg.layer_pattern):
+        return a.moba.block_size
+    return 16
+
+
+def init_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
+                   with_centroids: bool, dtype=torch.bfloat16,
+                   device="cuda", kv_dtype: str = "fp32",
+                   groups: Optional[int] = None) -> Dict:
+    """One layer slot's pool; ``groups`` adds the leading layer-group
+    axis the model's group loop indexes (``transformer.init_paged_caches``).
+    Only unquantized pools (``kv_dtype="fp32"``: pages at ``dtype``)."""
+    hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    if kv_dtype not in Q.KV_DTYPES:
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}; "
+                         f"expected one of {Q.KV_DTYPES}")
+    if kv_dtype != "fp32":
+        raise ValueError(f"kv_dtype {kv_dtype!r}: quantized page pools are "
+                         f"not ported yet (ROADMAP.md)")
+    lead = () if groups is None else (groups,)
+    pool = {"pages_k": torch.zeros(lead + (num_pages, page_size, hkv, dh),
+                                   dtype=dtype, device=device),
+            "pages_v": torch.zeros(lead + (num_pages, page_size, hkv, dh),
+                                   dtype=dtype, device=device)}
+    if with_centroids:
+        pool["centroids"] = torch.zeros(lead + (num_pages, hkv, dh),
+                                        dtype=torch.float32, device=device)
+    return pool
+
+
+def _scatter_rows(dst: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor,
+                  vals: torch.Tensor) -> None:
+    """``dst[idx[i]] = vals[i]`` for every row with ``ok[i]``; other rows
+    write nothing.  Dropped rows are sent to the first kept row's index
+    with that row's value, so duplicate indices carry identical bytes;
+    with no kept row at all, row 0 of ``dst`` is written back unchanged."""
+    n = idx.shape[0]
+    ok = ok.reshape(n)
+    first = torch.argmax(ok.to(torch.int32))       # first kept row (or 0)
+    src = torch.where(ok, torch.arange(n, device=ok.device), first)
+    any_ok = ok.any()
+    tgt = torch.where(any_ok, idx.reshape(n)[src], 0).long()
+    v = torch.where(any_ok, vals[src].to(dst.dtype), dst[0])
+    dst.index_copy_(0, tgt, v)
+
+
+def paged_append_decode(cache: Dict, block_table: torch.Tensor,
+                        kv_len: torch.Tensor, active: torch.Tensor,
+                        k_new: torch.Tensor, v_new: torch.Tensor) -> Dict:
+    """Write one token per active sequence at position ``kv_len[i]``, in
+    place.  k_new/v_new: (B, hkv, 1, dh) in compute dtype.  Updates the
+    written page's centroid incrementally.  Inactive rows write nothing."""
+    pk, pv = cache["pages_k"], cache["pages_v"]
+    num_pages, ps, hkv, dh = pk.shape
+    npg = block_table.shape[1]
+    page_idx = kv_len // ps
+    off = kv_len % ps
+    phys = block_table.gather(
+        1, page_idx.clamp(max=npg - 1)[:, None].long())[:, 0]
+    ok = active & (phys >= 0) & (page_idx < npg)
+    tok_k = k_new[:, :, 0]                                   # (B,hkv,dh)
+    tok_v = v_new[:, :, 0]
+    slot = phys * ps + off
+    _scatter_rows(pk.view(num_pages * ps, hkv, dh), slot, ok, tok_k)
+    _scatter_rows(pv.view(num_pages * ps, hkv, dh), slot, ok, tok_v)
+    if "centroids" in cache:
+        cents = cache["centroids"]                           # (P,hkv,dh) f32
+        m = off.float()[:, None, None]                       # tokens in page
+        old = cents[phys.clamp(min=0).long()]                # (B,hkv,dh)
+        upd = (old * m + tok_k.float()) / (m + 1.0)
+        _scatter_rows(cents, phys, ok, upd)
+    return cache
+
+
+def paged_append_prefill(cache: Dict, block_table: torch.Tensor,
+                         q_len: torch.Tensor, k_new: torch.Tensor,
+                         v_new: torch.Tensor,
+                         kv_len: Optional[torch.Tensor] = None) -> Dict:
+    """Scatter a right-padded ragged prompt chunk into its pages, in
+    place.
+
+    k_new/v_new: (B, hkv, L, dh); row i's valid tokens occupy absolute
+    positions [kv_len[i], kv_len[i] + q_len[i]).  ``kv_len`` of None (or
+    zeros) is a fresh one-shot prefill; non-zero offsets are chunked
+    prefill continuations writing into a partially-filled tail page.
+    Every page the chunk touches gets its centroid recomputed from the
+    stored keys, so the result is identical to a one-shot prefill of the
+    whole prefix.
+    """
+    pk, pv = cache["pages_k"], cache["pages_v"]
+    num_pages, ps, hkv, dh = pk.shape
+    b, _, length, _ = k_new.shape
+    npg = block_table.shape[1]
+    dev = pk.device
+    if kv_len is None:
+        kv_len = torch.zeros((b,), dtype=torch.int32, device=dev)
+    pos = kv_len[:, None] + torch.arange(length, device=dev)  # (B,L) abs pos
+    logical = torch.clamp(pos // ps, max=npg - 1)
+    phys = block_table.gather(1, logical.long())              # (B,L)
+    valid = ((torch.arange(length, device=dev)[None, :] < q_len[:, None])
+             & (phys >= 0))
+    slot = (phys * ps + pos % ps).reshape(-1)
+    vals_k = k_new.permute(0, 2, 1, 3).reshape(b * length, hkv, dh)
+    vals_v = v_new.permute(0, 2, 1, 3).reshape(b * length, hkv, dh)
+    _scatter_rows(pk.view(num_pages * ps, hkv, dh), slot, valid, vals_k)
+    _scatter_rows(pv.view(num_pages * ps, hkv, dh), slot, valid, vals_v)
+    if "centroids" in cache:
+        post = q_len + kv_len                                # (B,)
+        page_start = torch.arange(npg, device=dev) * ps
+        cnt = torch.clamp(post[:, None] - page_start, 0, ps)
+        touched = ((cnt > 0) & (block_table >= 0)
+                   & (page_start + ps > kv_len[:, None]))    # (B,npg)
+        wmask = (torch.arange(ps, device=dev)[None, None, :]
+                 < cnt[..., None])                           # (B,npg,ps)
+        src = pk[block_table.clamp(min=0).long()]            # (B,npg,ps,h,d)
+        sums = (src.float() * wmask[..., None, None]).sum(dim=2)
+        cent = sums / torch.clamp(cnt, min=1)[..., None, None].float()
+        _scatter_rows(cache["centroids"], block_table.reshape(-1), touched,
+                      cent.reshape(b * npg, hkv, dh))
+    return cache
+
+
+def paged_gather_kv(cache: Dict, block_table: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Densify: (B, hkv, npg*ps, dh) K and V in logical token order.
+
+    Positions past a sequence's length (and pages it never allocated)
+    hold whatever the pool contains — callers mask with ``kv_len``.
+    """
+    pk, pv = cache["pages_k"], cache["pages_v"]
+    _, ps, hkv, dh = pk.shape
+    b, npg = block_table.shape
+    tbl = block_table.clamp(min=0).long()
+
+    def densify(pool):
+        g = pool[tbl]                                        # (B,npg,ps,h,d)
+        return g.permute(0, 3, 1, 2, 4).reshape(b, hkv, npg * ps, dh)
+
+    return densify(pk), densify(pv)
+
+
+def swa_windowed_decode_attention(q: torch.Tensor, cache: Dict,
+                                  block_table: torch.Tensor,
+                                  kv_len: torch.Tensor, window: int,
+                                  scale: Optional[float] = None
+                                  ) -> torch.Tensor:
+    """Decode-step sliding-window attention that gathers only the
+    ``ceil(window/page_size)+1`` pages that can intersect the window.
+
+    q (B, H, 1, d); ``kv_len`` post-append lengths, so the query sits at
+    position ``kv_len - 1`` and attends keys in ``(qpos-window, qpos]``.
+    Rows with ``kv_len`` 0 return zeros.
+    """
+    from repro_torch.core.attention import (NEG_INF, _apply_and_project,
+                                            _grouped_scores)
+
+    pk, pv = cache["pages_k"], cache["pages_v"]
+    _, ps, hkv, dh = pk.shape
+    b, npg = block_table.shape
+    dev = q.device
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    wpg = min(npg, -(-window // ps) + 1)
+    qpos = kv_len - 1                                        # (B,)
+    start = torch.clamp(qpos - window + 1, min=0) // ps      # first page
+    logical = start[:, None] + torch.arange(wpg, device=dev)[None, :]
+    phys = block_table.gather(1, torch.clamp(logical, max=npg - 1).long())
+    ok = (logical < npg) & (phys >= 0)                       # (B,wpg)
+    tbl = phys.clamp(min=0).long()
+    kg = pk[tbl].permute(0, 3, 1, 2, 4).reshape(b, hkv, wpg * ps, dh)
+    vg = pv[tbl].permute(0, 3, 1, 2, 4).reshape(b, hkv, wpg * ps, dh)
+    kpos = (logical[:, :, None] * ps
+            + torch.arange(ps, device=dev)[None, None, :]).reshape(b, -1)
+    mask = (torch.repeat_interleave(ok, ps, dim=1)
+            & (kpos <= qpos[:, None])
+            & (qpos[:, None] - kpos < window))               # (B,wpg*ps)
+    s = _grouped_scores(q, kg, scale)                        # (B,H,1,n)
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(-1)[:, None, None, None], p, 0.0)
+    return _apply_and_project(p, vg, q.dtype)
+
+
+# --------------------------------------------------------------------------
+# page-granular cache ops (swap preemption).
+#
+# ``caches`` here is the engine-level dict ``{"slot_i": pool}`` whose
+# leaves carry a leading layer-group dim (G, ...).  These run between the
+# scheduler's plan and the step's first write.
+# --------------------------------------------------------------------------
+
+def gather_pages_host(caches, pages: List[int]) -> Dict:
+    """Snapshot physical pages to host memory (swap-out): every
+    page-indexed leaf sliced at ``pages``, keyed (slot_name, leaf), as
+    CPU tensors (numpy has no bf16)."""
+    out = {}
+    for sname, pool in caches.items():
+        idx = torch.as_tensor(pages, dtype=torch.long,
+                              device=pool["pages_k"].device)
+        for name in PAGE_LEAVES:
+            if name in pool:
+                out[(sname, name)] = pool[name][:, idx].cpu()
+    return out
+
+
+def scatter_pages_device(caches, pages: List[int], data: Dict):
+    """Swap-in: write a :func:`gather_pages_host` snapshot into the
+    (freshly reserved) physical pages ``pages``, in place."""
+    for sname, pool in caches.items():
+        idx = torch.as_tensor(pages, dtype=torch.long,
+                              device=pool["pages_k"].device)
+        for name in PAGE_LEAVES:
+            if name in pool:
+                x = pool[name]
+                x[:, idx] = data[(sname, name)].to(x.device, x.dtype)
+    return caches
