@@ -29,6 +29,40 @@ Phases, one JSON line each; any failure exits non-zero:
                prefill, then one decode step under ``flash`` and one under
                ``xla`` from cloned caches; logits within 2e-3 and equal
                greedy tokens.
+  5. train_kernels — the four FlashMoBA training kernels (centroids, Flash
+               TopK, forward, backward) against their plain PyTorch
+               versions at the moba-340m training shapes (B=1, H=Hkv=16,
+               N=Nq=8192, d=64, block 128, top_k 8, q tile 128) in bf16
+               and fp32, plus G=2/d=128, a ragged N=8000 and a query
+               suffix Nq=1000.  The forward and backward run on a layout
+               built from the plain routing; Flash TopK may differ from
+               the plain routing only on near-ties (sorted selected scores
+               within 1e-5·max(1, |s|)).  Tolerances: centroids bf16 1e-2,
+               fp32 1e-5; forward (o, m, l) bf16 3e-2, fp32 2e-4; backward
+               max |Δ| over the leaf's max |g|, bf16 3e-2, fp32 5e-3.
+               ``flash_moba`` forward and grads against the ``xla`` path
+               (fp32 2e-4 / 5e-3; rows whose routing flipped on a near-tie
+               are left out and counted).  Per kernel at the main bf16
+               shapes: CUDA-event medians (25 runs, L2 flushed) of the
+               launch alone, the wrapper and the plain version; bytes,
+               FLOPs and the bound from this run's tensors; the library
+               call where one computes the same thing (centroids: a mean),
+               and causal SDPA at the same shape as a yardstick for the
+               forward and backward.
+  6. train   — moba-340m at full width and depth (bf16, random weights
+               from a seeded torch.Generator), batch 1, seq 8192, 4
+               ``make_train_step`` steps on ``flash`` with remat; losses
+               finite, each training kernel launched exactly as often as
+               the path implies (per step: centroids, topk and forward 24
+               — 12 MoBA layers, forward plus recompute — backward 12).
+               Step time, tokens/s, peak memory, then one step under
+               torch.profiler.
+  7. train_grads — the same weights in fp32 (TF32 off), batch 1, seq
+               2048: ``lm_loss`` and every gradient leaf under ``flash``
+               against ``xla`` (loss 2e-4 relative, each leaf max |Δ| /
+               max |g| <= 5e-3), the xla run replaying the flash run's
+               block selections; each layer's selections must differ
+               from the plain routing only on near-ties.
 
 Then the kernel line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a usable card, or run from a
@@ -50,9 +84,24 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM, fp32 outside the tensor cores
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/moba_decode.cu"
+BF16_FLOPS = 989e12                # H100 SXM, dense bf16 tensor cores
+CSRC = "src/repro_torch/kernels/csrc"
+KERNEL_SOURCE = f"{CSRC}/moba_decode.cu"
 TPU_KERNEL = "src/repro/kernels/moba_decode.py:347"
+# training kernels: line name -> (port module, source, TPU kernel replaced)
+TRAIN_KERNELS = {
+    "block_centroids": ("centroids", f"{CSRC}/centroids.cu",
+                        "src/repro/kernels/centroids.py:33"),
+    "flash_topk": ("flash_topk", f"{CSRC}/flash_topk.cu",
+                   "src/repro/kernels/flash_topk.py:247"),
+    "moba_fwd": ("moba_fwd", f"{CSRC}/moba_fwd.cu",
+                 "src/repro/kernels/moba_fwd.py:139"),
+    "moba_bwd": ("moba_bwd", f"{CSRC}/moba_bwd.cu",
+                 "src/repro/kernels/moba_bwd.py:167"),
+}
 MOBA_LAYERS = 12                   # moba-340m: 24 layers, swa/moba
+TRAIN_SEQ = 8192                   # the paper's training context
+TRAIN_STEPS = 4
 
 
 def emit(obj) -> None:
@@ -90,10 +139,11 @@ def phase_env():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    reports = runtime.build(["moba_decode"])
+    reports = runtime.build(runtime.KERNELS)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in reports["moba_decode"].splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+    ptxas = {name: [ln.strip() for ln in rep.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, rep in reports.items()}
     emit({"phase": "env", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -306,9 +356,7 @@ def phase_serve():
 def _profile_decode(eng, cfg, rng, steps: int = 6):
     """Where a decode step's time goes, after the measured run: 8 fresh
     1024-token requests staged in, then ``steps`` generate_step calls
-    under torch.profiler.  Device busy share = summed kernel time over
-    the window's wall time (one stream, so kernels do not overlap); the
-    profiler's own host cost lengthens the wall time a little."""
+    under torch.profiler (:func:`_profile_summary`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     reqs = [eng.make_request(rng.integers(0, cfg.vocab_size, 1024,
@@ -327,6 +375,16 @@ def _profile_decode(eng, cfg, rng, steps: int = 6):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.run()                                 # finish the window's requests
+    return {"batch": len(reqs), **_profile_summary(prof, wall, steps)}
+
+
+def _profile_summary(prof, wall: float, steps: int) -> dict:
+    """Per-step device busy time, idle share, kernel and launch counts and
+    the top device and host rows of a profiled window of ``steps`` steps
+    that took ``wall`` seconds.  Device busy share = summed kernel time
+    over the window's wall time (one stream, so kernels do not overlap);
+    the profiler's own host cost lengthens the wall time a little."""
+    import torch
     avgs = prof.key_averages()
     # kernel rows only: an operator's row repeats its kernels' time
     dev = sorted(((a.key, a.self_device_time_total, a.count) for a in avgs
@@ -336,8 +394,7 @@ def _profile_decode(eng, cfg, rng, steps: int = 6):
     host = sorted(((a.key, a.self_cpu_time_total, a.count) for a in avgs),
                   key=lambda r: -r[1])
     launch_calls = sum(c for k, _, c in host if k.startswith("cudaLaunch"))
-    return {"steps": steps, "batch": len(reqs),
-            "step_ms": wall / steps * 1e3,
+    return {"steps": steps, "step_ms": wall / steps * 1e3,
             "device_busy_ms_per_step": device_us / steps / 1e3,
             "device_idle_share": 1.0 - device_us / (wall * 1e6),
             "kernels_per_step": sum(c for _, _, c in dev) / steps,
@@ -414,6 +471,514 @@ def phase_logits():
         raise SystemExit("logits: flash and xla decode steps disagree")
 
 
+# ------------------------------------------------------------------ phase 5
+def _bound(nbytes: float, flops: float, flops_rate: float) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / flops_rate * 1e3
+    return {"bytes": nbytes, "flops": flops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _max_rel(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def _train_case(*, h, hkv, n, nq, d, dtype, seed, bs=128, top_k=8,
+                tile=128):
+    """Random q, k, v on the card; the plain routing and the sorted layout
+    built from it, as ``kernels/ops.py`` builds it."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    q, k, v = rnd(1, h, nq, d, scale=0.5), rnd(1, hkv, n, d, scale=0.5), \
+        rnd(1, hkv, n, d)
+    g = h // hkv
+    nb = -(-n // bs)
+    kf = k.reshape(hkv, n, d)
+    cents = ref.centroids_ref(kf, bs)
+    tile = min(tile, nq)
+    qf = ops.padded_queries(q, tile)
+    sel = ref.flash_topk_ref(qf, cents, top_k, bs, group=g, num_q_heads=h,
+                             q_pos_offset=n - nq)
+    lay, q_sorted, q_pos = ops.sorted_layout(qf, sel, nq, nb, tile, n - nq)
+    k_blocks, _ = ops.flatten_kv_blocks(k, bs)
+    v_blocks, _ = ops.flatten_kv_blocks(v, bs)
+    kw = dict(scale=d ** -0.5, block_size=bs, n_tokens=n, num_q_heads=h,
+              group=g)
+    return dict(q=q, k=k, v=v, kf=kf, cents=cents, qf=qf, sel=sel, lay=lay,
+                q_sorted=q_sorted, q_pos=q_pos, k_blocks=k_blocks,
+                v_blocks=v_blocks, kw=kw, tile=tile, top_k=top_k, bs=bs,
+                nb=nb, g=g, h=h, n=n, nq=nq, gen=gen)
+
+
+def _masked_scores(q_rows, cent_rows, n: int, bs: int):
+    """Plain causal routing scores of queries q_rows (BH, Nq, d), the
+    suffix of n keys, against cent_rows (BH, nb, d): future blocks -1e30,
+    the own block +1e30, and a sentinel column nb at -1e30."""
+    import torch
+    from repro_torch.core import routing
+    nq = q_rows.shape[1]
+    scores = routing.routing_scores(q_rows, cent_rows)       # (BH, Nq, nb)
+    own = (torch.arange(nq, device=q_rows.device) + n - nq) // bs
+    blk = torch.arange(scores.shape[-1], device=q_rows.device)
+    masked = torch.where(blk[None] > own[:, None], routing.NEG_INF, scores)
+    masked = torch.where(blk[None] == own[:, None], routing.POS_INF, masked)
+    return torch.cat([masked, torch.full_like(masked[..., :1],
+                                              routing.NEG_INF)], dim=-1)
+
+
+def _near_ties(masked, sel, ref_sel):
+    """Rows where selection ``sel`` differs from the plain ``ref_sel``, and
+    the largest gap between the two rows' sorted selected scores.  A
+    difference is a near-tie when every gap is <= 1e-5·max(1, |s|)."""
+    got = masked.gather(-1, sel.long()).sort(-1, descending=True).values
+    want = masked.gather(-1, ref_sel.long()).sort(-1,
+                                                  descending=True).values
+    gap = (got - want).abs()
+    return (int((sel != ref_sel).any(-1).sum()), float(gap.max()),
+            bool((gap <= 1e-5 * want.abs().clamp(min=1.0)).all()))
+
+
+def _topk_near_ties(c, s_k):
+    """Flash TopK's selection on case ``c`` against the plain routing."""
+    from repro_torch.kernels import ref
+    nq = c["nq"]
+    qf = c["qf"][:, :nq]
+    kv = ref.kv_rows(qf.shape[0], c["h"], c["g"], qf.device)
+    masked = _masked_scores(qf, c["cents"][kv], c["n"], c["bs"])
+    return _near_ties(masked, s_k[:, :nq], c["sel"][:, :nq])
+
+
+def _check_train_kernels(c, dtype) -> dict:
+    """Each training kernel against its plain version on case ``c``."""
+    import torch
+    from repro_torch.kernels import centroids as KC, flash_topk as KT
+    from repro_torch.kernels import moba_bwd as KB, moba_fwd as KF, ref
+    bf16 = dtype == torch.bfloat16
+    lay, kw = c["lay"], c["kw"]
+    rec = {}
+    cent = KC.block_centroids_kernel(c["kf"], c["bs"])
+    tol = 1e-2 if bf16 else 1e-5
+    rec["block_centroids"] = {
+        "max_abs_err": float((cent.float() - c["cents"].float()).abs().max()),
+        "tol": tol, "ok": bool(torch.allclose(cent.float(),
+                                              c["cents"].float(), atol=tol,
+                                              rtol=tol))}
+    s_k = KT.flash_topk(c["qf"], c["cents"], c["top_k"], c["bs"],
+                        group=c["g"], num_q_heads=c["h"],
+                        q_pos_offset=c["n"] - c["nq"], q_tile=c["tile"])
+    rows, gap, ok = _topk_near_ties(c, s_k)
+    rec["flash_topk"] = {"rows_differing": rows, "rows": s_k.shape[0]
+                         * c["nq"], "max_abs_err": gap, "ok": ok}
+    args = (lay.tile_block, c["q_sorted"], c["q_pos"], c["k_blocks"],
+            c["v_blocks"])
+    o_k = KF.moba_fwd(*args, q_tile=c["tile"], **kw)
+    o_p = ref.moba_partials_ref(*args, **kw)
+    tol = 3e-2 if bf16 else 2e-4
+    rec["moba_fwd"] = {
+        "max_abs_err": max(float((a - b).abs().max())
+                           for a, b in zip(o_k, o_p)),
+        "tol": tol, "ok": all(bool(torch.allclose(a, b, atol=tol, rtol=tol))
+                              for a, b in zip(o_k, o_p))}
+    # per-slot lse of the slot's own partial keeps p <= 1
+    lse = (o_p[1].clamp(min=-5e29)
+           + torch.log(o_p[2].clamp(min=1e-30)))
+    do = torch.randn(c["q_sorted"].shape, generator=c["gen"], device="cuda")
+    delta = torch.randn(lse.shape, generator=c["gen"], device="cuda") * 0.1
+    bargs = (lay.tile_block, c["q_sorted"], c["q_pos"], do, lse, delta,
+             c["k_blocks"], c["v_blocks"])
+    g_k = KB.moba_bwd(*bargs, q_tile=c["tile"], **kw)
+    g_p = ref.moba_bwd_ref(*bargs, **kw)
+    tol = 3e-2 if bf16 else 5e-3
+    rels = [_max_rel(a, b) for a, b in zip(g_k, g_p)]
+    rec["moba_bwd"] = {
+        "max_abs_err": max(float((a - b).abs().max())
+                           for a, b in zip(g_k, g_p)),
+        "max_rel_err": max(rels), "tol": tol, "ok": max(rels) <= tol}
+    c.update(o_p=o_p, do=do, lse=lse, delta=delta)
+    return rec
+
+
+def _time_train_kernels(c, flush) -> dict:
+    """Kernel alone, wrapper and plain version of each training kernel on
+    case ``c`` (CUDA-event medians), with bytes, FLOPs and the bound from
+    this case's tensors, and a library call where one exists."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import centroids as KC, flash_topk as KT
+    from repro_torch.kernels import moba_bwd as KB, moba_fwd as KF, ref
+    lay, kw, tile, bs, d = c["lay"], c["kw"], c["tile"], c["bs"], \
+        c["q"].shape[-1]
+    rate = BF16_FLOPS if c["q"].dtype == torch.bfloat16 else FP32_FLOPS
+    active = lay.tile_block < c["nb"]
+    n_active = int(active.sum())
+    kv = ref.kv_rows(lay.tile_block.shape[0], c["h"], c["g"], "cuda")
+    # each (kv row, visited block) pair's K and V read once
+    pairs = torch.unique((kv[:, None] * (c["nb"] + 1)
+                          + lay.tile_block.long())[active]).numel()
+    kv_bytes = 2 * pairs * bs * d * c["k"].element_size()
+    out = {}
+
+    def timed(name, kernel, wrapper, plain, bound, library=None):
+        rec = {"ms": cuda_events_ms(wrapper, flush=flush),
+               "kernel_only_ms": cuda_events_ms(kernel, flush=flush),
+               "plain_ms": cuda_events_ms(plain, flush=flush),
+               "library_ms": (cuda_events_ms(library, flush=flush)
+                              if library else None), **bound}
+        out[name] = rec
+
+    kf, nb = c["kf"], c["nb"]
+    cent = c["cents"]
+    timed("block_centroids", lambda: KC.launch(kf, bs),
+          lambda: KC.block_centroids_kernel(kf, bs),
+          lambda: ref.centroids_ref(kf, bs),
+          _bound(_nbytes(kf, cent), kf.numel(), FP32_FLOPS),
+          library=(lambda: kf.view(kf.shape[0], nb, bs, d).mean(2))
+          if kf.shape[1] == nb * bs else None)
+    # the kernel scores every block before the query's own (causal)
+    pos = torch.arange(c["qf"].shape[1], device="cuda") + c["n"] - c["nq"]
+    scored = float((pos // bs).clamp(max=nb).sum()) * c["qf"].shape[0]
+    off = c["n"] - c["nq"]
+    timed("flash_topk",
+          lambda: KT.launch(c["qf"], cent, c["top_k"], bs, group=c["g"],
+                            causal=True, q_pos_offset=off, q_tile=tile),
+          lambda: KT.flash_topk(c["qf"], cent, c["top_k"], bs, group=c["g"],
+                                num_q_heads=c["h"], q_pos_offset=off,
+                                q_tile=tile),
+          lambda: ref.flash_topk_ref(c["qf"], cent, c["top_k"], bs,
+                                     group=c["g"], num_q_heads=c["h"],
+                                     q_pos_offset=off),
+          _bound(_nbytes(c["qf"], cent, c["sel"]), 2 * d * scored, rate))
+    args = (lay.tile_block, c["q_sorted"], c["q_pos"], c["k_blocks"],
+            c["v_blocks"])
+    fkw = {k: v for k, v in kw.items() if k != "block_size"}
+    o, m, l = c["o_p"]
+    q4 = c["q"]
+    k4 = c["k"].repeat_interleave(c["g"], dim=1)
+    v4 = c["v"].repeat_interleave(c["g"], dim=1)
+    timed("moba_fwd",
+          lambda: KF.launch(*args, q_tile=tile, kb_tile=min(bs, 128),
+                            causal=True, **fkw),
+          lambda: KF.moba_fwd(*args, q_tile=tile, **kw),
+          lambda: ref.moba_partials_ref(*args, **kw),
+          _bound(_nbytes(lay.tile_block, c["q_sorted"], c["q_pos"], o, m, l)
+                 + kv_bytes, 4.0 * n_active * tile * bs * d, rate),
+          library=lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                         is_causal=True))
+    tables = KB.segments(lay.tile_block, nb)
+    bargs = (c["q_sorted"], c["q_pos"], c["do"], c["lse"], c["delta"],
+             c["k_blocks"], c["v_blocks"])
+    grad_bytes = 4 * (c["do"].numel()                         # dq, fp32
+                      + 2 * lay.tile_block.shape[0] * nb * bs * d)  # dk, dv
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    sdpa_g = torch.randn_like(sdpa_out)
+    timed("moba_bwd",
+          lambda: KB.launch(tables, *bargs, q_tile=tile, causal=True,
+                            **fkw),
+          lambda: KB.moba_bwd(lay.tile_block, *bargs, q_tile=tile, **kw),
+          lambda: ref.moba_bwd_ref(lay.tile_block, *bargs, **kw),
+          _bound(_nbytes(*tables, *bargs[:5]) + grad_bytes + kv_bytes,
+                 10.0 * n_active * tile * bs * d, rate),
+          library=lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg),
+                                              sdpa_g, retain_graph=True))
+    return out
+
+
+def _flash_vs_xla(c) -> dict:
+    """``flash_moba`` forward and grads against the ``xla`` path on case
+    ``c`` (fp32).  Rows whose Flash TopK routing differs from the plain
+    routing (near-ties) get a zero upstream gradient and are left out of
+    the forward comparison, so both sides see the same function."""
+    import torch
+    from repro_torch.configs.base import MoBAConfig
+    from repro_torch.kernels import flash_topk as KT, ops, ref
+    cfg = MoBAConfig(block_size=c["bs"], top_k=c["top_k"])
+    b, h, nq, d = c["q"].shape
+    s_k = KT.flash_topk(c["qf"], c["cents"], c["top_k"], c["bs"],
+                        group=c["g"], num_q_heads=h,
+                        q_pos_offset=c["n"] - nq, q_tile=c["tile"])
+    same = ~(s_k[:, :nq] != c["sel"][:, :nq]).any(-1)        # (BH, Nq)
+    same = same.reshape(b, h, nq, 1)
+    g_out = torch.randn(c["q"].shape, generator=c["gen"],
+                        device="cuda") * same
+    res = {}
+    for name, fn in (("flash", ops.flash_moba), ("xla", ref.moba_sparse_xla)):
+        qkv = [x.detach().requires_grad_() for x in (c["q"], c["k"], c["v"])]
+        o = fn(*qkv, cfg)
+        res[name] = (o.detach(), torch.autograd.grad(o, qkv, g_out))
+    (o_f, g_f), (o_x, g_x) = res["flash"], res["xla"]
+    fwd_err = float(((o_f - o_x) * same).abs().max())
+    rels = [_max_rel(a, b) for a, b in zip(g_f, g_x)]
+    return {"rows_left_out": int((~same).sum()), "fwd_max_abs_err": fwd_err,
+            "grad_max_rel_err": max(rels), "fwd_tol": 2e-4, "grad_tol": 5e-3,
+            "ok": fwd_err <= 2e-4 + 2e-4 * float(o_x.abs().max())
+            and max(rels) <= 5e-3}
+
+
+def _time_flash_moba(c, flush) -> dict:
+    """``flash_moba`` forward and forward+backward against causal SDPA at
+    the same shape (a yardstick: dense attention, not the same
+    function)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import MoBAConfig
+    from repro_torch.kernels import ops
+    cfg = MoBAConfig(block_size=c["bs"], top_k=c["top_k"])
+    g = c["g"]
+    qkv = [x.detach().requires_grad_() for x in (c["q"], c["k"], c["v"])]
+    dense = [x.detach().requires_grad_() for x in (
+        c["q"], c["k"].repeat_interleave(g, 1),
+        c["v"].repeat_interleave(g, 1))]
+    grad = torch.randn_like(c["q"])
+
+    def fwd_bwd(fn, xs):
+        torch.autograd.grad(fn(*xs), xs, grad)
+
+    with torch.no_grad():
+        fwd = cuda_events_ms(lambda: ops.flash_moba(c["q"], c["k"], c["v"],
+                                                    cfg), flush=flush)
+        sdpa = cuda_events_ms(lambda: F.scaled_dot_product_attention(
+            *dense, is_causal=True), flush=flush)
+    return {"flash_moba_fwd_ms": fwd,
+            "flash_moba_fwd_bwd_ms": cuda_events_ms(
+                lambda: fwd_bwd(lambda *x: ops.flash_moba(*x, cfg), qkv),
+                flush=flush),
+            "sdpa_causal_fwd_ms_yardstick": sdpa,
+            "sdpa_causal_fwd_bwd_ms_yardstick": cuda_events_ms(
+                lambda: fwd_bwd(lambda *x: F.scaled_dot_product_attention(
+                    *x, is_causal=True), dense), flush=flush)}
+
+
+def _swa_row(flush) -> dict:
+    """PERF.md's row for the TPU kernel still to port (swa_attention): its
+    bound at moba-340m's SWA shapes (N 8192, window 256, 16 heads, d 64,
+    bf16) and causal SDPA with a band mask as the library time."""
+    import torch
+    import torch.nn.functional as F
+    n, h, d, w = TRAIN_SEQ, 16, 64, 256
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((1, h, n, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    pos = torch.arange(n, device="cuda")
+    band = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < w)
+    pairs = float(band.sum()) * h                # (query, key) pairs kept
+    return {"kernel": "swa_attention", "replaces":
+            "src/repro/kernels/swa.py:77", "shape": [1, h, n, d],
+            "window": w, **_bound(4 * q.numel() * q.element_size(),
+                                  4.0 * pairs * d, BF16_FLOPS),
+            "library_ms": cuda_events_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=band),
+                flush=flush)}
+
+
+def phase_train_kernels():
+    import torch
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    geoms = [("moba-340m", dict(h=16, hkv=16, n=TRAIN_SEQ, nq=TRAIN_SEQ,
+                                d=64), (torch.bfloat16, torch.float32)),
+             ("g2-d128", dict(h=16, hkv=8, n=4096, nq=4096, d=128),
+              (torch.bfloat16, torch.float32)),
+             ("ragged-n", dict(h=16, hkv=16, n=8000, nq=8000, d=64),
+              (torch.bfloat16,)),
+             ("suffix-nq", dict(h=16, hkv=16, n=TRAIN_SEQ, nq=1000, d=64),
+              (torch.bfloat16,))]
+    checks, timing, main_err = [], None, {}
+    for name, geom, dtypes in geoms:
+        for dtype in dtypes:
+            c = _train_case(dtype=dtype, seed=11, **geom)
+            rec = _check_train_kernels(c, dtype)
+            torch.cuda.synchronize()
+            checks.append({"geometry": name, "dtype": str(dtype), **rec})
+            if not all(r["ok"] for r in rec.values()):
+                emit({"phase": "train_kernels", "checks": checks})
+                raise SystemExit(f"train_kernels: a kernel disagrees with "
+                                 f"its plain version: {checks[-1]}")
+            if name == "moba-340m" and dtype == torch.bfloat16:
+                main_err = {k: r["max_abs_err"] for k, r in rec.items()}
+                timing = _time_train_kernels(c, flush)
+                timing["flash_moba"] = _time_flash_moba(c, flush)
+            if name == "moba-340m" and dtype == torch.float32:
+                vs_xla = _flash_vs_xla(c)
+                if not vs_xla["ok"]:
+                    emit({"phase": "train_kernels", "checks": checks,
+                          "flash_vs_xla": vs_xla})
+                    raise SystemExit(f"train_kernels: flash_moba disagrees "
+                                     f"with the xla path: {vs_xla}")
+            del c
+            torch.cuda.empty_cache()
+    emit({"phase": "train_kernels", "checks": checks,
+          "flash_vs_xla": vs_xla, "timing": timing,
+          "swa_row": _swa_row(flush)})
+    return timing, main_err
+
+
+# ------------------------------------------------------------------ phase 6
+def _counts():
+    from repro_torch.kernels import centroids, flash_topk, moba_bwd, moba_fwd
+    return {"block_centroids": centroids.LAUNCHES,
+            "flash_topk": flash_topk.LAUNCHES, "moba_fwd": moba_fwd.LAUNCHES,
+            "moba_bwd": moba_bwd.LAUNCHES}
+
+
+def _zero_counts():
+    from repro_torch.kernels import centroids, flash_topk, moba_bwd, moba_fwd
+    for mod in (centroids, flash_topk, moba_fwd, moba_bwd):
+        mod.LAUNCHES = 0
+
+
+def phase_train():
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    cfg = get_config("moba-340m")
+    tcfg = TrainConfig(global_batch_size=1, seq_len=TRAIN_SEQ,
+                       total_steps=TRAIN_STEPS + 1, warmup_steps=1)
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = adamw.adamw_init(params)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=1, seed=0))
+    batches = [{"tokens": torch.as_tensor(data.batch_at(i)["tokens"],
+                                          device="cuda")}
+               for i in range(TRAIN_STEPS + 1)]
+    step_fn = S.make_train_step(cfg, tcfg, backend="flash", remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batches[i])
+        losses.append(float(m["loss"]))          # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batches[TRAIN_STEPS])
+        losses.append(float(m["loss"]))
+        wall = time.perf_counter() - t0
+    steady = float(np.median(step_s[1:]))
+    want = {"block_centroids": 2 * MOBA_LAYERS, "flash_topk": 2 * MOBA_LAYERS,
+            "moba_fwd": 2 * MOBA_LAYERS, "moba_bwd": MOBA_LAYERS}
+    rec = {"phase": "train", "arch": cfg.name, "dtype": cfg.dtype,
+           "batch": 1, "seq": TRAIN_SEQ, "remat": True, "backend": "flash",
+           "losses": losses, "step_ms": [t * 1e3 for t in step_s],
+           "median_step_ms_steps_2_4": steady * 1e3,
+           "tokens_per_s": TRAIN_SEQ / steady, "peak_mem_gib": peak,
+           "launches": launches,
+           "launches_per_step": {k: v / TRAIN_STEPS
+                                 for k, v in launches.items()},
+           "expected_per_step": want,
+           "profile": _profile_summary(prof, wall, 1)}
+    emit(rec)
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"train: a loss is not finite: {losses}")
+    for k, per_step in want.items():
+        if launches[k] != per_step * TRAIN_STEPS:
+            raise SystemExit(f"train: {k} launched {launches[k]} times in "
+                             f"{TRAIN_STEPS} steps, expected {per_step} "
+                             f"per step")
+    return launches
+
+
+# ------------------------------------------------------------------ phase 7
+def phase_train_grads():
+    """flash against xla through the whole model in fp32.  The xla run
+    replays the flash run's block selections layer by layer, so both
+    sides compute the same function; each replayed selection is held to
+    the plain routing of the xla run's own q and k by the near-tie rule
+    (a near-tie could otherwise flip one query's blocks between the two
+    runs, since their inputs differ in the last bits)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import moba as CM
+    from repro_torch.core import routing
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    seq = 2048
+    cfg = dataclasses.replace(get_config("moba-340m"), dtype="float32")
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=1, seed=1)).batch_at(0)
+    batch = {"tokens": torch.as_tensor(tokens["tokens"], device="cuda")}
+    flash_topk, plain_selection = ops.flash_topk, CM.moba_selection
+    recorded, audit = [], []
+
+    def record(*args, **kw):
+        sel = flash_topk(*args, **kw)
+        recorded.append(sel)
+        return sel
+
+    def replay(q, k, moba_cfg, q_positions=None):
+        b, h, nq, d = q.shape
+        hkv, n = k.shape[1], k.shape[2]
+        sel = recorded[len(audit)][:, :nq]
+        mine = plain_selection(q, k, moba_cfg, q_positions)
+        kv = ref.kv_rows(b * h, h, h // hkv, q.device)
+        cents = routing.block_centroids(k, moba_cfg.block_size)
+        masked = _masked_scores(q.reshape(b * h, nq, d),
+                                cents.reshape(b * hkv, -1, d)[kv], n,
+                                moba_cfg.block_size)
+        audit.append(_near_ties(masked, sel, mine.reshape(b * h, nq, -1)))
+        return sel.reshape(b, h, nq, -1)
+
+    out = {}
+    try:
+        for backend in ("flash", "xla"):
+            ops.flash_topk, CM.moba_selection = (
+                (record, plain_selection) if backend == "flash"
+                else (flash_topk, replay))
+            leaves = [leaf.detach().requires_grad_() for _, leaf in
+                      adamw.tree_leaves(params)]
+            loss, _ = T.lm_loss(adamw.tree_like(params, leaves), batch, cfg,
+                                backend=backend)
+            out[backend] = (float(loss.detach()),
+                            torch.autograd.grad(loss, leaves))
+    finally:
+        ops.flash_topk, CM.moba_selection = flash_topk, plain_selection
+    names = [p for p, _ in adamw.tree_leaves(params)]
+    rels = {n: _max_rel(a, b) for n, a, b in zip(names, out["flash"][1],
+                                                 out["xla"][1])}
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(out["flash"][0] - out["xla"][0]) / abs(out["xla"][0])
+    routing_ok = len(audit) == MOBA_LAYERS and all(ok for _, _, ok in audit)
+    ok = loss_rel <= 2e-4 and rels[worst] <= 5e-3 and routing_ok
+    emit({"phase": "train_grads", "dtype": "float32", "seq": seq,
+          "loss_flash": out["flash"][0], "loss_xla": out["xla"][0],
+          "loss_rel_err": loss_rel, "loss_tol": 2e-4,
+          "worst_leaf": worst, "worst_leaf_rel_err": rels[worst],
+          "grad_tol": 5e-3, "leaves": len(rels),
+          "routing_rows_differing_per_layer": [r for r, _, _ in audit],
+          "routing_max_gap": max((g for _, g, _ in audit), default=0.0),
+          "routing_near_ties_ok": routing_ok, "ok": ok})
+    if not ok:
+        raise SystemExit("train_grads: flash and xla losses or gradients "
+                         "disagree, or a routing difference is no near-tie")
+
+
 def main() -> int:
     try:
         import torch
@@ -435,14 +1000,27 @@ def main() -> int:
     timing = phase_kernel()
     launches = phase_serve()
     phase_logits()
+    train_timing, train_err = phase_train_kernels()
+    train_launches = phase_train()
+    phase_train_grads()
     print(smi, flush=True)
-    emit({"kernels": [{
+    kernels = [{
         "name": "moba_paged_decode", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
         "launches": launches, "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"], "checked": True}]})
+        "library_ms": timing["library_ms"], "checked": True}]
+    for name, (_, source, replaces) in TRAIN_KERNELS.items():
+        t = train_timing[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": train_err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "checked": True})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,2 +1,2 @@
-"""PyTorch/CUDA port of the MoBA serving path (``repro`` is the JAX
-reference; this package mirrors it module for module)."""
+"""PyTorch/CUDA port of the MoBA serving and training paths (``repro``
+is the JAX reference; this package mirrors it module for module)."""

@@ -7,18 +7,20 @@ and call sites select by *name + capability query* via :func:`resolve`.
 Registered backends of the port:
 
   reference     O(N²) masked-softmax oracle (``core/moba.py``)
-  xla           plain PyTorch gather path for paged serving (alias:
-                ``sparse``) — the name is the reference's
-  flash         Hopper kernels: the hand-written CUDA paged-decode
-                kernel (``kernels/moba_decode.py``) (alias: ``kernel``)
+  xla           plain PyTorch gather-and-densify (``kernels/ref.py::
+                moba_sparse_xla``, differentiable) and the plain paged
+                paths (alias: ``sparse``) — the name is the reference's
+  flash         Hopper kernels: FlashMoBA for cache-free (training)
+                attention (``kernels/ops.py::flash_moba``, four CUDA
+                kernels) and the CUDA paged-decode kernel
+                (``kernels/moba_decode.py``) (alias: ``kernel``)
 
 Dense and sliding-window kinds share one implementation across backends
 (base-class methods); MoBA is where backends differ.  Paged *prefill* is
 shared too: the ragged reference path is the only implementation with
-per-sequence ``kv_len`` masking.  The cache-free (training) MoBA paths of
-``xla`` and ``flash`` — the gather-and-densify forward and FlashMoBA —
-come with the training slice (ROADMAP.md), so those two backends declare
-the paged cache only.
+per-sequence ``kv_len`` masking.  The ``dense`` cache protocol is the
+cache-free path here: the reference's dense per-sequence KV cache is not
+ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -156,23 +158,37 @@ class ReferenceBackend(AttentionBackend):
 
 
 class XLABackend(AttentionBackend):
-    """Plain PyTorch gather path (the reference's ``xla`` backend)."""
+    """Plain PyTorch gather-and-densify (the reference's ``xla`` backend),
+    differentiable through torch autograd."""
 
     name = "xla"
     aliases = ("sparse",)
-    capabilities = Capabilities(caches=("paged",))
+
+    def moba_prefill(self, cfg, q, k, v, *, q_positions=None):
+        from repro_torch.kernels import ref
+        return ref.moba_sparse_xla(q, k, v, cfg.moba,
+                                   q_positions=q_positions, scale=cfg.scale)
 
 
 class FlashBackend(AttentionBackend):
-    """Hopper kernel path: paged MoBA decode through the CUDA kernel
-    (CPU tensors take its plain version, see ``kernels/moba_decode.py``).
-    ``decode_grid`` keeps the reference's grid option; both values reach
-    the one Hopper kernel."""
+    """Hopper kernel path: FlashMoBA training attention and the paged MoBA
+    decode kernel (CPU tensors take the kernels' plain versions).
+    ``train_grid``, ``kb_tile`` and ``decode_grid`` keep the reference's
+    options; both grid values reach the one Hopper kernel of each
+    function."""
 
     name = "flash"
     aliases = ("kernel",)
-    capabilities = Capabilities(caches=("paged",))
     decode_grid: str = "grouped"
+    train_grid: str = "grouped"
+    # forward K/V streaming granularity, 0 = auto (min(block_size, 128))
+    kb_tile: int = 0
+
+    def moba_prefill(self, cfg, q, k, v, *, q_positions=None):
+        from repro_torch.kernels import ops
+        return ops.flash_moba(q, k, v, cfg.moba, q_positions=q_positions,
+                              scale=cfg.scale, kb_tile=self.kb_tile,
+                              grid=self.train_grid)
 
     def moba_paged_decode(self, cfg, q, cache, block_table, kv_len):
         from repro_torch.kernels import moba_decode
@@ -213,7 +229,9 @@ def get(name: str) -> AttentionBackend:
 def parse_backend_spec(spec: str) -> str:
     """``name[:option,...]`` → registered backend name, applying each
     option to the backend instance.  Options: ``grouped`` / ``flat`` set
-    the paged-decode grid of backends that carry one.  Unknown names or
+    both the paged-decode grid (``decode_grid``) and the training grid
+    (``train_grid``) of backends that carry them; ``kb_tile=N`` sets the
+    forward's K/V streaming granularity (0 = auto).  Unknown names or
     options raise :class:`BackendCapabilityError`."""
     name, _, optstr = spec.partition(":")
     if not optstr:
@@ -222,15 +240,30 @@ def parse_backend_spec(spec: str) -> str:
     for opt in optstr.split(","):
         opt = opt.strip()
         if opt in ("grouped", "flat"):
-            if not hasattr(be, "decode_grid"):
+            if not hasattr(be, "decode_grid") \
+                    and not hasattr(be, "train_grid"):
                 raise BackendCapabilityError(
                     f"backend {be.name!r} has no decode-grid option; "
                     f"got {spec!r}")
-            be.decode_grid = opt
+            if hasattr(be, "decode_grid"):
+                be.decode_grid = opt
+            if hasattr(be, "train_grid"):
+                be.train_grid = opt
+        elif opt.startswith("kb_tile="):
+            if not hasattr(be, "kb_tile"):
+                raise BackendCapabilityError(
+                    f"backend {be.name!r} has no kb_tile option (only the "
+                    f"kernel training path does); got {spec!r}")
+            try:
+                be.kb_tile = int(opt.split("=", 1)[1])
+            except ValueError:
+                raise BackendCapabilityError(
+                    f"unknown backend option {opt!r} in {spec!r}: "
+                    f"kb_tile takes an integer (0 = auto)") from None
         else:
             raise BackendCapabilityError(
                 f"unknown backend option {opt!r} in {spec!r}; expected "
-                f"grouped | flat")
+                f"grouped | flat | kb_tile=N")
     return name
 
 

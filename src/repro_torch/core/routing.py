@@ -1,4 +1,4 @@
-"""MoBA routing: block centroids and causal top-k block selection.
+"""MoBA routing: block centroids, causal top-k selection, varlen layout.
 
 Shapes convention (single batch*head slice unless noted):
   q:      (N, d)     queries
@@ -18,7 +18,7 @@ reference: :func:`topk_desc` sorts stably instead of calling
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -110,3 +110,70 @@ def selection_mask(top_idx: torch.Tensor, nb: int) -> torch.Tensor:
                        device=top_idx.device)
     mask.scatter_(-1, top_idx.long(), True)     # sentinel lands in column nb
     return mask[..., :nb]
+
+
+class VarlenLayout(NamedTuple):
+    """Key-block-major padded varlen layout (paper Alg. 4), batched over a
+    leading (B·H) dim.
+
+    With Nq queries each selecting k blocks there are exactly Nq*k
+    (query, block) pairs.  Pairs are sorted by block id (stable, so query
+    order is kept inside a block), then each block's run is padded to a
+    multiple of the tile Tq so every tile maps to exactly one key block.
+    Capacity L = Nq*k + nb*Tq bounds any padding outcome; sentinel pairs
+    are parked in the trailing region.  All int32.
+    """
+
+    q_index: torch.Tensor     # (BH, L) query position per slot, -1 = pad
+    slot_block: torch.Tensor  # (BH, L) block id per slot, nb = pad
+    tile_block: torch.Tensor  # (BH, L/Tq) block id per tile, nb = inactive
+    pair_slot: torch.Tensor   # (BH, Nq, k) slot index of each pair
+
+
+def layout_capacity(nq: int, k: int, nb: int, tile: int) -> int:
+    return nq * k + nb * tile
+
+
+def build_varlen_layout(top_idx: torch.Tensor, nq: int, nb: int,
+                        tile: int) -> VarlenLayout:
+    """top_idx: (BH, Nq, k) selected block ids (sentinel nb).  The
+    reference's per-head construction with (B·H) as a leading dim; counts
+    come from ``scatter_add_`` (no host sync), so the shapes stay static
+    and the card never waits on the host."""
+    bh, _, k = top_idx.shape
+    dev = top_idx.device
+    flat_block = top_idx.reshape(bh, nq * k).long()           # (BH, P)
+    flat_q = torch.arange(nq, device=dev).repeat_interleave(k)
+
+    sb, order = torch.sort(flat_block, dim=-1, stable=True)
+    sq = flat_q[order]
+
+    counts = torch.zeros((bh, nb + 1), dtype=torch.long, device=dev)
+    counts.scatter_add_(1, flat_block, torch.ones_like(flat_block))
+    padded = (counts + tile - 1) // tile * tile
+    zero = counts.new_zeros((bh, 1))
+    # sentinel pairs live in the trailing region: they take whatever
+    # space remains, so slot indices stay in bounds
+    starts = torch.cat([zero, torch.cumsum(padded[:, :-1], dim=1)], dim=1)
+    offsets = torch.cat([zero, torch.cumsum(counts[:, :-1], dim=1)], dim=1)
+
+    capacity = layout_capacity(nq, k, nb, tile)
+    rank = (torch.arange(nq * k, device=dev)[None]
+            - offsets.gather(1, sb))
+    slot = starts.gather(1, sb) + rank                        # (BH, P)
+
+    q_index = torch.full((bh, capacity), -1, dtype=torch.long, device=dev)
+    q_index.scatter_(1, slot, torch.where(sb == nb, -1, sq))
+    slot_block = torch.full((bh, capacity), nb, dtype=torch.long,
+                            device=dev)
+    slot_block.scatter_(1, slot, sb)
+    # every tile of an active run starts with a real slot (padding sits at
+    # the run's tail), so the first slot names the tile's block
+    first = slot_block.reshape(bh, -1, tile)[:, :, 0]
+    tile_block = torch.where(first < nb, first, nb)
+    pair_slot = torch.zeros((bh, nq * k), dtype=torch.long, device=dev)
+    pair_slot.scatter_(1, order, slot)
+    return VarlenLayout(q_index.to(torch.int32),
+                        slot_block.to(torch.int32),
+                        tile_block.to(torch.int32),
+                        pair_slot.reshape(bh, nq, k).to(torch.int32))

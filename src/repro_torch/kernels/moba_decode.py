@@ -37,7 +37,6 @@ from repro_torch.kernels import runtime
 LAUNCHES = 0
 
 GRIDS = ("grouped", "flat")
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_PAGE = 256
 _MAX_GROUP = 8
@@ -77,7 +76,7 @@ def check_contract(q: torch.Tensor, pages_k: torch.Tensor,
     problems = []
     if one != 1:
         problems.append(f"one query token per row (got {one})")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in runtime.DTYPE_CODES:
         problems.append(f"q dtype bf16 or fp32 (got {q.dtype})")
     if Q.kv_dtype_of(pages_k.dtype) != "fp32":
         problems.append(f"an unquantized pool (got {pages_k.dtype})")
@@ -106,18 +105,8 @@ def check_contract(q: torch.Tensor, pages_k: torch.Tensor,
             f"{tuple(pages_k.shape)}")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _library() -> ctypes.CDLL:
-    lib = runtime.load_library("moba_decode")
-    fn = lib.moba_paged_decode
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def decode_tables(q: torch.Tensor, pages_k: torch.Tensor,
@@ -158,17 +147,16 @@ def launch(q: torch.Tensor, pages_k: torch.Tensor, pages_v: torch.Tensor,
     q_rows = q[:, :, 0, :].reshape(b * hkv, g, d).contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
     out = torch.empty_like(q_rows)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptr = runtime.ptr
+    lib = runtime.bind("moba_decode", "moba_paged_decode", _ARGTYPES)
     with torch.cuda.device(q.device):
-        err = _library().moba_paged_decode(
-            _ptr(q_rows), _ptr(pages_k), _ptr(pages_v), None, None,
-            _ptr(phys), _ptr(base), _ptr(n_uniq), _ptr(kvl), _ptr(out),
+        err = lib.moba_paged_decode(
+            ptr(q_rows), ptr(pages_k), ptr(pages_v), None, None,
+            ptr(phys), ptr(base), ptr(n_uniq), ptr(kvl), ptr(out),
             b * hkv, hkv, g, cap, ps, d, float(scale),
-            _DTYPE_CODES[q.dtype], ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"moba_paged_decode launch failed: CUDA error "
-                           f"{err} (q {tuple(q.shape)}, pool "
-                           f"{tuple(pages_k.shape)})")
+            runtime.DTYPE_CODES[q.dtype], runtime.stream_of(q))
+    runtime.check(err, f"moba_paged_decode (q {tuple(q.shape)}, pool "
+                       f"{tuple(pages_k.shape)})")
     LAUNCHES += 1
     return out.reshape(b, h, 1, d)
 

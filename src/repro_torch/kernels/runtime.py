@@ -9,6 +9,11 @@ never loaded.  Nothing builds at import time: the first launch builds,
 and ``chip_smoke.py`` calls :func:`build` up front to time it.
 
 A missing ``nvcc`` or a failed compile raises; there is no fallback.
+
+The wrappers share :func:`ptr`, :func:`stream_of` and :func:`check`:
+every pointer and the stream cross into C as ``c_void_p``, the stream is
+read at launch time (autograd runs a backward on its own thread), and
+each C entry point returns its launch's ``cudaGetLastError()``.
 """
 from __future__ import annotations
 
@@ -21,12 +26,44 @@ import subprocess
 import tempfile
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD = pathlib.Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# every kernel source, in the order chip_smoke.py builds and reports them
+KERNELS = ("moba_decode", "centroids", "flash_topk", "moba_fwd", "moba_bwd")
+# the ``dtype`` code of every C entry point
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``t``'s card, read at launch time."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def bind(name: str, fn: str, argtypes) -> ctypes.CDLL:
+    """Library ``name`` with ``argtypes`` and an int return set on its
+    entry point ``fn``."""
+    lib = load_library(name)
+    entry = getattr(lib, fn)
+    if entry.argtypes is None:
+        entry.argtypes = argtypes
+        entry.restype = ctypes.c_int
+    return lib
 
 
 def nvcc_path() -> str:

@@ -1,1 +1,1 @@
-"""Step builders and the serving command line."""
+"""Step builders and the serving and training command lines."""

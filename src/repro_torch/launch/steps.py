@@ -1,15 +1,56 @@
-"""Step-function builders for the paged serving engine.
+"""Step-function builders: the training step and the paged serving
+engine's prefill and decode steps.
 
-The reference jits these and donates the cache argument; the port runs
-them eagerly and the pools are updated in place, so the returned caches
-are the ones passed in.
+The reference jits these and donates the params, optimizer state and
+cache arguments; the port runs them eagerly and updates params, moments
+and pools in place, so the returned trees are the ones passed in.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
+from repro_torch.serving.scheduler import UnsupportedFeatureError
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    backend: str = "sparse", remat: bool = True,
+                    accum_in_loss: bool = False):
+    """One optimizer step: ``train_step(params, opt_state, batch) ->
+    (params, opt_state, {'loss', 'lr', 'grad_norm'})`` with ``batch``
+    {'tokens': (B, S+1)}.  Gradients come from torch autograd through
+    :func:`repro_torch.models.transformer.lm_loss` (``remat`` checkpoints
+    each layer group), then one :func:`repro_torch.optim.adamw.
+    adamw_update`.
+
+    Gradient accumulation (``tcfg.microbatch > 1``, ``accum_in_loss``) is
+    the reference's and is not ported yet (ROADMAP.md §A)."""
+    if tcfg.microbatch and tcfg.microbatch > 1:
+        raise UnsupportedFeatureError(
+            "microbatch", "gradient accumulation is not ported yet; "
+                          "ROADMAP.md §A lists it after the training slice")
+    if accum_in_loss:
+        raise UnsupportedFeatureError(
+            "accum_in_loss", "accumulation inside the loss is not ported "
+                             "yet; ROADMAP.md §A lists it after the "
+                             "training slice")
+    lr_fn = adamw.cosine_schedule(tcfg)
+
+    def train_step(params, opt_state, batch):
+        leaves = [leaf.requires_grad_() for _, leaf in
+                  adamw.tree_leaves(params)]
+        loss, _ = T.lm_loss(params, batch, cfg, backend=backend,
+                            remat=remat)
+        grads = adamw.tree_like(params, torch.autograd.grad(loss, leaves))
+        params, opt_state, om = adamw.adamw_update(params, grads, opt_state,
+                                                   tcfg, lr_fn)
+        out = {"loss": loss.detach()}
+        out.update(om)
+        return params, opt_state, out
+
+    return train_step
 
 
 def make_paged_prefill_step(cfg: ModelConfig, backend: str = "reference",

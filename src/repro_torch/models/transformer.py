@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -108,16 +109,22 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
 def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
              caches: Optional[dict] = None, backend: str = "reference",
              positions: Optional[torch.Tensor] = None,
-             page_state: Optional[dict] = None):
+             page_state: Optional[dict] = None, remat: bool = False):
     """tokens (B, S) -> (logits (B, S, V), aux, caches).  Paged caches are
     updated in place and returned; ``aux`` (the reference's MoE loss) is
-    zero for the dense family."""
+    zero for the dense family.
+
+    ``remat=True`` checkpoints each layer group (the reference's
+    ``jax.checkpoint(group_body)``): its activations are recomputed in the
+    backward instead of kept, so only one group's attention is alive at
+    a time."""
     pattern, n_groups = _block_kinds(cfg)
     dt = getattr(torch, cfg.dtype)
     # gather then cast: the same values as casting the whole table first
     x = params["embed"][tokens.long()].to(dt)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for gi in range(n_groups):
+
+    def group_body(x, gi: int):
         for i, kind in enumerate(pattern):
             name = f"slot_{i}"
             p_i = _group(params["blocks"][name], gi)
@@ -125,10 +132,38 @@ def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             x, _ = apply_block(p_i, x, cfg, kind, positions=positions,
                                cache=cache_i, backend=backend,
                                page_state=page_state)
+        return x
+
+    for gi in range(n_groups):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(group_body, x, gi,
+                                                  use_reentrant=False)
+        else:
+            x = group_body(x, gi)
     x = L.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"]).to(dt)
     return x @ head, aux, caches
+
+
+def lm_loss(params, batch: dict, cfg: ModelConfig,
+            backend: str = "reference", remat: bool = False):
+    """batch: {'tokens': (B, S+1) int, optional 'mask': (B, S)} → (mean
+    next-token CE + aux, {'ce', 'aux'})."""
+    tokens = batch["tokens"]
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    logits, aux, _ = lm_apply(params, inp, cfg, backend=backend,
+                              remat=remat)
+    # memory-frugal CE, as in the reference: logsumexp of the compute-dtype
+    # logits plus the target gather; no fp32 (B, S, V) copy
+    lse = torch.logsumexp(logits, dim=-1)                    # (B, S)
+    tgt_logit = logits.gather(-1, tgt.long()[..., None])[..., 0].float()
+    ll = tgt_logit - lse.float()
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(ll)
+    loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + aux, {"ce": loss, "aux": aux}
 
 
 # -------------------------------------------------------------------- cache

@@ -182,18 +182,25 @@ def test_out_of_scope_model_and_fleet_raise(model):
 def test_backend_registry_and_specs(monkeypatch):
     flash = B.get("flash")
     monkeypatch.setattr(flash, "decode_grid", "grouped")
+    monkeypatch.setattr(flash, "train_grid", "grouped")
+    monkeypatch.setattr(flash, "kb_tile", 0)
     assert B.get("sparse") is B.get("xla")
     assert B.get("kernel") is flash
-    assert B.resolve_backend_spec("flash:flat") == "flash"
-    assert flash.decode_grid == "flat"
+    assert B.resolve_backend_spec("flash:flat,kb_tile=64") == "flash"
+    assert (flash.decode_grid, flash.train_grid, flash.kb_tile) == \
+        ("flat", "flat", 64)
     with pytest.raises(B.BackendCapabilityError, match="option"):
         B.parse_backend_spec("flash:compiled")
     with pytest.raises(B.BackendCapabilityError, match="decode-grid"):
         B.parse_backend_spec("xla:flat")
-    # cache-free MoBA on xla/flash belongs to the training slice
-    with pytest.raises(B.BackendCapabilityError, match="reference"):
-        B.resolve("flash", kind="moba", phase="prefill", cache="dense")
+    with pytest.raises(B.BackendCapabilityError, match="kb_tile"):
+        B.parse_backend_spec("xla:kb_tile=64")
+    with pytest.raises(B.BackendCapabilityError, match="integer"):
+        B.parse_backend_spec("flash:kb_tile=x")
+    # every backend runs cache-free (training) MoBA and paged MoBA
     for name in ("reference", "xla", "flash"):
+        assert B.resolve(name, kind="moba", phase="prefill",
+                         cache="dense").name == name
         for phase in ("prefill", "decode"):
             assert B.resolve(name, kind="moba", phase=phase,
                              cache="paged").name == name
