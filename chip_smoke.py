@@ -5,30 +5,38 @@
 
 Phases, one JSON line each; any failure exits non-zero:
 
-  1. env     — card name and power limit, torch/CUDA versions, the CUDA
-               kernels built from ``src/repro_torch/kernels/csrc`` (build
-               seconds, ptxas register report).
+  1. env     — card name and power limit, torch/CUDA versions, the six
+               CUDA kernels built from ``src/repro_torch/kernels/csrc``
+               (build seconds, ptxas register report).
   2. kernel  — the paged MoBA decode kernel against its plain PyTorch
                version at moba-340m decode shapes (B=8, H=Hkv=16, d=64,
                page 128, top_k 8, a 320-page pool, shuffled block tables,
                ragged kv_len with 0, 1, an exact page boundary and a
                table shorter than top_k) in bf16 (atol/rtol 3e-2) and
-               fp32 (1e-3, TF32 off), plus a G=2, d=128 geometry.  Times
-               from CUDA events (median of 25, L2 flushed before each):
-               the kernel's wrapper, the plain version, and
-               ``scaled_dot_product_attention`` over the gathered pages
-               as the library yardstick; the bytes bound from this run's
-               inputs at 3.35 TB/s.
+               fp32 (1e-3, TF32 off), plus a G=2, d=128 geometry; each
+               from bf16/fp32 pools and from int8 and fp8 pools (the
+               dequant path) filled from the same keys and values, the
+               quantized ones also held against the unquantized plain
+               version on the same q and K/V (int8 5e-2, fp8 2e-1).
+               Times from CUDA events (median of 25, L2 flushed before
+               each), per pool dtype at the main shapes with bf16 q: the
+               kernel's wrapper, the launch alone, the plain version, and
+               ``scaled_dot_product_attention`` over the gathered (and
+               dequantized) pages as the library yardstick; the bytes
+               bound from this run's inputs at 3.35 TB/s.
   3. serve   — moba-340m at full width (bf16, random weights from a
                seeded torch.Generator) through ``Engine`` on the ``flash``
                backend: 8 prompts of 1024..4095 tokens, 64 new tokens
                each.  Every request must finish with 64 tokens and the
                decode kernel must have launched exactly 12 times (one per
-               MoBA layer) per decode step.
+               MoBA layer) per decode step.  Then the same cell from int8
+               and from fp8 pools (``serve_quantized``, 32 new tokens):
+               the same checks, decode tokens/s and step ms, and the
+               pools' bytes against the bf16 run's.
   4. logits  — the same model in fp32 (TF32 off): one shared paged
                prefill, then one decode step under ``flash`` and one under
                ``xla`` from cloned caches; logits within 2e-3 and equal
-               greedy tokens.
+               greedy tokens.  Repeated from int8 and from fp8 pools.
   5. train_kernels — the four FlashMoBA training kernels (centroids, Flash
                TopK, forward, backward) against their plain PyTorch
                versions at the moba-340m training shapes (B=1, H=Hkv=16,
@@ -63,8 +71,17 @@ Phases, one JSON line each; any failure exits non-zero:
                max |g| <= 5e-3), the xla run replaying the flash run's
                block selections; each layer's selections must differ
                from the plain routing only on near-ties.
+  8. swa     — ``swa_attention``'s CUDA kernel against its plain version
+               at moba-340m's SWA shapes (N 8192, window 256, 16 heads,
+               d 64) in bf16 (3e-2) and fp32 (2e-4), a GQA geometry (H 16,
+               Hkv 8, d 128), window 100 with q_tile 128 / k_tile 64, and a
+               window >= N.  Times at the main bf16 shapes: the wrapper,
+               the launch alone, the plain version, causal SDPA with a
+               band mask as the library call, and the bound.  No serving
+               or training path launches it.
 
-Then the kernel line, and as the last line
+Then the card's name and power limit, the kernel line (the six kernels,
+the decode kernel once per pool dtype), and as the last line
 ``{"ok": true, "device": {...}}``.  Without a usable card, or run from a
 directory that lacks the repository's ``src/repro_torch``, it exits
 non-zero before printing any result.
@@ -99,9 +116,15 @@ TRAIN_KERNELS = {
     "moba_bwd": ("moba_bwd", f"{CSRC}/moba_bwd.cu",
                  "src/repro/kernels/moba_bwd.py:167"),
 }
+SWA_KERNEL = ("swa_attention", f"{CSRC}/swa.cu", "src/repro/kernels/swa.py:77")
 MOBA_LAYERS = 12                   # moba-340m: 24 layers, swa/moba
 TRAIN_SEQ = 8192                   # the paper's training context
 TRAIN_STEPS = 4
+KV_DTYPES = ("fp32", "int8", "fp8")
+# quantized decode vs the unquantized plain version on the same K/V
+# (tests/test_quantized_pages.py:41)
+QUANT_TOL = {"int8": 5e-2, "fp8": 2e-1}
+QUANT_NEW_TOKENS = 32
 
 
 def emit(obj) -> None:
@@ -154,18 +177,28 @@ def phase_env():
 
 
 # ------------------------------------------------------------------ phase 2
-def _paged_case(*, b, h, hkv, d, ps, npg, num_pages, kv_lens, dtype, seed):
+def _paged_case(*, b, h, hkv, d, ps, npg, num_pages, kv_lens, dtype, seed,
+                kv_dtype="fp32"):
     """A pool filled through the port's own prefill append (so centroids
-    are the engine's), shuffled physical pages, ragged lengths."""
+    and, for int8/fp8 pools, payloads and scales are the engine's),
+    shuffled physical pages, ragged lengths.  Pages no sequence owns keep
+    finite garbage (and stale scales 3.0), as in a recycled pool.  One
+    seed gives the same keys, values and queries for every ``kv_dtype``."""
     import torch
+    from repro_torch.core import quantization as Q
     from repro_torch.serving import paged_cache as PC
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    pool = {"pages_k": torch.randn((num_pages, ps, hkv, d), generator=gen,
-                                   device=dev).to(dtype),
-            "pages_v": torch.randn((num_pages, ps, hkv, d), generator=gen,
-                                   device=dev).to(dtype),
-            "centroids": torch.zeros((num_pages, hkv, d), device=dev)}
+    junk = [torch.randn((num_pages, ps, hkv, d), generator=gen, device=dev)
+            for _ in range(2)]
+    if kv_dtype == "fp32":
+        pool = {"pages_k": junk[0].to(dtype), "pages_v": junk[1].to(dtype)}
+    else:
+        pool = {"pages_k": Q.quantize(junk[0], 0.05, kv_dtype),
+                "pages_v": Q.quantize(junk[1], 0.05, kv_dtype),
+                "scales_k": torch.full((num_pages, hkv), 3.0, device=dev),
+                "scales_v": torch.full((num_pages, hkv), 3.0, device=dev)}
+    pool["centroids"] = torch.zeros((num_pages, hkv, d), device=dev)
     perm = torch.randperm(num_pages, generator=gen, device=dev).tolist()
     table = np.full((b, npg), -1, np.int32)
     for i, n in enumerate(kv_lens):
@@ -181,11 +214,16 @@ def _paged_case(*, b, h, hkv, d, ps, npg, num_pages, kv_lens, dtype, seed):
     return q, pool, table, kv
 
 
+def _scales(pool) -> dict:
+    return {k: pool[k] for k in ("scales_k", "scales_v") if k in pool}
+
+
 def _decode_bytes_and_flops(q, pool, table, kv, idx, sel_valid, tables):
     """Bytes the decode function must move for these inputs (each read
     once, the output written once: the K/V rows of the valid tokens of
-    each row's union pages, the centroid rows of the assigned table
-    entries, q, the output, the tables) and its operations."""
+    each row's union pages and, for a quantized pool, their two scales,
+    the centroid rows of the assigned table entries, q, the output, the
+    tables) and its operations."""
     phys, base, n_uniq = tables
     b, h, _, d = q.shape
     _, ps, hkv, _ = pool["pages_k"].shape
@@ -199,6 +237,7 @@ def _decode_bytes_and_flops(q, pool, table, kv, idx, sel_valid, tables):
     kv_tokens = float((valid_tok * uslot).sum())
     head_tokens = float(((kvl - base.long()).clamp(0, ps)).sum())
     nbytes = (2 * kv_tokens * d * esz                        # K and V rows
+              + (2 * 4 * float(uslot.sum()) if "scales_k" in pool else 0)
               + int((table >= 0).sum()) * hkv * d * 4        # centroid rows
               + table.numel() * 4 + kv.numel() * 4
               + 2 * q.numel() * q.element_size())            # q in, o out
@@ -208,6 +247,10 @@ def _decode_bytes_and_flops(q, pool, table, kv, idx, sel_valid, tables):
 
 
 def phase_kernel():
+    """Unquantized pools first, then int8 and fp8 pools from the same
+    keys and values: each held against the plain version on its own pool
+    and, quantized, against the unquantized plain version on the same
+    q and K/V (the bf16 or fp32 pool of that q dtype)."""
     import torch
     from repro_torch.configs.base import MoBAConfig
     from repro_torch.core.moba import moba_paged_decode_attention
@@ -221,50 +264,69 @@ def phase_kernel():
               kv_lens=[0, 700, 1536, 129])
     tols = {torch.bfloat16: 3e-2, torch.float32: 1e-3}
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    checks, timing = [], None
+    checks, timing = [], {}
     for name, geom in (("moba-340m", main), ("g2-d128", g2)):
-        for dtype in (torch.bfloat16, torch.float32):
-            q, pool, table, kv = _paged_case(dtype=dtype, seed=7, **geom)
-            args = (q, pool["pages_k"], pool["pages_v"], pool["centroids"],
-                    table, kv, cfg)
-            out = MD.moba_paged_decode(*args)
-            ref = moba_paged_decode_attention(*args)
-            torch.cuda.synchronize()
-            act = kv > 0
-            err = float((out[act].float() - ref[act].float()).abs().max())
-            tol = tols[dtype]
-            ok = bool(torch.allclose(out[act].float(), ref[act].float(),
-                                     atol=tol, rtol=tol))
-            zeros = bool((out[~act] == 0).all())
-            checks.append({"geometry": name, "dtype": str(dtype),
-                           "max_abs_err": err, "tol": tol, "ok": ok,
-                           "inactive_rows_zero": zeros})
-            if not (ok and zeros):
-                emit({"phase": "kernel", "checks": checks})
-                raise SystemExit(f"kernel disagrees with its plain version: "
-                                 f"{checks[-1]}")
-            if name == "moba-340m" and dtype == torch.bfloat16:
-                timing = _time_decode(q, pool, table, kv, cfg, args, err,
-                                      flush)
-    emit({"phase": "kernel", "checks": checks, **timing})
+        unquantized = {}
+        for kv_dtype in KV_DTYPES:
+            for dtype in (torch.bfloat16, torch.float32):
+                q, pool, table, kv = _paged_case(dtype=dtype, seed=7,
+                                                 kv_dtype=kv_dtype, **geom)
+                args = (q, pool["pages_k"], pool["pages_v"],
+                        pool["centroids"], table, kv, cfg)
+                out = MD.moba_paged_decode(*args, **_scales(pool))
+                ref = moba_paged_decode_attention(*args, **_scales(pool))
+                torch.cuda.synchronize()
+                act = kv > 0
+                err = float((out[act].float() - ref[act].float()).abs().max())
+                tol = tols[dtype]
+                ok = bool(torch.allclose(out[act].float(), ref[act].float(),
+                                         atol=tol, rtol=tol))
+                zeros = bool((out[~act] == 0).all())
+                rec = {"geometry": name, "kv_dtype": kv_dtype,
+                       "dtype": str(dtype), "max_abs_err": err, "tol": tol,
+                       "ok": ok, "inactive_rows_zero": zeros}
+                if kv_dtype == "fp32":
+                    unquantized[dtype] = ref
+                else:
+                    qerr = float((out[act].float()
+                                  - unquantized[dtype][act].float())
+                                 .abs().max())
+                    rec.update(vs_unquantized_err=qerr,
+                               vs_unquantized_tol=QUANT_TOL[kv_dtype])
+                    ok = ok and qerr <= QUANT_TOL[kv_dtype]
+                    rec["ok"] = ok
+                checks.append(rec)
+                if not (ok and zeros):
+                    emit({"phase": "kernel", "checks": checks})
+                    raise SystemExit(f"kernel disagrees with its plain "
+                                     f"version: {checks[-1]}")
+                if name == "moba-340m" and dtype == torch.bfloat16:
+                    timing[kv_dtype] = _time_decode(q, pool, table, kv, cfg,
+                                                    args, err, flush)
+    emit({"phase": "kernel", "checks": checks, "timing": timing})
     return timing
 
 
 def _time_decode(q, pool, table, kv, cfg, args, err, flush):
     import torch
+    from repro_torch.core import quantization as Q
     from repro_torch.core.moba import moba_paged_decode_attention as plain
     from repro_torch.core.moba import moba_paged_route
     from repro_torch.kernels import moba_decode as MD
+    sc = _scales(pool)
     idx, sel_valid = moba_paged_route(q, pool["centroids"], table, kv, cfg,
                                       page_size=pool["pages_k"].shape[1])
     tables = MD.decode_tables(q, pool["pages_k"], table, idx, sel_valid)
     scale = q.shape[-1] ** -0.5
-    ms = cuda_events_ms(lambda: MD.moba_paged_decode(*args), flush=flush)
+    ms = cuda_events_ms(lambda: MD.moba_paged_decode(*args, **sc),
+                        flush=flush)
     kernel_only_ms = cuda_events_ms(
         lambda: MD.launch(q, pool["pages_k"], pool["pages_v"], kv, *tables,
-                          scale), flush=flush)
-    plain_ms = cuda_events_ms(lambda: plain(*args), flush=flush)
-    # library yardstick: SDPA over the selected pages, gathered beforehand
+                          scale, sc.get("scales_k"), sc.get("scales_v")),
+        flush=flush)
+    plain_ms = cuda_events_ms(lambda: plain(*args, **sc), flush=flush)
+    # library yardstick: SDPA over the selected pages, gathered (and
+    # dequantized) beforehand
     b, h, _, d = q.shape
     _, ps, hkv, _ = pool["pages_k"].shape
     phys = table.clamp(min=0).long()[
@@ -272,8 +334,11 @@ def _time_decode(q, pool, table, kv, cfg, args, err, flush):
     heads = torch.arange(hkv, device=q.device)[None, :, None, None, None]
     kg = pool["pages_k"].permute(2, 0, 1, 3)[heads, phys]  # (B,Hkv,G,1,k,ps,d)
     vg = pool["pages_v"].permute(2, 0, 1, 3)[heads, phys]
-    kg = kg.reshape(b, h, -1, d)
-    vg = vg.reshape(b, h, -1, d)
+    if sc:
+        kg = Q.dequantize(kg, sc["scales_k"][phys, heads][..., None, None])
+        vg = Q.dequantize(vg, sc["scales_v"][phys, heads][..., None, None])
+    kg = kg.reshape(b, h, -1, d).to(q.dtype)
+    vg = vg.reshape(b, h, -1, d).to(q.dtype)
     pos = idx[..., None] * ps + torch.arange(ps, device=q.device)
     mask = ((pos < kv[:, None, None, None, None, None])
             & sel_valid[..., None]).reshape(b, h, 1, -1)
@@ -283,7 +348,7 @@ def _time_decode(q, pool, table, kv, cfg, args, err, flush):
     sdpa = torch.nn.functional.scaled_dot_product_attention(
         q, kg, vg, attn_mask=mask)
     act = kv > 0
-    ref = plain(*args)
+    ref = plain(*args, **sc)
     sdpa_err = float((sdpa[act].float() - ref[act].float()).abs().max())
     nbytes, flops = _decode_bytes_and_flops(q, pool, table, kv, idx,
                                             sel_valid, tables)
@@ -299,7 +364,10 @@ def _time_decode(q, pool, table, kv, cfg, args, err, flush):
 
 
 # ------------------------------------------------------------------ phase 3
-def phase_serve():
+def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
+                bf16_pool_bytes: int = 0):
+    """The serve cell on ``flash`` from ``kv_dtype`` pools.  Returns the
+    decode kernel's launches in the measured run and the pools' bytes."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import moba_decode as MD
@@ -310,11 +378,13 @@ def phase_serve():
     params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
     eng = Engine(cfg, params, EngineConfig(
         max_seqs=8, max_prefill_batch=2, max_seq_len=4224,
-        attn_backend="flash"), device="cuda")
+        attn_backend="flash", kv_dtype=kv_dtype), device="cuda")
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for pool in eng.caches.values() for t in pool.values())
     rng = np.random.default_rng(0)
     lens = rng.integers(1024, 4096, 8)
     reqs = [eng.submit(rng.integers(0, cfg.vocab_size, int(n),
-                                    dtype=np.int32), max_new_tokens=64)
+                                    dtype=np.int32), max_new_tokens=new_tokens)
             for n in lens]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -325,11 +395,12 @@ def phase_serve():
     wall = time.perf_counter() - t0
     launches = MD.LAUNCHES
     st = dict(eng.stats)           # the profile window below adds steps
-    outs_ok = all(len(r.out) == 64 and r.done for r in reqs)
+    outs_ok = all(len(r.out) == new_tokens and r.done for r in reqs)
     toks = np.concatenate([np.asarray(r.out) for r in reqs])
     in_vocab = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
-    rec = {"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
-           "prompt_lens": [int(n) for n in lens], "new_tokens": 64,
+    rec = {"phase": "serve" if kv_dtype == "fp32" else "serve_quantized",
+           "arch": cfg.name, "dtype": cfg.dtype, "kv_dtype": kv_dtype,
+           "prompt_lens": [int(n) for n in lens], "new_tokens": new_tokens,
            "requests_done": sum(r.done for r in reqs),
            "prefill_tokens": st["prefill_tokens"],
            "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
@@ -339,18 +410,23 @@ def phase_serve():
            "decode_step_ms": st["decode_s"] / st["decode_steps"] * 1e3,
            "wall_s": wall, "preemptions": st["preemptions"],
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "pool_bytes": pool_bytes,
            "kernel_launches": launches,
            "launches_per_step": launches / max(st["decode_steps"], 1)}
+    if bf16_pool_bytes:
+        rec["pool_bytes_vs_bf16"] = pool_bytes / bf16_pool_bytes
     rec["profile"] = _profile_decode(eng, cfg, rng)
     emit(rec)
+    del eng, params
+    torch.cuda.empty_cache()
     if not outs_ok or not in_vocab:
-        raise SystemExit("serve: a request did not finish with 64 tokens "
-                         "in the vocabulary")
-    if launches != MOBA_LAYERS * st["decode_steps"]:
-        raise SystemExit(f"serve: {launches} kernel launches for "
+        raise SystemExit(f"serve ({kv_dtype}): a request did not finish with "
+                         f"{new_tokens} tokens in the vocabulary")
+    if launches == 0 or launches != MOBA_LAYERS * st["decode_steps"]:
+        raise SystemExit(f"serve ({kv_dtype}): {launches} kernel launches for "
                          f"{st['decode_steps']} decode steps, expected "
                          f"{MOBA_LAYERS} per step")
-    return launches
+    return launches, pool_bytes
 
 
 def _profile_decode(eng, cfg, rng, steps: int = 6):
@@ -408,7 +484,7 @@ def _profile_summary(prof, wall: float, steps: int) -> dict:
 
 
 # ------------------------------------------------------------------ phase 4
-def phase_logits():
+def phase_logits(kv_dtype: str = "fp32"):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import steps as S
@@ -432,7 +508,7 @@ def phase_logits():
     for i, n in enumerate(lens):
         tokens[i, :n] = rng.integers(0, cfg.vocab_size, n)
     caches = T.init_paged_caches(cfg, b * npg, ps, dtype=torch.float32,
-                                 device=dev)
+                                 device=dev, kv_dtype=kv_dtype)
     t = {k: torch.as_tensor(v, device=dev) for k, v in dict(
         tokens=tokens, table=table, kv0=np.zeros(b, np.int32), lens=lens,
         slots=np.arange(b, dtype=np.int32),
@@ -463,12 +539,14 @@ def phase_logits():
     same = bool(torch.equal(toks["flash"], toks["xla"])
                 and torch.equal(toks["flash"],
                                 logits["flash"].argmax(-1).to(torch.int32)))
-    emit({"phase": "logits", "dtype": "float32", "batch": b,
+    emit({"phase": "logits", "dtype": "float32", "kv_dtype": kv_dtype,
+          "batch": b,
           "kv_lens": lens.tolist(), "vocab": cfg.vocab_size,
           "max_abs_diff": diff, "tol": 2e-3, "allclose": ok,
           "finite": finite, "greedy_equal": same})
     if not (ok and finite and same):
-        raise SystemExit("logits: flash and xla decode steps disagree")
+        raise SystemExit(f"logits ({kv_dtype}): flash and xla decode steps "
+                         f"disagree")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -762,29 +840,6 @@ def _time_flash_moba(c, flush) -> dict:
                     *x, is_causal=True), dense), flush=flush)}
 
 
-def _swa_row(flush) -> dict:
-    """PERF.md's row for the TPU kernel still to port (swa_attention): its
-    bound at moba-340m's SWA shapes (N 8192, window 256, 16 heads, d 64,
-    bf16) and causal SDPA with a band mask as the library time."""
-    import torch
-    import torch.nn.functional as F
-    n, h, d, w = TRAIN_SEQ, 16, 64, 256
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v = (torch.randn((1, h, n, d), generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
-    pos = torch.arange(n, device="cuda")
-    band = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < w)
-    pairs = float(band.sum()) * h                # (query, key) pairs kept
-    return {"kernel": "swa_attention", "replaces":
-            "src/repro/kernels/swa.py:77", "shape": [1, h, n, d],
-            "window": w, **_bound(4 * q.numel() * q.element_size(),
-                                  4.0 * pairs * d, BF16_FLOPS),
-            "library_ms": cuda_events_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       attn_mask=band),
-                flush=flush)}
-
-
 def phase_train_kernels():
     import torch
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
@@ -821,8 +876,7 @@ def phase_train_kernels():
             del c
             torch.cuda.empty_cache()
     emit({"phase": "train_kernels", "checks": checks,
-          "flash_vs_xla": vs_xla, "timing": timing,
-          "swa_row": _swa_row(flush)})
+          "flash_vs_xla": vs_xla, "timing": timing})
     return timing, main_err
 
 
@@ -979,6 +1033,91 @@ def phase_train_grads():
                          "disagree, or a routing difference is no near-tie")
 
 
+# ------------------------------------------------------------------ phase 8
+def _swa_inputs(*, b, h, hkv, n, d, dtype, seed):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b * h, n, d), generator=gen, device="cuda") * 0.5
+    k = torch.randn((b * hkv, n, d), generator=gen, device="cuda") * 0.5
+    v = torch.randn((b * hkv, n, d), generator=gen, device="cuda")
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def phase_swa():
+    """``swa_attention``'s CUDA kernel against its plain version
+    (``dense_attention`` with the window) at moba-340m's SWA shapes (one
+    sequence of 8192 tokens, 16 heads of 64, window 256) in bf16 and
+    fp32, a GQA geometry (16 heads on 8 kv heads, d 128), window 100 with
+    q_tile 128 and k_tile 64, and a window at least N.  No serving or
+    training path calls it; its launches are this phase's checks."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import swa as KS
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [("moba-340m", dict(b=1, h=16, hkv=16, n=TRAIN_SEQ, d=64),
+              dict(window=256), (bf16, fp32)),
+             ("gqa-d128", dict(b=2, h=16, hkv=8, n=2048, d=128),
+              dict(window=256), (bf16, fp32)),
+             ("window-100", dict(b=1, h=16, hkv=16, n=4096, d=64),
+              dict(window=100, q_tile=128, k_tile=64), (bf16, fp32)),
+             ("window-ge-n", dict(b=2, h=4, hkv=4, n=1024, d=64),
+              dict(window=1500), (bf16, fp32))]
+    tols = {bf16: 3e-2, fp32: 2e-4}
+    checks, main = [], None
+    KS.LAUNCHES = 0
+    for name, shape, opts, dtypes in cases:
+        for dtype in dtypes:
+            q, k, v = _swa_inputs(dtype=dtype, seed=5, **shape)
+            kw = dict(num_q_heads=shape["h"],
+                      group=shape["h"] // shape["hkv"])
+            out = KS.swa_attention(q, k, v, **opts, **kw)
+            ref = KS.swa_attention_plain(q, k, v, opts["window"], **kw)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            tol = tols[dtype]
+            ok = bool(torch.allclose(out.float(), ref.float(), atol=tol,
+                                     rtol=tol))
+            checks.append({"geometry": name, "dtype": str(dtype),
+                           **opts, "max_abs_err": err, "tol": tol,
+                           "ok": ok})
+            if not ok:
+                emit({"phase": "swa", "checks": checks})
+                raise SystemExit(f"swa: the kernel disagrees with its plain "
+                                 f"version: {checks[-1]}")
+            if name == "moba-340m" and dtype == bf16:
+                main = (q, k, v, opts["window"], kw, err)
+            else:
+                del q, k, v, out, ref
+    launches = KS.LAUNCHES
+    q, k, v, w, kw, err = main
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    n, d = q.shape[1], q.shape[2]
+    pos = torch.arange(n, device="cuda")
+    band = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < w)
+    pairs = float(band.sum()) * q.shape[0]       # (query, key) pairs kept
+    q4, k4, v4 = (x[None] for x in (q, k, v))    # (1, H, N, d)
+    scale = d ** -0.5
+    timing = {
+        "ms": cuda_events_ms(lambda: KS.swa_attention(q, k, v, w, **kw),
+                             flush=flush),
+        "kernel_only_ms": cuda_events_ms(
+            lambda: KS.launch(q, k, v, w, kw["num_q_heads"], kw["group"],
+                              scale, 128, 128), flush=flush),
+        "plain_ms": cuda_events_ms(
+            lambda: KS.swa_attention_plain(q, k, v, w, **kw), flush=flush),
+        "library_ms": cuda_events_ms(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                   attn_mask=band),
+            flush=flush),
+        **_bound(4 * q.numel() * q.element_size(), 4.0 * pairs * d,
+                 BF16_FLOPS),
+        "max_abs_err": err}
+    emit({"phase": "swa", "replaces": "src/repro/kernels/swa.py:77",
+          "shape": [1, q.shape[0], n, d], "window": w, "checks": checks,
+          "launches": launches, "timing": timing})
+    return launches, timing
+
+
 def main() -> int:
     try:
         import torch
@@ -998,19 +1137,30 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_env()
     timing = phase_kernel()
-    launches = phase_serve()
-    phase_logits()
+    launches = {}
+    launches["fp32"], bf16_bytes = phase_serve()
+    for kv_dtype in KV_DTYPES[1:]:
+        launches[kv_dtype], _ = phase_serve(kv_dtype, QUANT_NEW_TOKENS,
+                                            bf16_bytes)
+    for kv_dtype in KV_DTYPES:
+        phase_logits(kv_dtype)
     train_timing, train_err = phase_train_kernels()
     train_launches = phase_train()
     phase_train_grads()
+    swa_launches, swa_timing = phase_swa()
     print(smi, flush=True)
-    kernels = [{
-        "name": "moba_paged_decode", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
-        "launches": launches, "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"], "checked": True}]
+    kernels = []
+    for kv_dtype in KV_DTYPES:
+        t = timing[kv_dtype]
+        kernels.append({
+            "name": "moba_paged_decode" + ("" if kv_dtype == "fp32"
+                                           else f":{kv_dtype}"),
+            "route": "cuda", "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+            "pool": "bf16" if kv_dtype == "fp32" else kv_dtype,
+            "launches": launches[kv_dtype], "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "checked": True})
     for name, (_, source, replaces) in TRAIN_KERNELS.items():
         t = train_timing[name]
         kernels.append({
@@ -1020,6 +1170,17 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "checked": True})
+    name, source, replaces = SWA_KERNEL
+    kernels.append({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": swa_launches,
+        "launches_from": "the swa phase's checks: no serving or training "
+                         "path launches it",
+        "max_abs_err": swa_timing["max_abs_err"], "ms": swa_timing["ms"],
+        "plain_ms": swa_timing["plain_ms"],
+        "bound_ms": swa_timing["bound_ms"],
+        "bound_by": swa_timing["bound_by"],
+        "library_ms": swa_timing["library_ms"], "checked": True})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -34,6 +34,7 @@ from repro_torch.core.attention import dense_attention
 from repro_torch.core.moba import (moba_attention_reference,
                                    moba_paged_decode_attention,
                                    moba_paged_prefill_attention)
+from repro_torch.core.quantization import KV_DTYPES
 
 KINDS = ("dense", "swa", "moba")
 PHASES = ("prefill", "decode")
@@ -50,15 +51,23 @@ class BackendCapabilityError(ValueError):
 class Capabilities:
     """What a backend can run.  ``caches`` uses 'dense' for the
     cache-free (training) path and 'paged' for the serving engine's
-    block-table pools."""
+    block-table pools.
+
+    ``kv_dtypes`` lists the paged-pool storage dtypes the backend's
+    paged paths are validated against (``core/quantization.py``):
+    ``int8``/``fp8`` pools carry per-page scale leaves the backend must
+    dequantize with.  Default is fp32-only, so an unvalidated backend
+    fails at admission, not with wrong attention output."""
 
     kinds: Tuple[str, ...] = KINDS
     phases: Tuple[str, ...] = PHASES
     caches: Tuple[str, ...] = CACHES
+    kv_dtypes: Tuple[str, ...] = ("fp32",)
 
-    def supports(self, kind: str, phase: str, cache: str = "dense") -> bool:
+    def supports(self, kind: str, phase: str, cache: str = "dense",
+                 kv_dtype: str = "fp32") -> bool:
         return (kind in self.kinds and phase in self.phases
-                and cache in self.caches)
+                and cache in self.caches and kv_dtype in self.kv_dtypes)
 
 
 class AttentionBackend:
@@ -107,7 +116,9 @@ class AttentionBackend:
         if kind == "moba":
             return moba_paged_prefill_attention(
                 q, cache["pages_k"], cache["pages_v"], cache["centroids"],
-                block_table, kv_len, q_len, cfg.moba, scale=cfg.scale)
+                block_table, kv_len, q_len, cfg.moba, scale=cfg.scale,
+                scales_k=cache.get("scales_k"),
+                scales_v=cache.get("scales_v"))
         kf, vf = PC.paged_gather_kv(cache, block_table)
         positions = kv_len[:, None] + torch.arange(q.shape[2],
                                                    device=q.device)
@@ -143,7 +154,8 @@ class AttentionBackend:
                           kv_len) -> torch.Tensor:
         return moba_paged_decode_attention(
             q, cache["pages_k"], cache["pages_v"], cache["centroids"],
-            block_table, kv_len, cfg.moba, scale=cfg.scale)
+            block_table, kv_len, cfg.moba, scale=cfg.scale,
+            scales_k=cache.get("scales_k"), scales_v=cache.get("scales_v"))
 
 
 class ReferenceBackend(AttentionBackend):
@@ -163,6 +175,7 @@ class XLABackend(AttentionBackend):
 
     name = "xla"
     aliases = ("sparse",)
+    capabilities = Capabilities(kv_dtypes=KV_DTYPES)
 
     def moba_prefill(self, cfg, q, k, v, *, q_positions=None):
         from repro_torch.kernels import ref
@@ -179,6 +192,7 @@ class FlashBackend(AttentionBackend):
 
     name = "flash"
     aliases = ("kernel",)
+    capabilities = Capabilities(kv_dtypes=KV_DTYPES)
     decode_grid: str = "grouped"
     train_grid: str = "grouped"
     # forward K/V streaming granularity, 0 = auto (min(block_size, 128))
@@ -195,7 +209,8 @@ class FlashBackend(AttentionBackend):
         return moba_decode.moba_paged_decode(
             q, cache["pages_k"], cache["pages_v"], cache["centroids"],
             block_table, kv_len, cfg.moba, scale=cfg.scale,
-            grid=self.decode_grid)
+            grid=self.decode_grid, scales_k=cache.get("scales_k"),
+            scales_v=cache.get("scales_v"))
 
 
 # ---------------------------------------------------------------- registry
@@ -278,16 +293,19 @@ def resolve_backend_spec(spec, *, default: str = "reference") -> str:
     return name
 
 
-def resolve(name: str, *, kind: str, phase: str,
-            cache: str = "dense") -> AttentionBackend:
-    """Name + capability query: the single entry point call sites use."""
+def resolve(name: str, *, kind: str, phase: str, cache: str = "dense",
+            kv_dtype: str = "fp32") -> AttentionBackend:
+    """Name + capability query: the single entry point call sites use.
+    ``kv_dtype`` of ``int8``/``fp8`` demands quantized-pool support
+    (per-page scale dequantization in every paged path)."""
     be = get(name)
-    if not be.capabilities.supports(kind, phase, cache):
+    if not be.capabilities.supports(kind, phase, cache, kv_dtype):
         able = [b.name for b in _REGISTRY.values()
-                if b.capabilities.supports(kind, phase, cache)]
+                if b.capabilities.supports(kind, phase, cache, kv_dtype)]
         raise BackendCapabilityError(
             f"backend {be.name!r} does not support kind={kind!r} "
-            f"phase={phase!r} cache={cache!r}; backends that do: {able}")
+            f"phase={phase!r} cache={cache!r} kv_dtype={kv_dtype!r}; "
+            f"backends that do: {able}")
     return be
 
 

@@ -149,7 +149,9 @@ def moba_paged_decode_attention(q: torch.Tensor, pages_k: torch.Tensor,
                                 centroids: torch.Tensor,
                                 block_table: torch.Tensor,
                                 kv_len: torch.Tensor, cfg: MoBAConfig,
-                                scale: Optional[float] = None
+                                scale: Optional[float] = None,
+                                scales_k: Optional[torch.Tensor] = None,
+                                scales_v: Optional[torch.Tensor] = None
                                 ) -> torch.Tensor:
     """Single-step decode against a paged cache: route on the per-page
     centroid cache, then gather only the ``top_k`` selected pages through
@@ -162,6 +164,8 @@ def moba_paged_decode_attention(q: torch.Tensor, pages_k: torch.Tensor,
     block_table: (B, npg) int32 physical page ids, -1 = unassigned
     kv_len:      (B,) int32 valid lengths *including* the token appended
                  this step (call after the cache append)
+    scales_k/v:  (P, Hkv) fp32 per-page dequant scales of a quantized
+                 pool (None = unquantized).  Routing never sees them.
     """
     b, h, _, d = q.shape
     _, ps, hkv, _ = pages_k.shape
@@ -178,6 +182,10 @@ def moba_paged_decode_attention(q: torch.Tensor, pages_k: torch.Tensor,
     heads = _arange(hkv, q)[None, :, None, None, None]
     kg = pages_k.permute(2, 0, 1, 3)[heads, phys].float()
     vg = pages_v.permute(2, 0, 1, 3)[heads, phys].float()
+    if scales_k is not None:
+        # one scalar per selected (page, kv head), broadcast over (ps, d)
+        kg = kg * scales_k[phys, heads][..., None, None]
+        vg = vg * scales_v[phys, heads][..., None, None]
     s = torch.einsum("bhgqd,bhgqkld->bhgqkl", qg, kg) * scale
     pos = idx[..., :, None] * ps + _arange(ps, q)            # logical pos
     tok_valid = ((pos < kv_len[:, None, None, None, None, None])
@@ -241,7 +249,9 @@ def moba_paged_prefill_attention(q: torch.Tensor, pages_k: torch.Tensor,
                                  block_table: torch.Tensor,
                                  kv_len: torch.Tensor, q_len: torch.Tensor,
                                  cfg: MoBAConfig,
-                                 scale: Optional[float] = None
+                                 scale: Optional[float] = None,
+                                 scales_k: Optional[torch.Tensor] = None,
+                                 scales_v: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """Chunked-prefill MoBA attention against a paged cache.
 
@@ -253,7 +263,10 @@ def moba_paged_prefill_attention(q: torch.Tensor, pages_k: torch.Tensor,
 
     q: (B, H, L, d); pages_k/v: (P, ps, Hkv, d); centroids: (P, Hkv, d);
     block_table: (B, npg); kv_len: (B,) pre-chunk lengths (the chunk and
-    its centroid updates must already be appended); q_len: (B,).
+    its centroid updates must already be appended); q_len: (B,);
+    scales_k/v: (P, Hkv) fp32 per-page dequant scales of a quantized
+    pool (None = unquantized), applied on the densified view, never to
+    the routing centroids.
     """
     b, h, nq, d = q.shape
     _, ps, hkv, _ = pages_k.shape
@@ -274,12 +287,14 @@ def moba_paged_prefill_attention(q: torch.Tensor, pages_k: torch.Tensor,
 
     tbl = block_table.clamp(min=0).long()
 
-    def densify(pool):
+    def densify(pool, scales):
         g = pool[tbl].float()                                # (B,npg,ps,h,d)
+        if scales is not None:
+            g = g * scales[tbl][:, :, None, :, None]
         return g.permute(0, 3, 1, 2, 4).reshape(b, hkv, npg * ps, d)
 
-    kf = densify(pages_k)
-    vf = densify(pages_v)
+    kf = densify(pages_k, scales_k)
+    vf = densify(pages_v, scales_v)
     qg = _group_queries(q, hkv).float()                      # (B,Hkv,G,L,d)
     s = torch.einsum("bhgqd,bhsd->bhgqs", qg, kf) * scale
     s = torch.where(mask, s, NEG_INF)

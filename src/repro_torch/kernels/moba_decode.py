@@ -14,9 +14,11 @@ names reach the same kernel.
 
 Device contract: a CPU tensor takes the plain PyTorch version
 (``core.moba.moba_paged_decode_attention``); a CUDA tensor launches the
-kernel or raises — there is no fallback.  The kernel takes q and pools of
-one dtype, bf16 or fp32; head_dim 64 or 128; page_size a multiple of 16
-up to 256; GQA group G <= 8; unquantized pools.
+kernel or raises — there is no fallback.  The kernel takes q in bf16 or
+fp32 and pools either in q's dtype or quantized (int8 or fp8 e4m3 "fn"
+payloads with fp32 (P, Hkv) ``scales_k``/``scales_v``, dequantized in the
+kernel); head_dim 64 or 128; page_size a multiple of 16 up to 256; GQA
+group G <= 8.
 
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can show
 that its decode steps went through the kernel.
@@ -69,20 +71,33 @@ def union_pages(idx: torch.Tensor, sel_valid: torch.Tensor, npg: int
 
 
 def check_contract(q: torch.Tensor, pages_k: torch.Tensor,
-                   pages_v: torch.Tensor) -> None:
+                   pages_v: torch.Tensor,
+                   scales_k: Optional[torch.Tensor] = None,
+                   scales_v: Optional[torch.Tensor] = None) -> None:
     """Raise a shaped error for inputs the CUDA kernel does not take."""
     b, h, one, d = q.shape
-    _, ps, hkv, _ = pages_k.shape
+    num_pages, ps, hkv, _ = pages_k.shape
     problems = []
     if one != 1:
         problems.append(f"one query token per row (got {one})")
     if q.dtype not in runtime.DTYPE_CODES:
         problems.append(f"q dtype bf16 or fp32 (got {q.dtype})")
-    if Q.kv_dtype_of(pages_k.dtype) != "fp32":
-        problems.append(f"an unquantized pool (got {pages_k.dtype})")
-    elif pages_k.dtype != q.dtype or pages_v.dtype != q.dtype:
-        problems.append(f"pools in q's dtype {q.dtype} (got "
+    if pages_v.dtype != pages_k.dtype:
+        problems.append(f"K/V pools of one dtype (got "
                         f"{pages_k.dtype}/{pages_v.dtype})")
+    elif Q.kv_dtype_of(pages_k.dtype) != "fp32":
+        want = (num_pages, hkv)
+        for name, sc in (("scales_k", scales_k), ("scales_v", scales_v)):
+            if sc is None or sc.dtype != torch.float32 \
+                    or tuple(sc.shape) != want or not sc.is_contiguous():
+                got = None if sc is None else (tuple(sc.shape), sc.dtype)
+                problems.append(f"a quantized pool's {name} as contiguous "
+                                f"fp32 {want} (got {got})")
+    elif pages_k.dtype != q.dtype:
+        problems.append(f"pools in q's dtype {q.dtype}, or int8/fp8 "
+                        f"payloads with scales (got {pages_k.dtype})")
+    elif scales_k is not None or scales_v is not None:
+        problems.append("no scales for an unquantized pool")
     if d not in _HEAD_DIMS:
         problems.append(f"head_dim in {_HEAD_DIMS} (got {d})")
     if ps % 16 or not 16 <= ps <= _MAX_PAGE:
@@ -106,7 +121,7 @@ def check_contract(q: torch.Tensor, pages_k: torch.Tensor,
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def decode_tables(q: torch.Tensor, pages_k: torch.Tensor,
@@ -137,8 +152,11 @@ def decode_tables(q: torch.Tensor, pages_k: torch.Tensor,
 
 def launch(q: torch.Tensor, pages_k: torch.Tensor, pages_v: torch.Tensor,
            kv_len: torch.Tensor, phys: torch.Tensor, base: torch.Tensor,
-           n_uniq: torch.Tensor, scale: float) -> torch.Tensor:
-    """One launch of the CUDA kernel on precomputed tables."""
+           n_uniq: torch.Tensor, scale: float,
+           scales_k: Optional[torch.Tensor] = None,
+           scales_v: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the CUDA kernel on precomputed tables (the scales
+    of a quantized pool, or None)."""
     global LAUNCHES
     b, h, _, d = q.shape
     _, ps, hkv, _ = pages_k.shape
@@ -148,13 +166,16 @@ def launch(q: torch.Tensor, pages_k: torch.Tensor, pages_v: torch.Tensor,
     kvl = kv_len.to(torch.int32).contiguous()
     out = torch.empty_like(q_rows)
     ptr = runtime.ptr
+    sk = None if scales_k is None else ptr(scales_k)
+    sv = None if scales_v is None else ptr(scales_v)
     lib = runtime.bind("moba_decode", "moba_paged_decode", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = lib.moba_paged_decode(
-            ptr(q_rows), ptr(pages_k), ptr(pages_v), None, None,
+            ptr(q_rows), ptr(pages_k), ptr(pages_v), sk, sv,
             ptr(phys), ptr(base), ptr(n_uniq), ptr(kvl), ptr(out),
             b * hkv, hkv, g, cap, ps, d, float(scale),
-            runtime.DTYPE_CODES[q.dtype], runtime.stream_of(q))
+            runtime.DTYPE_CODES[q.dtype],
+            runtime.PAYLOAD_CODES[pages_k.dtype], runtime.stream_of(q))
     runtime.check(err, f"moba_paged_decode (q {tuple(q.shape)}, pool "
                        f"{tuple(pages_k.shape)})")
     LAUNCHES += 1
@@ -165,11 +186,15 @@ def moba_paged_decode(q: torch.Tensor, pages_k: torch.Tensor,
                       pages_v: torch.Tensor, centroids: torch.Tensor,
                       block_table: torch.Tensor, kv_len: torch.Tensor,
                       cfg: MoBAConfig, scale: Optional[float] = None,
-                      grid: str = "grouped") -> torch.Tensor:
+                      grid: str = "grouped",
+                      scales_k: Optional[torch.Tensor] = None,
+                      scales_v: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Drop-in for ``core.moba.moba_paged_decode_attention`` (same
     contract): q (B, H, 1, d); pages_k/v (P, page_size, Hkv, d);
     centroids (P, Hkv, d) fp32; block_table (B, npg) int32, -1 =
-    unassigned; kv_len (B,) post-append lengths.  Rows with ``kv_len`` 0
+    unassigned; kv_len (B,) post-append lengths; scales_k/v (P, Hkv)
+    fp32 for a quantized pool, else None.  Rows with ``kv_len`` 0
     return zeros on the card.
 
     ``grid`` keeps the reference's API ("grouped" | "flat"); on Hopper
@@ -181,15 +206,17 @@ def moba_paged_decode(q: torch.Tensor, pages_k: torch.Tensor,
     if q.device.type == "cpu":
         return moba_paged_decode_attention(q, pages_k, pages_v, centroids,
                                            block_table, kv_len, cfg,
-                                           scale=scale)
+                                           scale=scale, scales_k=scales_k,
+                                           scales_v=scales_v)
     if q.device.type != "cuda":
         raise ValueError(f"moba_paged_decode: tensors on {q.device}; "
                          f"expected cpu (plain version) or cuda (kernel)")
-    check_contract(q, pages_k, pages_v)
+    check_contract(q, pages_k, pages_v, scales_k, scales_v)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     idx, sel_valid = moba_paged_route(q, centroids, block_table, kv_len,
                                       cfg, page_size=pages_k.shape[1])
     phys, base, n_uniq = decode_tables(q, pages_k, block_table, idx,
                                        sel_valid)
-    return launch(q, pages_k, pages_v, kv_len, phys, base, n_uniq, scale)
+    return launch(q, pages_k, pages_v, kv_len, phys, base, n_uniq, scale,
+                  scales_k, scales_v)

@@ -33,9 +33,13 @@ BUILD = pathlib.Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # every kernel source, in the order chip_smoke.py builds and reports them
-KERNELS = ("moba_decode", "centroids", "flash_topk", "moba_fwd", "moba_bwd")
+KERNELS = ("moba_decode", "centroids", "flash_topk", "moba_fwd", "moba_bwd",
+           "swa")
 # the ``dtype`` code of every C entry point
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the ``payload`` code of a paged pool (the decode kernel): unquantized
+# pools share q's code; int8 and fp8 (e4m3 "fn") pools carry scales
+PAYLOAD_CODES = {**DTYPE_CODES, torch.int8: 2, torch.float8_e4m3fn: 3}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -6,9 +6,9 @@ engine (the reference's ``--mode batch``).
       --device cpu
 
   # moba-340m at full width on the card, paged decode through the
-  # CUDA kernel:
+  # CUDA kernel, from int8 page pools:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch moba-340m \
-      --mode batch --attn-backend flash
+      --mode batch --attn-backend flash --kv-dtype int8
 """
 from __future__ import annotations
 
@@ -43,7 +43,8 @@ def _make_engine(cfg, params, ecfg: EngineConfig, shards: int,
 
 def serve(arch: str, batch: int = 4, prompt_len: int = 64, gen: int = 32,
           smoke: bool = True, attn_backend: str = "reference",
-          seed: int = 0, device="cuda", shards: int = 0) -> np.ndarray:
+          seed: int = 0, device="cuda", shards: int = 0,
+          kv_dtype: str = "fp32") -> np.ndarray:
     """Decode ``gen`` greedy tokens for ``batch`` random prompts through
     the paged engine.  Returns int32 tokens of shape (batch, gen)."""
     dev = resolve_device(device)
@@ -54,7 +55,8 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 64, gen: int = 32,
                            dtype=np.int32)
     eng = _make_engine(cfg, params, EngineConfig(
         max_seqs=batch, max_seq_len=_round_up(prompt_len + gen, 16),
-        max_prefill_batch=min(batch, 4), attn_backend=attn_backend),
+        max_prefill_batch=min(batch, 4), attn_backend=attn_backend,
+        kv_dtype=kv_dtype),
         shards, device=dev)
     reqs = [eng.submit(prompts[i], max_new_tokens=gen)
             for i in range(batch)]
@@ -84,6 +86,13 @@ def main(argv=None):
                     help="registered attention backend, optionally with "
                          "an option suffix (reference | xla | flash, "
                          "flash:grouped | flash:flat; default reference)")
+    ap.add_argument("--kv-dtype", default="fp32",
+                    choices=["fp32", "int8", "fp8"],
+                    help="K/V page-pool storage precision: quantized "
+                         "pools store int8/fp8 payload with per-page "
+                         "per-kv-head fp32 scales; centroids and routing "
+                         "stay fp32.  Backends must declare the dtype in "
+                         "Capabilities.kv_dtypes (reference is fp32-only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
@@ -92,7 +101,7 @@ def main(argv=None):
         serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
               gen=args.gen, smoke=args.smoke,
               attn_backend=args.attn_backend or "reference",
-              seed=args.seed, device=args.device)
+              seed=args.seed, device=args.device, kv_dtype=args.kv_dtype)
     except ServingError as e:  # unsupported config / impossible sizing
         print(f"error: {e}", file=sys.stderr)
         raise SystemExit(2)

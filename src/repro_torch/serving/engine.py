@@ -28,8 +28,8 @@ step's tables does not wait for the steps already enqueued.
 
 Supported: attention-only dense-family layer patterns, whole-prompt and
 chunked prefill, preemption by recompute and by host swap,
-dispatch-ahead, unquantized pools and static routing.  The reference's
-prefix cache, int8/fp8 pools, adaptive routing, key-conv and sharded
+dispatch-ahead, unquantized and int8/fp8 pools, and static routing.
+The reference's prefix cache, adaptive routing, key-conv and sharded
 engine raise :class:`UnsupportedFeatureError` at construction until
 their slices land (ROADMAP.md).
 """
@@ -76,13 +76,16 @@ def resolve_engine_backend(spec: str, default: str) -> str:
         raise UnsupportedFeatureError("attn_backend", str(e)) from e
 
 
-def admission_capability_check(cfg: ModelConfig, backend: str) -> None:
-    """Every layer kind must resolve for both paged phases, or the
+def admission_capability_check(cfg: ModelConfig, backend: str,
+                               kv_dtype: str = "fp32") -> None:
+    """Every layer kind must resolve for both paged phases (with
+    quantized-pool support when ``kv_dtype`` is int8/fp8), or the
     request stream would die inside a step."""
     for kind in sorted(set(cfg.layer_pattern)):
         for phase in ("prefill", "decode"):
             try:
-                B.resolve(backend, kind=kind, phase=phase, cache="paged")
+                B.resolve(backend, kind=kind, phase=phase, cache="paged",
+                          kv_dtype=kv_dtype)
             except B.BackendCapabilityError as e:
                 raise UnsupportedFeatureError("attn_backend",
                                               str(e)) from e
@@ -239,8 +242,9 @@ class EngineConfig:
     #                                    preemption; 0 = always recompute
     #                                    preempted prefixes
     kv_dtype: str = "fp32"             # paged-pool K/V storage: "fp32"
-    #                                    (compute dtype, no scales); the
-    #                                    quantized "int8" / "fp8" raise
+    #                                    (compute dtype, no scales), or
+    #                                    "int8" / "fp8" payloads with
+    #                                    per-(page, kv head) fp32 scales
     route_policy: str = "static"       # MoBA routing policy: "static";
     #                                    adaptive policies raise
     attn_backend: str = ""             # registered backend (core.backends);
@@ -261,9 +265,6 @@ def out_of_scope(ecfg: EngineConfig) -> Optional[Tuple[str, str]]:
     if ecfg.prefix_cache:
         return ("prefix_cache", f"the radix-tree prefix cache (COW page "
                                 f"copies, tree publishing) is {_LATER}")
-    if ecfg.kv_dtype != "fp32":
-        return ("kv_dtype", f"quantized {ecfg.kv_dtype} page pools (and the "
-                            f"decode kernel's dequant path) are {_LATER}")
     if ecfg.route_policy != "static":
         return ("route_policy", f"adaptive routing "
                                 f"{ecfg.route_policy!r} is {_LATER}")
@@ -304,12 +305,14 @@ class Engine:
         self.params = params
         self.attn_backend = resolve_engine_backend(ecfg.attn_backend,
                                                    "reference")
-        admission_capability_check(cfg, self.attn_backend)
+        admission_capability_check(cfg, self.attn_backend,
+                                   kv_dtype=ecfg.kv_dtype)
         self.page_size, self.pages_per_seq, self.num_pages = \
             resolve_pool_sizes(cfg, ecfg)
         self.caches = T.init_paged_caches(
             cfg, self.num_pages, self.page_size,
-            dtype=getattr(torch, cfg.dtype), device=self.device)
+            dtype=getattr(torch, cfg.dtype), device=self.device,
+            kv_dtype=ecfg.kv_dtype)
         self.swap_store = (HostSwapStore(self, ecfg.swap_bytes)
                            if ecfg.swap_bytes > 0 else None)
         self.sched = Scheduler(

@@ -22,6 +22,10 @@ Centroid semantics match the dense cache exactly:
   * prefill recomputes each touched page's centroid from the stored keys;
   * decode folds the new key in with one rank-1 update
     ``c ← (c·m + k)/(m+1)``.
+
+Quantized pools (``kv_dtype`` int8/fp8, ``core/quantization.py``) carry
+per-(page, kv head) fp32 ``scales_k``/``scales_v`` leaves; the appends
+requantize every page they touch and the gathers dequantize.
 """
 from __future__ import annotations
 
@@ -33,8 +37,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quantization as Q
 
 # leaves indexed by physical page id on their (first non-group) axis —
-# the unit that page-granular ops (swap save/restore) move
-PAGE_LEAVES = ("pages_k", "pages_v", "centroids")
+# the unit that page-granular ops (swap save/restore) move.  The scale
+# leaves of quantized pools are here so a swapped-in page comes back
+# with its own scales, not the stale ones of the page it lands on.
+PAGE_LEAVES = ("pages_k", "pages_v", "scales_k", "scales_v", "centroids")
 
 
 def resolve_page_size(cfg: ModelConfig) -> int:
@@ -51,19 +57,25 @@ def init_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
                    groups: Optional[int] = None) -> Dict:
     """One layer slot's pool; ``groups`` adds the leading layer-group
     axis the model's group loop indexes (``transformer.init_paged_caches``).
-    Only unquantized pools (``kv_dtype="fp32"``: pages at ``dtype``)."""
+
+    ``kv_dtype`` of ``"int8"``/``"fp8"`` stores the K/V payload quantized
+    with per-(page, kv head) fp32 ``scales_k``/``scales_v`` leaves (1.0 at
+    init, so dequantizing a fresh page is a no-op); centroids stay fp32.
+    ``"fp32"`` stores pages at ``dtype`` with no scale leaves."""
     hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     if kv_dtype not in Q.KV_DTYPES:
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}; "
                          f"expected one of {Q.KV_DTYPES}")
-    if kv_dtype != "fp32":
-        raise ValueError(f"kv_dtype {kv_dtype!r}: quantized page pools are "
-                         f"not ported yet (ROADMAP.md)")
+    pg_dtype = dtype if kv_dtype == "fp32" else Q.payload_dtype(kv_dtype)
     lead = () if groups is None else (groups,)
     pool = {"pages_k": torch.zeros(lead + (num_pages, page_size, hkv, dh),
-                                   dtype=dtype, device=device),
+                                   dtype=pg_dtype, device=device),
             "pages_v": torch.zeros(lead + (num_pages, page_size, hkv, dh),
-                                   dtype=dtype, device=device)}
+                                   dtype=pg_dtype, device=device)}
+    if kv_dtype != "fp32":
+        for name in ("scales_k", "scales_v"):
+            pool[name] = torch.ones(lead + (num_pages, hkv),
+                                    dtype=torch.float32, device=device)
     if with_centroids:
         pool["centroids"] = torch.zeros(lead + (num_pages, hkv, dh),
                                         dtype=torch.float32, device=device)
@@ -75,7 +87,8 @@ def _scatter_rows(dst: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor,
     """``dst[idx[i]] = vals[i]`` for every row with ``ok[i]``; other rows
     write nothing.  Dropped rows are sent to the first kept row's index
     with that row's value, so duplicate indices carry identical bytes;
-    with no kept row at all, row 0 of ``dst`` is written back unchanged."""
+    with no kept row at all, row 0 of ``dst`` is written back unchanged.
+    fp8 rows are copied as bytes (``index_copy_`` has no fp8 kernel)."""
     n = idx.shape[0]
     ok = ok.reshape(n)
     first = torch.argmax(ok.to(torch.int32))       # first kept row (or 0)
@@ -83,6 +96,8 @@ def _scatter_rows(dst: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor,
     any_ok = ok.any()
     tgt = torch.where(any_ok, idx.reshape(n)[src], 0).long()
     v = torch.where(any_ok, vals[src].to(dst.dtype), dst[0])
+    if dst.dtype == torch.float8_e4m3fn:
+        dst, v = dst.view(torch.uint8), v.view(torch.uint8)
     dst.index_copy_(0, tgt, v)
 
 
@@ -91,7 +106,13 @@ def paged_append_decode(cache: Dict, block_table: torch.Tensor,
                         k_new: torch.Tensor, v_new: torch.Tensor) -> Dict:
     """Write one token per active sequence at position ``kv_len[i]``, in
     place.  k_new/v_new: (B, hkv, 1, dh) in compute dtype.  Updates the
-    written page's centroid incrementally.  Inactive rows write nothing."""
+    written page's centroid incrementally.  Inactive rows write nothing.
+
+    Quantized pools requantize the whole tail page read-modify-write:
+    gather → dequantize → insert the token → amax over the now-valid
+    positions → scatter payload and scale back.  The centroid update
+    folds the incoming key in, never reading the pool, so routing state
+    is identical across ``kv_dtype`` modes."""
     pk, pv = cache["pages_k"], cache["pages_v"]
     num_pages, ps, hkv, dh = pk.shape
     npg = block_table.shape[1]
@@ -102,9 +123,27 @@ def paged_append_decode(cache: Dict, block_table: torch.Tensor,
     ok = active & (phys >= 0) & (page_idx < npg)
     tok_k = k_new[:, :, 0]                                   # (B,hkv,dh)
     tok_v = v_new[:, :, 0]
-    slot = phys * ps + off
-    _scatter_rows(pk.view(num_pages * ps, hkv, dh), slot, ok, tok_k)
-    _scatter_rows(pv.view(num_pages * ps, hkv, dh), slot, ok, tok_v)
+    if "scales_k" in cache:
+        kv_dt = Q.kv_dtype_of(pk.dtype)
+        ph = phys.clamp(min=0).long()
+        pos = torch.arange(ps, device=pk.device)[None, :]
+        onehot = (pos == off[:, None])[:, :, None, None]     # (B,ps,1,1)
+        vmask = (pos <= off[:, None])[:, :, None, None]      # valid incl new
+
+        def requant(pool, scales, tok):
+            page = Q.dequantize(pool[ph], scales[ph][:, None, :, None])
+            page = torch.where(onehot, tok.float()[:, None], page)
+            scale = Q.compute_scale(page, (1, 3), kv_dt, where=vmask)
+            _scatter_rows(pool, phys, ok,
+                          Q.quantize(page, scale[:, None, :, None], kv_dt))
+            _scatter_rows(scales, phys, ok, scale)
+
+        requant(pk, cache["scales_k"], tok_k)
+        requant(pv, cache["scales_v"], tok_v)
+    else:
+        slot = phys * ps + off
+        _scatter_rows(pk.view(num_pages * ps, hkv, dh), slot, ok, tok_k)
+        _scatter_rows(pv.view(num_pages * ps, hkv, dh), slot, ok, tok_v)
     if "centroids" in cache:
         cents = cache["centroids"]                           # (P,hkv,dh) f32
         m = off.float()[:, None, None]                       # tokens in page
@@ -128,6 +167,14 @@ def paged_append_prefill(cache: Dict, block_table: torch.Tensor,
     Every page the chunk touches gets its centroid recomputed from the
     stored keys, so the result is identical to a one-shot prefill of the
     whole prefix.
+
+    Quantized pools stage the touched pages in fp32 — prior pool tokens
+    dequantized, the incoming chunk scattered over them — then
+    requantize each touched page whole (amax over its valid tokens) and
+    scatter payload and scales back.  Centroids come from the staging
+    view with the masked reduce of the fp32 path, so a page wholly
+    written by this call (every page of a one-shot prefill) gets the
+    fp32 pool's centroid byte for byte.
     """
     pk, pv = cache["pages_k"], cache["pages_v"]
     num_pages, ps, hkv, dh = pk.shape
@@ -141,21 +188,42 @@ def paged_append_prefill(cache: Dict, block_table: torch.Tensor,
     phys = block_table.gather(1, logical.long())              # (B,L)
     valid = ((torch.arange(length, device=dev)[None, :] < q_len[:, None])
              & (phys >= 0))
-    slot = (phys * ps + pos % ps).reshape(-1)
     vals_k = k_new.permute(0, 2, 1, 3).reshape(b * length, hkv, dh)
     vals_v = v_new.permute(0, 2, 1, 3).reshape(b * length, hkv, dh)
-    _scatter_rows(pk.view(num_pages * ps, hkv, dh), slot, valid, vals_k)
-    _scatter_rows(pv.view(num_pages * ps, hkv, dh), slot, valid, vals_v)
+    post = q_len + kv_len                                    # (B,)
+    page_start = torch.arange(npg, device=dev) * ps
+    cnt = torch.clamp(post[:, None] - page_start, 0, ps)
+    touched = ((cnt > 0) & (block_table >= 0)
+               & (page_start + ps > kv_len[:, None]))        # (B,npg)
+    wmask = (torch.arange(ps, device=dev)[None, None, :]
+             < cnt[..., None])[..., None, None]              # (B,npg,ps,1,1)
+    tbl = block_table.clamp(min=0).long()
+    if "scales_k" in cache:
+        kv_dt = Q.kv_dtype_of(pk.dtype)
+        stage_slot = ((torch.arange(b, device=dev)[:, None] * npg + logical)
+                      * ps + pos % ps).reshape(-1)
+
+        def stage_and_quant(pool, scales, vals):
+            stage = Q.dequantize(pool[tbl], scales[tbl][:, :, None, :, None])
+            _scatter_rows(stage.view(b * npg * ps, hkv, dh), stage_slot,
+                          valid, vals.float())
+            scale = Q.compute_scale(stage, (2, 4), kv_dt, where=wmask)
+            payload = Q.quantize(stage, scale[:, :, None, :, None], kv_dt)
+            _scatter_rows(pool, block_table.reshape(-1), touched,
+                          payload.reshape(b * npg, ps, hkv, dh))
+            _scatter_rows(scales, block_table.reshape(-1), touched,
+                          scale.reshape(b * npg, hkv))
+            return stage
+
+        cent_src = stage_and_quant(pk, cache["scales_k"], vals_k)
+        stage_and_quant(pv, cache["scales_v"], vals_v)
+    else:
+        slot = (phys * ps + pos % ps).reshape(-1)
+        _scatter_rows(pk.view(num_pages * ps, hkv, dh), slot, valid, vals_k)
+        _scatter_rows(pv.view(num_pages * ps, hkv, dh), slot, valid, vals_v)
+        cent_src = pk[tbl] if "centroids" in cache else None
     if "centroids" in cache:
-        post = q_len + kv_len                                # (B,)
-        page_start = torch.arange(npg, device=dev) * ps
-        cnt = torch.clamp(post[:, None] - page_start, 0, ps)
-        touched = ((cnt > 0) & (block_table >= 0)
-                   & (page_start + ps > kv_len[:, None]))    # (B,npg)
-        wmask = (torch.arange(ps, device=dev)[None, None, :]
-                 < cnt[..., None])                           # (B,npg,ps)
-        src = pk[block_table.clamp(min=0).long()]            # (B,npg,ps,h,d)
-        sums = (src.float() * wmask[..., None, None]).sum(dim=2)
+        sums = (cent_src.float() * wmask).sum(dim=2)         # (B,npg,h,d)
         cent = sums / torch.clamp(cnt, min=1)[..., None, None].float()
         _scatter_rows(cache["centroids"], block_table.reshape(-1), touched,
                       cent.reshape(b * npg, hkv, dh))
@@ -168,17 +236,21 @@ def paged_gather_kv(cache: Dict, block_table: torch.Tensor
 
     Positions past a sequence's length (and pages it never allocated)
     hold whatever the pool contains — callers mask with ``kv_len``.
+    Quantized pools come back dequantized to fp32.
     """
     pk, pv = cache["pages_k"], cache["pages_v"]
     _, ps, hkv, dh = pk.shape
     b, npg = block_table.shape
     tbl = block_table.clamp(min=0).long()
 
-    def densify(pool):
+    def densify(pool, scales):
         g = pool[tbl]                                        # (B,npg,ps,h,d)
+        if scales is not None:
+            g = Q.dequantize(g, scales[tbl][:, :, None, :, None])
         return g.permute(0, 3, 1, 2, 4).reshape(b, hkv, npg * ps, dh)
 
-    return densify(pk), densify(pv)
+    return (densify(pk, cache.get("scales_k")),
+            densify(pv, cache.get("scales_v")))
 
 
 def swa_windowed_decode_attention(q: torch.Tensor, cache: Dict,
@@ -191,7 +263,8 @@ def swa_windowed_decode_attention(q: torch.Tensor, cache: Dict,
 
     q (B, H, 1, d); ``kv_len`` post-append lengths, so the query sits at
     position ``kv_len - 1`` and attends keys in ``(qpos-window, qpos]``.
-    Rows with ``kv_len`` 0 return zeros.
+    Rows with ``kv_len`` 0 return zeros.  Quantized pools are
+    dequantized on the gathered pages.
     """
     from repro_torch.core.attention import (NEG_INF, _apply_and_project,
                                             _grouped_scores)
@@ -209,8 +282,12 @@ def swa_windowed_decode_attention(q: torch.Tensor, cache: Dict,
     phys = block_table.gather(1, torch.clamp(logical, max=npg - 1).long())
     ok = (logical < npg) & (phys >= 0)                       # (B,wpg)
     tbl = phys.clamp(min=0).long()
-    kg = pk[tbl].permute(0, 3, 1, 2, 4).reshape(b, hkv, wpg * ps, dh)
-    vg = pv[tbl].permute(0, 3, 1, 2, 4).reshape(b, hkv, wpg * ps, dh)
+    kg, vg = pk[tbl], pv[tbl]                                # (B,wpg,ps,h,d)
+    if "scales_k" in cache:
+        kg = Q.dequantize(kg, cache["scales_k"][tbl][:, :, None, :, None])
+        vg = Q.dequantize(vg, cache["scales_v"][tbl][:, :, None, :, None])
+    kg = kg.permute(0, 3, 1, 2, 4).reshape(b, hkv, wpg * ps, dh)
+    vg = vg.permute(0, 3, 1, 2, 4).reshape(b, hkv, wpg * ps, dh)
     kpos = (logical[:, :, None] * ps
             + torch.arange(ps, device=dev)[None, None, :]).reshape(b, -1)
     mask = (torch.repeat_interleave(ok, ps, dim=1)

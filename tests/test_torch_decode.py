@@ -212,8 +212,30 @@ def test_kernel_contract_errors():
     with pytest.raises(ValueError, match="dtype"):
         TMD.check_contract(q, pool(dtype=torch.float32),
                            pool(dtype=torch.float32))
-    with pytest.raises(ValueError, match="unquantized"):
-        TMD.check_contract(q, pool(dtype=torch.int8), pool(dtype=torch.int8))
+    # quantized pools: int8/fp8 payloads with fp32 (P, Hkv) scales, q in
+    # bf16 or fp32
+    scales = torch.ones(4, 16)
+    for payload in (torch.int8, torch.float8_e4m3fn):
+        for qq in (q, q.float()):
+            TMD.check_contract(qq, pool(dtype=payload), pool(dtype=payload),
+                               scales, scales)
+        with pytest.raises(ValueError, match="scales_k"):
+            TMD.check_contract(q, pool(dtype=payload), pool(dtype=payload),
+                               None, scales)
+        with pytest.raises(ValueError, match="scales_v"):
+            TMD.check_contract(q, pool(dtype=payload), pool(dtype=payload),
+                               scales, torch.ones(4, 8))
+    with pytest.raises(ValueError, match="scales_k"):
+        TMD.check_contract(q, pool(dtype=torch.int8), pool(dtype=torch.int8),
+                           scales.double(), scales)
+    with pytest.raises(ValueError, match="one dtype"):
+        TMD.check_contract(q, pool(dtype=torch.int8),
+                           pool(dtype=torch.float8_e4m3fn), scales, scales)
+    with pytest.raises(ValueError, match="int8/fp8"):
+        TMD.check_contract(q, pool(dtype=torch.float16),
+                           pool(dtype=torch.float16))
+    with pytest.raises(ValueError, match="no scales"):
+        TMD.check_contract(q, pool(), pool(), scales, scales)
 
 
 def test_wrapper_device_dispatch():

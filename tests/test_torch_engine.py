@@ -150,8 +150,6 @@ def test_staged_matches_legacy(model, kw):
 # ------------------------------------------------------- out-of-scope gates
 @pytest.mark.parametrize("field,ecfg", [
     ("prefix_cache", dict(prefix_cache=True)),
-    ("kv_dtype", dict(kv_dtype="int8")),
-    ("kv_dtype", dict(kv_dtype="fp8")),
     ("route_policy", dict(route_policy="snr:pfail=0.01")),
 ])
 def test_out_of_scope_engine_config_raises(model, field, ecfg):
