@@ -8,35 +8,59 @@ Phases, one JSON line each; any failure exits non-zero:
   1. env     — card name and power limit, torch/CUDA versions, the six
                CUDA kernels built from ``src/repro_torch/kernels/csrc``
                (build seconds, ptxas register report).
-  2. kernel  — the paged MoBA decode kernel against its plain PyTorch
-               version at moba-340m decode shapes (B=8, H=Hkv=16, d=64,
-               page 128, top_k 8, a 320-page pool, shuffled block tables,
-               ragged kv_len with 0, 1, an exact page boundary and a
-               table shorter than top_k) in bf16 (atol/rtol 3e-2) and
-               fp32 (1e-3, TF32 off), plus a G=2, d=128 geometry; each
-               from bf16/fp32 pools and from int8 and fp8 pools (the
-               dequant path) filled from the same keys and values, the
-               quantized ones also held against the unquantized plain
-               version on the same q and K/V (int8 5e-2, fp8 2e-1).
-               Times from CUDA events (median of 25, L2 flushed before
-               each), per pool dtype at the main shapes with bf16 q: the
-               kernel's wrapper, the launch alone, the plain version, and
+  2. kernel  — the paged MoBA decode kernels (route, split-page
+               attention, merge) against their plain PyTorch versions at
+               moba-340m decode shapes (B=8, H=Hkv=16, d=64, page 128,
+               top_k 8, a 320-page pool, shuffled block tables, ragged
+               kv_len with 0, 1, an exact page boundary and a table
+               shorter than top_k), a G=2, d=128 geometry, and page 16
+               with top_k 64 over 512-page tables (G=2: the route's
+               running top-k across four 128-page chunks); q in bf16
+               and fp32 (TF32 off), pools in q's dtype and int8 and fp8
+               (the dequant path) filled from the same keys and values.
+               Each check reads the route tables of the decode call it
+               checks (``launch`` returns them), and the public wrapper's
+               output must equal that call's bit for bit.  The route's
+               selections against ``moba_paged_route``: equal except on
+               near-ties (sorted selected scores within 1e-5·max(1, |s|)
+               on ``paged_route_scores``), the count printed; its union
+               tables equal ``decode_tables`` on its own selections.  The
+               attention against the plain attention
+               (``moba_paged_attend``) on those selections (bf16 3e-2,
+               fp32 1e-3), inactive rows zero; quantized pools also
+               against the unquantized plain attention on the same q and
+               K/V (int8 5e-2, fp8 2e-1).  Times per pool dtype at the
+               main shapes with bf16 q (``call_cost``: device ms from
+               CUDA events, median of 25, a spin kernel then a 256 MB
+               write before each, so the host is hidden and L2 is cold;
+               µs a call in loops of 20; their larger as ``ms``): the
+               decode call, the plain version and
                ``scaled_dot_product_attention`` over the gathered (and
-               dequantized) pages as the library yardstick; the bytes
-               bound from this run's inputs at 3.35 TB/s.
+               dequantized) pages as the library call; device ms of the
+               three launches alone, also after a read flush (clean L2);
+               the bytes bound from this run's inputs at 3.35 TB/s; and,
+               with torch.profiler over one call, the port's kernel
+               launches (exactly 3, device µs each) and any other
+               operator that ran device work (none allowed); a trace
+               with no device event at all is retaken, up to 3 times.
   3. serve   — moba-340m at full width (bf16, random weights from a
                seeded torch.Generator) through ``Engine`` on the ``flash``
                backend: 8 prompts of 1024..4095 tokens, 64 new tokens
-               each.  Every request must finish with 64 tokens and the
-               decode kernel must have launched exactly 12 times (one per
-               MoBA layer) per decode step.  Then the same cell from int8
-               and from fp8 pools (``serve_quantized``, 32 new tokens):
+               each.  Every request must finish with 64 tokens, the decode
+               call must have run exactly 12 times (one per MoBA layer) per
+               decode step and launched exactly 3 kernels each time.  Then
+               the same cell from int8 and from fp8 pools
+               (``serve_quantized``, 32 new tokens):
                the same checks, decode tokens/s and step ms, and the
                pools' bytes against the bf16 run's.
   4. logits  — the same model in fp32 (TF32 off): one shared paged
                prefill, then one decode step under ``flash`` and one under
                ``xla`` from cloned caches; logits within 2e-3 and equal
-               greedy tokens.  Repeated from int8 and from fp8 pools.
+               greedy tokens.  The flash run records the selections each
+               decode call's route kernel made, in every MoBA layer; the
+               xla run replays them, and each may differ from xla's own
+               routing only on a near-tie (counted).  Repeated from int8
+               and from fp8 pools.
   5. train_kernels — the four FlashMoBA training kernels (centroids, Flash
                TopK, forward, backward) against their plain PyTorch
                versions at the moba-340m training shapes (B=1, H=Hkv=16,
@@ -51,12 +75,14 @@ Phases, one JSON line each; any failure exits non-zero:
                ``flash_moba`` forward and grads against the ``xla`` path
                (fp32 2e-4 / 5e-3; rows whose routing flipped on a near-tie
                are left out and counted).  Per kernel at the main bf16
-               shapes: CUDA-event medians (25 runs, L2 flushed) of the
-               launch alone, the wrapper and the plain version; bytes,
-               FLOPs and the bound from this run's tensors; the library
-               call where one computes the same thing (centroids: a mean),
-               and causal SDPA at the same shape as a yardstick for the
-               forward and backward.
+               shapes: ``call_cost`` (as in phase 2) of the wrapper, the
+               plain version and the library call where one computes the
+               same thing (centroids: a mean), and the device ms of the
+               launch alone; bytes, FLOPs and the bound from this run's
+               tensors; centroids also after a read flush (clean L2) and,
+               with the mean, under each placement of the spin kernel
+               (``by_hold``); causal SDPA at the same shape as a
+               yardstick for the forward and backward.
   6. train   — moba-340m at full width and depth (bf16, random weights
                from a seeded torch.Generator), batch 1, seq 8192, 4
                ``make_train_step`` steps on ``flash`` with remat; losses
@@ -75,19 +101,34 @@ Phases, one JSON line each; any failure exits non-zero:
                at moba-340m's SWA shapes (N 8192, window 256, 16 heads,
                d 64) in bf16 (3e-2) and fp32 (2e-4), a GQA geometry (H 16,
                Hkv 8, d 128), window 100 with q_tile 128 / k_tile 64, and a
-               window >= N.  Times at the main bf16 shapes: the wrapper,
-               the launch alone, the plain version, causal SDPA with a
-               band mask as the library call, and the bound.  No serving
+               window >= N.  Times at the main bf16 shapes: ``call_cost``
+               of the wrapper, the plain version and causal SDPA with a
+               band mask as the library call; the launch alone; the
+               bound.  No serving
                or training path launches it.
 
 Then the card's name and power limit, the kernel line (the six kernels,
-the decode kernel once per pool dtype), and as the last line
-``{"ok": true, "device": {...}}``.  Without a usable card, or run from a
-directory that lacks the repository's ``src/repro_torch``, it exits
-non-zero before printing any result.
+the decode kernels once per pool dtype), and as the last line
+``{"ok": true, "device": {...}}``.
+
+  python3 chip_smoke.py --decode-ab DIR
+
+runs none of the phases.  It times the decode call of the checkout at
+DIR (for example the parent commit, unpacked with ``git archive`` into
+a directory that ``.gitignore`` lists) and of this one, each tree in a
+process of its own, in the order DIR, this, this, DIR, on the phase-2
+case at moba-340m's shapes (bf16 q and pool, built by that tree's own
+prefill append): ``call_cost`` of the call and of the library call,
+and the CUDA-event reading without the spin kernel.  The last line
+holds each tree's medians and the ratio DIR / this.
+
+Without a usable card, or run from a directory that lacks the
+repository's ``src/repro_torch``, it exits non-zero before printing any
+result.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -125,23 +166,39 @@ KV_DTYPES = ("fp32", "int8", "fp8")
 # (tests/test_quantized_pages.py:41)
 QUANT_TOL = {"int8": 5e-2, "fp8": 2e-1}
 QUANT_NEW_TOKENS = 32
+HOLD_CYCLES = 1_000_000            # ~0.5 ms of card time before a timed run
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_events_ms(fn, reps: int = 25, flush=None) -> float:
+def cuda_events_ms(fn, reps: int = 25, flush=None, clean: bool = False,
+                   hold: str = "first") -> float:
     """Median device time of ``fn`` from CUDA events; ``flush`` (a large
     tensor) is overwritten before each run so L2 starts cold, as it does
-    for one layer's decode inside a full model step."""
+    for one layer's decode inside a full model step.  The overwrite
+    leaves L2 full of dirty lines that ``fn``'s reads must write back;
+    ``clean`` reads the tensor instead, so L2 holds clean lines.
+    ``hold`` places a spin kernel (``HOLD_CYCLES``): "first" runs it
+    before the flush, so the host has enqueued the flush and ``fn`` by
+    the time the flush ends and the span is ``fn``'s device time;
+    "after_flush" runs it between the flush and ``fn``; "none" runs no
+    spin, so the span also holds whatever part of ``fn``'s host time
+    outlasts the flush."""
     import torch
     for _ in range(3):
         fn()
     pairs = []
     for _ in range(reps):
-        if flush is not None:
+        if hold == "first":
+            torch.cuda._sleep(HOLD_CYCLES)
+        if flush is not None and clean:
+            flush.sum()
+        elif flush is not None:
             flush.zero_()
+        if hold == "after_flush":
+            torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -150,6 +207,35 @@ def cuda_events_ms(fn, reps: int = 25, flush=None) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def loop_us(fn, calls: int = 20, reps: int = 5) -> float:
+    """µs a call in a loop: the median over ``reps`` loops of ``calls``
+    back-to-back calls and one synchronize.  That is the host's time per
+    call where the host is slower than the card, else the card's (with a
+    warm L2)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+    return float(np.median(per_call))
+
+
+def call_cost(fn, flush, prefix: str = "") -> dict:
+    """A call's cost on one yardstick: its device time with L2 flushed
+    (``device_ms``), its µs a call in a back-to-back loop
+    (``loop_us``), and ``ms``, the larger of the two: a call can go no
+    faster than either the card or the host that issues it."""
+    dev = cuda_events_ms(fn, flush=flush)
+    loop = loop_us(fn)
+    return {f"{prefix}ms": max(dev, loop / 1e3), f"{prefix}device_ms": dev,
+            f"{prefix}loop_us": loop}
 
 
 # ------------------------------------------------------------------ phase 1
@@ -246,35 +332,98 @@ def _decode_bytes_and_flops(q, pool, table, kv, idx, sel_valid, tables):
     return nbytes, flops
 
 
+def _route_near_ties(q, centroids, table, kv, ps, sel, idx, sel_valid):
+    """The route kernel's selections ``sel`` (B·Hkv, G, k; -1 invalid)
+    against the plain route ``idx``/``sel_valid`` on the plain route's own
+    masked scores: (rows differing, the largest gap, all differences
+    near-ties)."""
+    import torch
+    from repro_torch.core import moba as CM
+    npg, k = table.shape[1], sel.shape[-1]
+    masked = CM.paged_route_scores(q, centroids, table, kv,
+                                   ps).reshape(-1, npg)
+    masked = torch.cat([masked, torch.full_like(masked[:, :1],
+                                                CM.NEG_INF)], -1)
+    got = torch.where(sel >= 0, sel.long(), npg).reshape(-1, k)
+    want = torch.where(sel_valid, idx, npg).reshape(-1, k)
+    return _near_ties(masked, got, want)
+
+
+def _kernel_selection(rt, q, centroids):
+    """The route kernel's selections as ``moba_paged_route`` returns its
+    own: (idx, sel_valid), (B, Hkv, G, 1, k), invalid slots 0."""
+    b, h = q.shape[:2]
+    hkv = centroids.shape[1]
+    sel = rt.sel.long().view(b, hkv, h // hkv, 1, -1)
+    return sel.clamp(min=0), sel >= 0
+
+
+def _decode_launch(q, pool, table, kv, cfg):
+    """One decode call through the wrapper's own checks and launch:
+    the output and the route tables that call attended with."""
+    from repro_torch.kernels import moba_decode as MD
+    sc = _scales(pool)
+    MD.check_contract(q, pool["pages_k"], pool["pages_v"], **sc,
+                      centroids=pool["centroids"], block_table=table,
+                      kv_len=kv, top_k=cfg.top_k)
+    return MD.launch(q, pool["pages_k"], pool["pages_v"], pool["centroids"],
+                     table, kv, cfg.top_k, q.shape[-1] ** -0.5,
+                     sc.get("scales_k"), sc.get("scales_v"))
+
+
 def phase_kernel():
     """Unquantized pools first, then int8 and fp8 pools from the same
-    keys and values: each held against the plain version on its own pool
-    and, quantized, against the unquantized plain version on the same
-    q and K/V (the bf16 or fp32 pool of that q dtype)."""
+    keys and values.  The route kernel against the plain route (near-ties
+    only); its tables against ``decode_tables`` on its own selections;
+    the decode call against the plain attention on those selections, on
+    its own pool and, quantized, against the unquantized pool of that q
+    dtype.  Geometries: moba-340m's decode shapes; G=2 at d 128; and the
+    small-block regime (page 16, top_k 64 = n/(8·bs) at an 8K context,
+    ``benchmarks/fig3_efficiency.py``), whose 512-page tables take the
+    route kernel's running top-k across four 128-page chunks."""
     import torch
     from repro_torch.configs.base import MoBAConfig
-    from repro_torch.core.moba import moba_paged_decode_attention
+    from repro_torch.core.moba import moba_paged_attend, moba_paged_route
     from repro_torch.kernels import moba_decode as MD
 
-    cfg = MoBAConfig(block_size=128, top_k=8)
-    kv_lens = [0, 1, 128, 100, 1500, 3000, 4224, 2777]
+    main_cfg = MoBAConfig(block_size=128, top_k=8)
     main = dict(b=8, h=16, hkv=16, d=64, ps=128, npg=33, num_pages=320,
-                kv_lens=kv_lens)
+                kv_lens=[0, 1, 128, 100, 1500, 3000, 4224, 2777])
     g2 = dict(b=4, h=16, hkv=8, d=128, ps=128, npg=12, num_pages=64,
               kv_lens=[0, 700, 1536, 129])
+    k64 = dict(b=4, h=16, hkv=8, d=64, ps=16, npg=512, num_pages=1100,
+               kv_lens=[8192, 6000, 2049, 0])
+    geoms = (("moba-340m", main, main_cfg), ("g2-d128", g2, main_cfg),
+             ("page16-k64", k64, MoBAConfig(block_size=16, top_k=64)))
     tols = {torch.bfloat16: 3e-2, torch.float32: 1e-3}
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     checks, timing = [], {}
-    for name, geom in (("moba-340m", main), ("g2-d128", g2)):
+    for name, geom, cfg in geoms:
         unquantized = {}
         for kv_dtype in KV_DTYPES:
             for dtype in (torch.bfloat16, torch.float32):
                 q, pool, table, kv = _paged_case(dtype=dtype, seed=7,
                                                  kv_dtype=kv_dtype, **geom)
+                sc = _scales(pool)
+                ps = pool["pages_k"].shape[1]
                 args = (q, pool["pages_k"], pool["pages_v"],
                         pool["centroids"], table, kv, cfg)
-                out = MD.moba_paged_decode(*args, **_scales(pool))
-                ref = moba_paged_decode_attention(*args, **_scales(pool))
+                out, rt = _decode_launch(q, pool, table, kv, cfg)
+                call_equal = bool(torch.equal(
+                    out, MD.moba_paged_decode(*args, **sc)))
+                idx, sel_valid = moba_paged_route(q, pool["centroids"],
+                                                  table, kv, cfg,
+                                                  page_size=ps)
+                rows, gap, ties_ok = _route_near_ties(
+                    q, pool["centroids"], table, kv, ps, rt.sel, idx,
+                    sel_valid)
+                k_idx, k_valid = _kernel_selection(rt, q, pool["centroids"])
+                want = MD.decode_tables(q, pool["pages_k"], table, k_idx,
+                                        k_valid)
+                tables_equal = all(bool(torch.equal(a, b)) for a, b in
+                                   zip((rt.phys, rt.base, rt.n_uniq), want))
+                ref = moba_paged_attend(q, pool["pages_k"], pool["pages_v"],
+                                        table, kv, k_idx, k_valid, **sc)
                 torch.cuda.synchronize()
                 act = kv > 0
                 err = float((out[act].float() - ref[act].float()).abs().max())
@@ -283,50 +432,82 @@ def phase_kernel():
                                          atol=tol, rtol=tol))
                 zeros = bool((out[~act] == 0).all())
                 rec = {"geometry": name, "kv_dtype": kv_dtype,
-                       "dtype": str(dtype), "max_abs_err": err, "tol": tol,
-                       "ok": ok, "inactive_rows_zero": zeros}
+                       "dtype": str(dtype), "top_k": cfg.top_k,
+                       "max_abs_err": err, "tol": tol,
+                       "route_rows_differing": rows,
+                       "route_rows": int(rt.sel.shape[0] * rt.sel.shape[1]),
+                       "route_max_gap": gap, "route_near_ties_ok": ties_ok,
+                       "tables_equal": tables_equal,
+                       "call_equals_launch": call_equal,
+                       "inactive_rows_zero": zeros}
+                ok = ok and ties_ok and tables_equal and call_equal
                 if kv_dtype == "fp32":
-                    unquantized[dtype] = ref
+                    unquantized[dtype] = (k_idx, k_valid, pool)
                 else:
-                    qerr = float((out[act].float()
-                                  - unquantized[dtype][act].float())
+                    u_idx, u_valid, u_pool = unquantized[dtype]
+                    plain_u = moba_paged_attend(
+                        q, u_pool["pages_k"], u_pool["pages_v"], table, kv,
+                        u_idx, u_valid)
+                    qerr = float((out[act].float() - plain_u[act].float())
                                  .abs().max())
                     rec.update(vs_unquantized_err=qerr,
                                vs_unquantized_tol=QUANT_TOL[kv_dtype])
                     ok = ok and qerr <= QUANT_TOL[kv_dtype]
-                    rec["ok"] = ok
+                rec["ok"] = ok
                 checks.append(rec)
                 if not (ok and zeros):
                     emit({"phase": "kernel", "checks": checks})
-                    raise SystemExit(f"kernel disagrees with its plain "
-                                     f"version: {checks[-1]}")
+                    raise SystemExit(f"decode kernels disagree with their "
+                                     f"plain versions: {checks[-1]}")
                 if name == "moba-340m" and dtype == torch.bfloat16:
                     timing[kv_dtype] = _time_decode(q, pool, table, kv, cfg,
                                                     args, err, flush)
     emit({"phase": "kernel", "checks": checks, "timing": timing})
+    bad = {k: t["profile"] for k, t in timing.items()
+           if t["profile"]["port_kernels"] != 3
+           or t["profile"]["other_device_ops"]}
+    if bad:
+        raise SystemExit(f"a decode call did not run exactly the 3 port "
+                         f"kernels and no other device work: {bad}")
     return timing
 
 
-def _time_decode(q, pool, table, kv, cfg, args, err, flush):
+def _profile_call(fn, attempts: int = 3) -> dict:
+    """The device work of one call of ``fn`` under torch.profiler: the
+    port's decode kernels (count and device µs each) and every other
+    device operator.  A trace that holds no device event at all missed
+    its capture (the call always launches kernels) and is taken again,
+    up to ``attempts`` times; ``captures`` says how many it took."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for capture in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            break
+    port = [e for e in dev if "moba_decode_" in e.key]
+    return {"port_kernels": sum(e.count for e in port),
+            "port_kernel_us": {e.key.split("<")[0]: e.self_device_time_total
+                               for e in port},
+            "other_device_ops": [e.key for e in dev
+                                 if "moba_decode_" not in e.key],
+            "captures": capture}
+
+
+def decode_library(q, pool, table, kv, idx, sel_valid):
+    """The decode's library call: ``scaled_dot_product_attention`` over
+    the selected pages, gathered (and dequantized) beforehand, with a
+    mask of their valid tokens."""
     import torch
     from repro_torch.core import quantization as Q
-    from repro_torch.core.moba import moba_paged_decode_attention as plain
-    from repro_torch.core.moba import moba_paged_route
-    from repro_torch.kernels import moba_decode as MD
     sc = _scales(pool)
-    idx, sel_valid = moba_paged_route(q, pool["centroids"], table, kv, cfg,
-                                      page_size=pool["pages_k"].shape[1])
-    tables = MD.decode_tables(q, pool["pages_k"], table, idx, sel_valid)
-    scale = q.shape[-1] ** -0.5
-    ms = cuda_events_ms(lambda: MD.moba_paged_decode(*args, **sc),
-                        flush=flush)
-    kernel_only_ms = cuda_events_ms(
-        lambda: MD.launch(q, pool["pages_k"], pool["pages_v"], kv, *tables,
-                          scale, sc.get("scales_k"), sc.get("scales_v")),
-        flush=flush)
-    plain_ms = cuda_events_ms(lambda: plain(*args, **sc), flush=flush)
-    # library yardstick: SDPA over the selected pages, gathered (and
-    # dequantized) beforehand
     b, h, _, d = q.shape
     _, ps, hkv, _ = pool["pages_k"].shape
     phys = table.clamp(min=0).long()[
@@ -342,32 +523,62 @@ def _time_decode(q, pool, table, kv, cfg, args, err, flush):
     pos = idx[..., None] * ps + torch.arange(ps, device=q.device)
     mask = ((pos < kv[:, None, None, None, None, None])
             & sel_valid[..., None]).reshape(b, h, 1, -1)
-    library_ms = cuda_events_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, kg, vg, attn_mask=mask), flush=flush)
-    sdpa = torch.nn.functional.scaled_dot_product_attention(
-        q, kg, vg, attn_mask=mask)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, kg, vg, attn_mask=mask)
+    return library
+
+
+def _time_decode(q, pool, table, kv, cfg, args, err, flush):
+    from repro_torch.core.moba import moba_paged_decode_attention as plain
+    from repro_torch.core.moba import moba_paged_route
+    from repro_torch.kernels import moba_decode as MD
+    sc = _scales(pool)
+    cents = pool["centroids"]
+    d = q.shape[-1]
+    ps = pool["pages_k"].shape[1]
+    idx, sel_valid = moba_paged_route(q, cents, table, kv, cfg,
+                                      page_size=ps)
+    tables = MD.decode_tables(q, pool["pages_k"], table, idx, sel_valid)
+    scale = d ** -0.5
+
+    def call():
+        return MD.moba_paged_decode(*args, **sc)
+
+    def launches():
+        return MD.launch(q, pool["pages_k"], pool["pages_v"], cents, table,
+                         kv, cfg.top_k, scale, sc.get("scales_k"),
+                         sc.get("scales_v"))
+
+    library = decode_library(q, pool, table, kv, idx, sel_valid)
     act = kv > 0
     ref = plain(*args, **sc)
-    sdpa_err = float((sdpa[act].float() - ref[act].float()).abs().max())
+    sdpa_err = float((library()[act].float() - ref[act].float()).abs().max())
     nbytes, flops = _decode_bytes_and_flops(q, pool, table, kv, idx,
                                             sel_valid, tables)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS * 1e3
-    return {"ms": ms, "kernel_only_ms": kernel_only_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library_max_abs_err": sdpa_err,
+    return {**call_cost(call, flush),
+            "kernel_only_ms": cuda_events_ms(launches, flush=flush),
+            "kernel_only_ms_clean_l2": cuda_events_ms(launches, flush=flush,
+                                                      clean=True),
+            **call_cost(lambda: plain(*args, **sc), flush, "plain_"),
+            **call_cost(library, flush, "library_"),
+            "library_max_abs_err": sdpa_err,
             "bytes": nbytes, "flops": flops,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_us": max(bytes_ms, ops_ms) * 1e3,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err": err}
+            "max_abs_err": err, "profile": _profile_call(call)}
 
 
 # ------------------------------------------------------------------ phase 3
 def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
                 bf16_pool_bytes: int = 0):
     """The serve cell on ``flash`` from ``kv_dtype`` pools.  Returns the
-    decode kernel's launches in the measured run and the pools' bytes."""
+    decode calls and the decode kernels' launches in the measured run, and
+    the pools' bytes."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import moba_decode as MD
@@ -388,12 +599,12 @@ def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
             for n in lens]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    MD.LAUNCHES = 0
+    MD.LAUNCHES = MD.KERNEL_LAUNCHES = 0
     t0 = time.perf_counter()
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = MD.LAUNCHES
+    launches, kernel_launches = MD.LAUNCHES, MD.KERNEL_LAUNCHES
     st = dict(eng.stats)           # the profile window below adds steps
     outs_ok = all(len(r.out) == new_tokens and r.done for r in reqs)
     toks = np.concatenate([np.asarray(r.out) for r in reqs])
@@ -411,8 +622,11 @@ def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
            "wall_s": wall, "preemptions": st["preemptions"],
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "pool_bytes": pool_bytes,
-           "kernel_launches": launches,
-           "launches_per_step": launches / max(st["decode_steps"], 1)}
+           "decode_calls": launches,
+           "decode_calls_per_step": launches / max(st["decode_steps"], 1),
+           "kernel_launches": kernel_launches,
+           "kernel_launches_per_step":
+               kernel_launches / max(st["decode_steps"], 1)}
     if bf16_pool_bytes:
         rec["pool_bytes_vs_bf16"] = pool_bytes / bf16_pool_bytes
     rec["profile"] = _profile_decode(eng, cfg, rng)
@@ -423,10 +637,14 @@ def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
         raise SystemExit(f"serve ({kv_dtype}): a request did not finish with "
                          f"{new_tokens} tokens in the vocabulary")
     if launches == 0 or launches != MOBA_LAYERS * st["decode_steps"]:
-        raise SystemExit(f"serve ({kv_dtype}): {launches} kernel launches for "
+        raise SystemExit(f"serve ({kv_dtype}): {launches} decode calls for "
                          f"{st['decode_steps']} decode steps, expected "
                          f"{MOBA_LAYERS} per step")
-    return launches, pool_bytes
+    if kernel_launches != 3 * launches:
+        raise SystemExit(f"serve ({kv_dtype}): {kernel_launches} decode "
+                         f"kernel launches for {launches} calls, expected 3 "
+                         f"per call")
+    return launches, kernel_launches, pool_bytes
 
 
 def _profile_decode(eng, cfg, rng, steps: int = 6):
@@ -485,8 +703,15 @@ def _profile_summary(prof, wall: float, steps: int) -> dict:
 
 # ------------------------------------------------------------------ phase 4
 def phase_logits(kv_dtype: str = "fp32"):
+    """flash against xla for one decode step in fp32.  The flash run
+    records the route kernel's selections in every MoBA layer; the xla run
+    replays them, each held to xla's own routing by the near-tie rule (the
+    kernel sums its fp32 dot products in another order than the plain
+    einsum, so a near-tie can flip a page)."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.core import moba as CM
+    from repro_torch.kernels import moba_decode as MD
     from repro_torch.launch import steps as S
     from repro_torch.models import transformer as T
 
@@ -519,19 +744,51 @@ def phase_logits(kv_dtype: str = "fp32"):
     page_state = {"block_table": t["table"], "kv_len": t["lens"],
                   "q_len": t["active"].to(torch.int32),
                   "active": t["active"]}
+    decode, plain_route = MD.moba_paged_decode, CM.moba_paged_route
+    recorded, audit = [], []
+
+    def record(q, pages_k, pages_v, centroids, table, kv, mcfg, scale=None,
+               grid="grouped", scales_k=None, scales_v=None):
+        """The decode call itself, keeping the route tables it wrote."""
+        MD.check_contract(q, pages_k, pages_v, scales_k, scales_v,
+                          centroids=centroids, block_table=table, kv_len=kv,
+                          top_k=mcfg.top_k)
+        out, rt = MD.launch(q, pages_k, pages_v, centroids, table, kv,
+                            mcfg.top_k,
+                            q.shape[-1] ** -0.5 if scale is None else scale,
+                            scales_k, scales_v)
+        recorded.append(rt)
+        return out
+
+    def replay(q, centroids, table, kv, mcfg, page_size=None):
+        idx, sel_valid = plain_route(q, centroids, table, kv, mcfg,
+                                     page_size=page_size)
+        rt = recorded[len(audit)]
+        audit.append(_route_near_ties(q, centroids, table, kv, page_size,
+                                      rt.sel, idx, sel_valid))
+        return _kernel_selection(rt, q, centroids)
+
     logits, toks = {}, {}
-    for backend in ("flash", "xla"):
-        cloned = {s: {k: v.clone() for k, v in pool.items()}
-                  for s, pool in caches.items()}
-        lg, _ = T.decode_step(params, first[:, None], cfg, cloned,
-                              backend=backend, page_state=page_state)
-        step_tok, _ = S.make_paged_decode_step(cfg, backend)(
-            params, first, {s: {k: v.clone() for k, v in pool.items()}
-                            for s, pool in caches.items()},
-            t["table"], t["lens"], t["active"])
-        logits[backend] = lg[:, -1]
-        toks[backend] = step_tok
+    try:
+        for backend in ("flash", "xla"):
+            MD.moba_paged_decode, CM.moba_paged_route = (
+                (record, plain_route) if backend == "flash"
+                else (decode, replay))
+            cloned = {s: {k: v.clone() for k, v in pool.items()}
+                      for s, pool in caches.items()}
+            lg, _ = T.decode_step(params, first[:, None], cfg, cloned,
+                                  backend=backend, page_state=page_state)
+            step_tok, _ = S.make_paged_decode_step(cfg, backend)(
+                params, first, {s: {k: v.clone() for k, v in pool.items()}
+                                for s, pool in caches.items()},
+                t["table"], t["lens"], t["active"])
+            logits[backend] = lg[:, -1]
+            toks[backend] = step_tok
+    finally:
+        MD.moba_paged_decode, CM.moba_paged_route = decode, plain_route
     torch.cuda.synchronize()
+    routing_ok = (len(audit) == len(recorded) == 2 * MOBA_LAYERS
+                  and all(ok for _, _, ok in audit))
     diff = float((logits["flash"] - logits["xla"]).abs().max())
     ok = bool(torch.allclose(logits["flash"], logits["xla"], atol=2e-3,
                              rtol=2e-3))
@@ -543,10 +800,14 @@ def phase_logits(kv_dtype: str = "fp32"):
           "batch": b,
           "kv_lens": lens.tolist(), "vocab": cfg.vocab_size,
           "max_abs_diff": diff, "tol": 2e-3, "allclose": ok,
-          "finite": finite, "greedy_equal": same})
-    if not (ok and finite and same):
+          "finite": finite, "greedy_equal": same,
+          "routing_rows_differing_per_layer": [r for r, _, _ in audit],
+          "routing_max_gap": max((g for _, g, _ in audit), default=0.0),
+          "routing_near_ties_ok": routing_ok})
+    if not (ok and finite and same and routing_ok):
         raise SystemExit(f"logits ({kv_dtype}): flash and xla decode steps "
-                         f"disagree")
+                         f"disagree, or a routing difference is no "
+                         f"near-tie")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -710,21 +971,30 @@ def _time_train_kernels(c, flush) -> dict:
     out = {}
 
     def timed(name, kernel, wrapper, plain, bound, library=None):
-        rec = {"ms": cuda_events_ms(wrapper, flush=flush),
-               "kernel_only_ms": cuda_events_ms(kernel, flush=flush),
-               "plain_ms": cuda_events_ms(plain, flush=flush),
-               "library_ms": (cuda_events_ms(library, flush=flush)
-                              if library else None), **bound}
-        out[name] = rec
+        out[name] = {**call_cost(wrapper, flush),
+                     "kernel_only_ms": cuda_events_ms(kernel, flush=flush),
+                     **call_cost(plain, flush, "plain_"),
+                     **(call_cost(library, flush, "library_") if library
+                        else {"library_ms": None}), **bound}
 
     kf, nb = c["kf"], c["nb"]
     cent = c["cents"]
+
+    def mean():
+        return kf.view(kf.shape[0], nb, bs, d).mean(2)
+
     timed("block_centroids", lambda: KC.launch(kf, bs),
           lambda: KC.block_centroids_kernel(kf, bs),
           lambda: ref.centroids_ref(kf, bs),
-          _bound(_nbytes(kf, cent), kf.numel(), FP32_FLOPS),
-          library=(lambda: kf.view(kf.shape[0], nb, bs, d).mean(2))
-          if kf.shape[1] == nb * bs else None)
+          _bound(_nbytes(kf, cent), kf.numel(), FP32_FLOPS), library=mean)
+    out["block_centroids"]["kernel_only_ms_clean_l2"] = cuda_events_ms(
+        lambda: KC.launch(kf, bs), flush=flush, clean=True)
+    # the kernel and the library mean under each placement of the spin
+    out["block_centroids"]["by_hold"] = {
+        f"{what}_{hold}": cuda_events_ms(fn, flush=flush, hold=hold)
+        for what, fn in (("kernel", lambda: KC.launch(kf, bs)),
+                         ("library", mean))
+        for hold in ("first", "after_flush", "none")}
     # the kernel scores every block before the query's own (causal)
     pos = torch.arange(c["qf"].shape[1], device="cuda") + c["n"] - c["nq"]
     scored = float((pos // bs).clamp(max=nb).sum()) * c["qf"].shape[0]
@@ -1098,17 +1368,14 @@ def phase_swa():
     q4, k4, v4 = (x[None] for x in (q, k, v))    # (1, H, N, d)
     scale = d ** -0.5
     timing = {
-        "ms": cuda_events_ms(lambda: KS.swa_attention(q, k, v, w, **kw),
-                             flush=flush),
+        **call_cost(lambda: KS.swa_attention(q, k, v, w, **kw), flush),
         "kernel_only_ms": cuda_events_ms(
             lambda: KS.launch(q, k, v, w, kw["num_q_heads"], kw["group"],
                               scale, 128, 128), flush=flush),
-        "plain_ms": cuda_events_ms(
-            lambda: KS.swa_attention_plain(q, k, v, w, **kw), flush=flush),
-        "library_ms": cuda_events_ms(
-            lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                   attn_mask=band),
-            flush=flush),
+        **call_cost(lambda: KS.swa_attention_plain(q, k, v, w, **kw), flush,
+                    "plain_"),
+        **call_cost(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=band), flush, "library_"),
         **_bound(4 * q.numel() * q.element_size(), 4.0 * pairs * d,
                  BF16_FLOPS),
         "max_abs_err": err}
@@ -1118,7 +1385,77 @@ def phase_swa():
     return launches, timing
 
 
+# ------------------------------------------------------------ --decode-ab
+def _decode_ab_one() -> dict:
+    """One tree's decode call (its ``src`` first on the path), at the
+    moba-340m phase-2 case with bf16 q and pool: ``call_cost`` of the
+    call and of the library call, and the reading without the spin."""
+    import torch
+    from repro_torch.configs.base import MoBAConfig
+    from repro_torch.core.moba import moba_paged_route
+    from repro_torch.kernels import moba_decode as MD
+    cfg = MoBAConfig(block_size=128, top_k=8)
+    q, pool, table, kv = _paged_case(
+        b=8, h=16, hkv=16, d=64, ps=128, npg=33, num_pages=320,
+        kv_lens=[0, 1, 128, 100, 1500, 3000, 4224, 2777],
+        dtype=torch.bfloat16, seed=7)
+
+    def call():
+        return MD.moba_paged_decode(q, pool["pages_k"], pool["pages_v"],
+                                    pool["centroids"], table, kv, cfg)
+
+    idx, sel_valid = moba_paged_route(q, pool["centroids"], table, kv, cfg)
+    library = decode_library(q, pool, table, kv, idx, sel_valid)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    out = call()
+    torch.cuda.synchronize()
+    return {"module": MD.__file__, "finite": bool(torch.isfinite(out).all()),
+            **call_cost(call, flush),
+            "ms_no_hold": cuda_events_ms(call, flush=flush, hold="none"),
+            **call_cost(library, flush, "library_")}
+
+
+def decode_ab(other: str) -> int:
+    """The decode call of the checkout at ``other`` and of this one, each
+    in a process of its own, in the order other, this, this, other, so a
+    drift of the card shows.  One JSON line a process, then each tree's
+    medians and the ratio other / this."""
+    trees = {"other": os.path.abspath(other), "this": ROOT}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    runs = {"other": [], "this": []}
+    for which in ("other", "this", "this", "other"):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--decode-ab-one", trees[which]],
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return res.returncode
+        rec = json.loads(res.stdout.strip().splitlines()[-1])
+        emit({"which": which, "tree": trees[which], **rec})
+        if not rec["finite"]:
+            return 1
+        runs[which].append(rec)
+    keys = ("ms", "device_ms", "loop_us", "ms_no_hold", "library_ms",
+            "library_device_ms", "library_loop_us")
+    med = {w: {k: float(np.median([r[k] for r in rs])) for k in keys}
+           for w, rs in runs.items()}
+    emit({"nvidia_smi": smi, "median": med,
+          "other_over_this": {k: med["other"][k] / med["this"][k]
+                              for k in keys}})
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
+                                 "on one NVIDIA card and check it.")
+    ap.add_argument("--decode-ab", metavar="DIR",
+                    help="instead of the phases, time the decode call of "
+                         "the checkout at DIR and of this one")
+    ap.add_argument("--decode-ab-one", metavar="DIR", help=argparse.SUPPRESS)
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -1132,16 +1469,22 @@ def main() -> int:
         print(f"chip_smoke: {SRC}/repro_torch not found; run from the "
               f"repository root", file=sys.stderr)
         return 1
-    sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.decode_ab_one:
+        sys.path.insert(0, os.path.join(args.decode_ab_one, "src"))
+        emit(_decode_ab_one())
+        return 0
+    sys.path.insert(0, SRC)
+    if args.decode_ab:
+        return decode_ab(args.decode_ab)
     smi = phase_env()
     timing = phase_kernel()
-    launches = {}
-    launches["fp32"], bf16_bytes = phase_serve()
+    launches, kernel_launches = {}, {}
+    launches["fp32"], kernel_launches["fp32"], bf16_bytes = phase_serve()
     for kv_dtype in KV_DTYPES[1:]:
-        launches[kv_dtype], _ = phase_serve(kv_dtype, QUANT_NEW_TOKENS,
-                                            bf16_bytes)
+        launches[kv_dtype], kernel_launches[kv_dtype], _ = phase_serve(
+            kv_dtype, QUANT_NEW_TOKENS, bf16_bytes)
     for kv_dtype in KV_DTYPES:
         phase_logits(kv_dtype)
     train_timing, train_err = phase_train_kernels()
@@ -1157,16 +1500,24 @@ def main() -> int:
                                            else f":{kv_dtype}"),
             "route": "cuda", "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
             "pool": "bf16" if kv_dtype == "fp32" else kv_dtype,
-            "launches": launches[kv_dtype], "max_abs_err": t["max_abs_err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "launches": launches[kv_dtype],
+            "launches_are": "decode calls, each launching the route, "
+                            "attention and merge kernels",
+            "kernel_launches": kernel_launches[kv_dtype],
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "loop_us": t["loop_us"], "kernel_only_ms": t["kernel_only_ms"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "checked": True})
+            "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"], "checked": True})
     for name, (_, source, replaces) in TRAIN_KERNELS.items():
         t = train_timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": train_launches[name],
             "max_abs_err": train_err[name], "ms": t["ms"],
+            "device_ms": t["device_ms"], "kernel_only_ms": t["kernel_only_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "checked": True})

@@ -127,9 +127,21 @@ def moba_paged_route(q: torch.Tensor, centroids: torch.Tensor,
     Returns (idx, sel_valid): logical page ids (B, Hkv, G, 1, top_k)
     int64 (invalid slots 0) and their validity mask.
     """
+    ps = page_size or cfg.block_size  # one page == one routable block
+    return _topk_pages(paged_route_scores(q, centroids, block_table, kv_len,
+                                          ps), cfg.top_k)
+
+
+def paged_route_scores(q: torch.Tensor, centroids: torch.Tensor,
+                       block_table: torch.Tensor, kv_len: torch.Tensor,
+                       page_size: int) -> torch.Tensor:
+    """The masked page scores :func:`moba_paged_route` takes its top-k
+    of: (B, Hkv, G, 1, npg) fp32 dots of the unscaled query with each
+    page's centroid, ``NEG_INF`` for pages past ``kv_len`` or unassigned,
+    ``POS_INF`` for the own (last) page."""
     hkv = centroids.shape[1]
     npg = block_table.shape[1]
-    ps = page_size or cfg.block_size  # one page == one routable block
+    ps = page_size
     tbl = block_table.clamp(min=0).long()
     cents = centroids[tbl].permute(0, 2, 1, 3)               # (B,Hkv,npg,d)
     qg = _group_queries(q, hkv).float()                      # (B,Hkv,G,1,d)
@@ -139,9 +151,7 @@ def moba_paged_route(q: torch.Tensor, centroids: torch.Tensor,
     own = torch.clamp(kv_len - 1, min=0) // ps               # (B,)
     is_own = pages[None, :] == own[:, None]                  # (B,npg)
     masked = torch.where(valid[:, None, None, None], scores, NEG_INF)
-    masked = torch.where(is_own[:, None, None, None], routing.POS_INF,
-                         masked)
-    return _topk_pages(masked, cfg.top_k)
+    return torch.where(is_own[:, None, None, None], routing.POS_INF, masked)
 
 
 def moba_paged_decode_attention(q: torch.Tensor, pages_k: torch.Tensor,
@@ -167,13 +177,31 @@ def moba_paged_decode_attention(q: torch.Tensor, pages_k: torch.Tensor,
     scales_k/v:  (P, Hkv) fp32 per-page dequant scales of a quantized
                  pool (None = unquantized).  Routing never sees them.
     """
+    ps = pages_k.shape[1]
+    idx, sel_valid = moba_paged_route(q, centroids, block_table, kv_len,
+                                      cfg, page_size=ps)
+    return moba_paged_attend(q, pages_k, pages_v, block_table, kv_len, idx,
+                             sel_valid, scale=scale, scales_k=scales_k,
+                             scales_v=scales_v)
+
+
+def moba_paged_attend(q: torch.Tensor, pages_k: torch.Tensor,
+                      pages_v: torch.Tensor, block_table: torch.Tensor,
+                      kv_len: torch.Tensor, idx: torch.Tensor,
+                      sel_valid: torch.Tensor,
+                      scale: Optional[float] = None,
+                      scales_k: Optional[torch.Tensor] = None,
+                      scales_v: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """The attention half of :func:`moba_paged_decode_attention`, on a
+    given selection: ``idx``/``sel_valid`` (B, Hkv, G, 1, top_k) as
+    :func:`moba_paged_route` returns them.  Gathers only the selected
+    pages through the block table (dequantized by ``scales_k``/``v``)
+    and takes one softmax over their valid tokens."""
     b, h, _, d = q.shape
     _, ps, hkv, _ = pages_k.shape
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-
-    idx, sel_valid = moba_paged_route(q, centroids, block_table, kv_len,
-                                      cfg, page_size=ps)
     qg = _group_queries(q, hkv).float()                      # (B,Hkv,G,1,d)
     tbl = block_table.clamp(min=0).long()
     phys = tbl[_arange(b, q)[:, None, None, None, None], idx]

@@ -18,7 +18,7 @@ no-op), symmetric, zero-point-free:
 
 Quantization happens on append (``paged_append_prefill`` /
 ``paged_append_decode`` requantize each touched page from an fp32
-staging view); dequantization at the last moment — in shared memory
+staging view); dequantization at the last moment — in registers
 inside the CUDA decode kernel, or at the densify/gather step of the
 plain paths.  ``torch.round`` rounds half to even like ``jnp.round``,
 and both fp8 casts round to nearest even after the clip, so payloads

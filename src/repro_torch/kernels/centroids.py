@@ -3,7 +3,8 @@
 Replaces ``repro.kernels.centroids.block_centroids_kernel`` (the TPU's
 ``_centroid_kernel``).  The CUDA kernel is ``csrc/centroids.cu``; its
 header says what bounds it on an H100 (bytes: every key read once) and
-what the design does about that (one coalesced pass, sums in registers).
+what the design does about that (16-byte loads, several in flight per
+thread, fp32 sums combined once per CTA).
 
 Device contract: a CPU tensor takes the plain PyTorch version
 (``kernels/ref.py::centroids_ref``); a CUDA tensor launches the kernel or
@@ -41,6 +42,8 @@ def check_contract(k: torch.Tensor, block_size: int) -> None:
         problems.append(f"dtype bf16 or fp32 (got {k.dtype})")
     if block_size < 1:
         problems.append(f"a positive block_size (got {block_size})")
+    if k.data_ptr() % 16:
+        problems.append("keys at a 16-byte aligned address")
     if problems:
         raise ValueError(f"block_centroids CUDA kernel needs "
                          f"{'; '.join(problems)} — k {tuple(k.shape)}")
@@ -54,8 +57,9 @@ def block_centroids_kernel(k: torch.Tensor, block_size: int) -> torch.Tensor:
     if k.device.type != "cuda":
         raise ValueError(f"block_centroids: tensors on {k.device}; expected "
                          f"cpu (plain version) or cuda (kernel)")
+    k = k.contiguous()
     check_contract(k, block_size)
-    return launch(k.contiguous(), block_size)
+    return launch(k, block_size)
 
 
 def launch(k: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -69,6 +73,7 @@ def launch(k: torch.Tensor, block_size: int) -> torch.Tensor:
         err = lib.block_centroids(runtime.ptr(k), runtime.ptr(out), rows, n,
                                   block_size, d, runtime.DTYPE_CODES[k.dtype],
                                   runtime.stream_of(k))
-    runtime.check(err, f"block_centroids (k {tuple(k.shape)})")
+    if err:
+        runtime.check(err, f"block_centroids (k {tuple(k.shape)})")
     LAUNCHES += 1
     return out

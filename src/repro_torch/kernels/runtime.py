@@ -49,8 +49,9 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``t``'s card, read at launch time."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    """PyTorch's current stream on ``t``'s card, read at launch time (the
+    raw handle: no ``torch.cuda.Stream`` object is built)."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))
 
 
 def check(err: int, what: str) -> None:

@@ -6,9 +6,10 @@ Pallas kernel (both grids, interpret mode on the CPU, as
 ``tests/test_backends.py`` runs it) and against the reference's XLA path
 on the same numpy-made pools, with the 1e-3 tolerance of
 ``test_backends.py``.  Routing and the page union must be index-equal,
-tied centroid scores included.  The CUDA kernel itself runs only on the
-card (``chip_smoke.py``); what surrounds it — the per-row page, offset
-and union tables — is checked here by replaying them in PyTorch.
+tied centroid scores included.  The CUDA kernels run only on the card
+(``chip_smoke.py``); the per-row page, offset and union tables the route
+kernel writes (their plain version is ``decode_tables``) are checked
+here by replaying them in PyTorch.
 """
 import jax
 import jax.numpy as jnp
@@ -171,8 +172,9 @@ def _replay_kernel(q, pages_k, pages_v, kv_len, phys, base, n_uniq, scale):
 
 @pytest.mark.parametrize("geom", list(GEOMETRIES) + ["g4-disagree"])
 def test_kernel_tables_reproduce_plain_decode(geom):
-    """The wrapper's physical-page, token-offset and union tables, read
-    the way the CUDA kernel reads them, give the plain decode; rows with
+    """The route kernel's physical-page, token-offset and union tables
+    (from their plain version), read over the union pages as the
+    attention kernel reads them, give the plain decode; rows with
     kv_len 0 give zeros."""
     _, targs, kv_lens = _both(geom)
     q, pk, pv, cents, table, kvl, cfg = targs
