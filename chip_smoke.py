@@ -72,17 +72,26 @@ Phases, one JSON line each; any failure exits non-zero:
                within 1e-5·max(1, |s|)).  Tolerances: centroids bf16 1e-2,
                fp32 1e-5; forward (o, m, l) bf16 3e-2, fp32 2e-4; backward
                max |Δ| over the leaf's max |g|, bf16 3e-2, fp32 5e-3.
+               The backward takes dO in q's dtype and must give
+               bit-equal dQ/dK/dV on a second call with the same inputs.
                ``flash_moba`` forward and grads against the ``xla`` path
                (fp32 2e-4 / 5e-3; rows whose routing flipped on a near-tie
-               are left out and counted).  Per kernel at the main bf16
-               shapes: ``call_cost`` (as in phase 2) of the wrapper, the
-               plain version and the library call where one computes the
-               same thing (centroids: a mean), and the device ms of the
-               launch alone; bytes, FLOPs and the bound from this run's
-               tensors; centroids also after a read flush (clean L2) and,
-               with the mean, under each placement of the spin kernel
-               (``by_hold``); causal SDPA at the same shape as a
-               yardstick for the forward and backward.
+               are left out and counted).  First, a tensor-core audit of
+               the forward and backward libraries: per kernel function
+               the registers and stack bytes (``cuobjdump -res-usage``)
+               and the count of ``HMMA``/``HGMMA`` instructions in its
+               SASS; a bf16 instantiation with none, or with a stack
+               frame (a spill) at d 64, fails.  Per kernel at the main
+               bf16 shapes: ``call_cost`` (as in phase 2) of the wrapper,
+               the plain version and the library call where one computes
+               the same thing (centroids: a mean), and the device ms of
+               the launch alone; bytes, FLOPs and the bound from this
+               run's tensors; centroids also after a read flush (clean
+               L2) and, with the mean, under each placement of the spin
+               kernel (``by_hold``); causal SDPA at the same shape as a
+               yardstick (not the same function) for the forward and
+               backward; the backward launch with runs cut into segments
+               of 4, 8 and 16 tiles.
   6. train   — moba-340m at full width and depth (bf16, random weights
                from a seeded torch.Generator), batch 1, seq 8192, 4
                ``make_train_step`` steps on ``flash`` with remat; losses
@@ -90,7 +99,10 @@ Phases, one JSON line each; any failure exits non-zero:
                the path implies (per step: centroids, topk and forward 24
                — 12 MoBA layers, forward plus recompute — backward 12).
                Step time, tokens/s, peak memory, then one step under
-               torch.profiler.
+               torch.profiler.  Then the same 4 steps on ``xla`` from the
+               same weights and batches: each step's loss within 2e-2 of
+               flash's (the kernels round P, dS and dO to bf16; xla
+               multiplies in fp32).
   7. train_grads — the same weights in fp32 (TF32 off), batch 1, seq
                2048: ``lm_loss`` and every gradient leaf under ``flash``
                against ``xla`` (loss 2e-4 relative, each leaf max |Δ| /
@@ -111,16 +123,19 @@ Then the card's name and power limit, the kernel line (the six kernels,
 the decode kernels once per pool dtype), and as the last line
 ``{"ok": true, "device": {...}}``.
 
-  python3 chip_smoke.py --decode-ab DIR
+  python3 chip_smoke.py --ab DIR
 
-runs none of the phases.  It times the decode call of the checkout at
-DIR (for example the parent commit, unpacked with ``git archive`` into
-a directory that ``.gitignore`` lists) and of this one, each tree in a
-process of its own, in the order DIR, this, this, DIR, on the phase-2
-case at moba-340m's shapes (bf16 q and pool, built by that tree's own
-prefill append): ``call_cost`` of the call and of the library call,
-and the CUDA-event reading without the spin kernel.  The last line
-holds each tree's medians and the ratio DIR / this.
+runs none of the phases.  It times the checkout at DIR (for example the
+parent commit, unpacked with ``git archive`` into a directory that
+``.gitignore`` lists) and this one, each tree in a process of its own,
+in the order DIR, this, this, DIR: the decode call on the phase-2 case
+at moba-340m's shapes (bf16 q and pool, built by that tree's own
+prefill append; ``call_cost`` of the call and of the library call, and
+the CUDA-event reading without the spin kernel); ``moba_fwd.launch``
+and ``moba_bwd.launch`` alone on the phase-5 moba-340m bf16 case (dO in
+the dtype that tree's backward wrapper takes, read from its
+``check_contract``); and the phase-6 median training step (steps 2–4).
+The last line holds each tree's medians and the ratio DIR / this.
 
 Without a usable card, or run from a directory that lacks the
 repository's ``src/repro_torch``, it exits non-zero before printing any
@@ -161,6 +176,10 @@ SWA_KERNEL = ("swa_attention", f"{CSRC}/swa.cu", "src/repro/kernels/swa.py:77")
 MOBA_LAYERS = 12                   # moba-340m: 24 layers, swa/moba
 TRAIN_SEQ = 8192                   # the paper's training context
 TRAIN_STEPS = 4
+# flash vs xla loss of each training step in bf16: the kernels round P,
+# dS and dO to bf16 where the xla path multiplies in fp32 (it rounds only
+# P before P V), and AdamW carries the difference into the later steps
+TRAIN_LOSS_TOL = 2e-2
 KV_DTYPES = ("fp32", "int8", "fp8")
 # quantized decode vs the unquantized plain version on the same K/V
 # (tests/test_quantized_pages.py:41)
@@ -900,6 +919,21 @@ def _topk_near_ties(c, s_k):
     return _near_ties(masked, s_k[:, :nq], c["sel"][:, :nq])
 
 
+def _do_dtype(KB, c):
+    """The dO dtype the backward wrapper ``KB`` takes on case ``c``: q's
+    where its ``check_contract`` accepts that (the tensor-core backward),
+    else fp32 (the trees before it)."""
+    import torch
+    qs, lse = c["q_sorted"], torch.zeros(c["q_pos"].shape, device="cuda")
+    try:
+        KB.check_contract(qs, qs, lse, lse, c["k_blocks"], c["v_blocks"],
+                          c["lay"].tile_block, c["q_pos"], c["tile"], c["h"],
+                          c["g"])
+    except ValueError:
+        return torch.float32
+    return qs.dtype
+
+
 def _check_train_kernels(c, dtype) -> dict:
     """Each training kernel against its plain version on case ``c``."""
     import torch
@@ -934,18 +968,22 @@ def _check_train_kernels(c, dtype) -> dict:
     # per-slot lse of the slot's own partial keeps p <= 1
     lse = (o_p[1].clamp(min=-5e29)
            + torch.log(o_p[2].clamp(min=1e-30)))
-    do = torch.randn(c["q_sorted"].shape, generator=c["gen"], device="cuda")
+    do = torch.randn(c["q_sorted"].shape, generator=c["gen"],
+                     device="cuda").to(_do_dtype(KB, c))
     delta = torch.randn(lse.shape, generator=c["gen"], device="cuda") * 0.1
     bargs = (lay.tile_block, c["q_sorted"], c["q_pos"], do, lse, delta,
              c["k_blocks"], c["v_blocks"])
     g_k = KB.moba_bwd(*bargs, q_tile=c["tile"], **kw)
+    g_again = KB.moba_bwd(*bargs, q_tile=c["tile"], **kw)
     g_p = ref.moba_bwd_ref(*bargs, **kw)
     tol = 3e-2 if bf16 else 5e-3
     rels = [_max_rel(a, b) for a, b in zip(g_k, g_p)]
+    same = all(bool(torch.equal(a, b)) for a, b in zip(g_k, g_again))
     rec["moba_bwd"] = {
         "max_abs_err": max(float((a - b).abs().max())
                            for a, b in zip(g_k, g_p)),
-        "max_rel_err": max(rels), "tol": tol, "ok": max(rels) <= tol}
+        "max_rel_err": max(rels), "tol": tol, "do_dtype": str(do.dtype),
+        "bit_equal_rerun": same, "ok": max(rels) <= tol and same}
     c.update(o_p=o_p, do=do, lse=lse, delta=delta)
     return rec
 
@@ -970,12 +1008,16 @@ def _time_train_kernels(c, flush) -> dict:
     kv_bytes = 2 * pairs * bs * d * c["k"].element_size()
     out = {}
 
-    def timed(name, kernel, wrapper, plain, bound, library=None):
+    def timed(name, kernel, wrapper, plain, bound, library=None,
+              yardstick=None):
         out[name] = {**call_cost(wrapper, flush),
                      "kernel_only_ms": cuda_events_ms(kernel, flush=flush),
                      **call_cost(plain, flush, "plain_"),
                      **(call_cost(library, flush, "library_") if library
                         else {"library_ms": None}), **bound}
+        if yardstick:
+            out[name]["sdpa_yardstick_ms"] = cuda_events_ms(yardstick,
+                                                            flush=flush)
 
     kf, nb = c["kf"], c["nb"]
     cent = c["cents"]
@@ -1023,8 +1065,8 @@ def _time_train_kernels(c, flush) -> dict:
           lambda: ref.moba_partials_ref(*args, **kw),
           _bound(_nbytes(lay.tile_block, c["q_sorted"], c["q_pos"], o, m, l)
                  + kv_bytes, 4.0 * n_active * tile * bs * d, rate),
-          library=lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                         is_causal=True))
+          yardstick=lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                           is_causal=True))
     tables = KB.segments(lay.tile_block, nb)
     bargs = (c["q_sorted"], c["q_pos"], c["do"], c["lse"], c["delta"],
              c["k_blocks"], c["v_blocks"])
@@ -1040,8 +1082,15 @@ def _time_train_kernels(c, flush) -> dict:
           lambda: ref.moba_bwd_ref(lay.tile_block, *bargs, **kw),
           _bound(_nbytes(*tables, *bargs[:5]) + grad_bytes + kv_bytes,
                  10.0 * n_active * tile * bs * d, rate),
-          library=lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg),
-                                              sdpa_g, retain_graph=True))
+          yardstick=lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg),
+                                                sdpa_g, retain_graph=True))
+    # the launch alone with runs cut into segments of 4, 8 and 16 tiles
+    out["moba_bwd"]["kernel_only_ms_by_run_tiles"] = {
+        rt: cuda_events_ms(lambda t=KB.segments(lay.tile_block, nb, rt):
+                           KB.launch(t, *bargs, q_tile=tile, causal=True,
+                                     **fkw), flush=flush)
+        for rt in (4, 8, 16)}
+    out["moba_bwd"]["run_tiles"] = KB.RUN_TILES
     return out
 
 
@@ -1110,8 +1159,54 @@ def _time_flash_moba(c, flush) -> dict:
                     *x, is_causal=True), dense), flush=flush)}
 
 
+def _tensor_core_audit() -> dict:
+    """Per kernel function of the built FlashMoBA forward and backward
+    libraries: registers and stack bytes (``cuobjdump -res-usage``; a
+    spill needs a stack frame) and the count of tensor-core instructions
+    in its SASS (``HMMA``/``HGMMA``, ``cuobjdump -sass``).  Fails if a
+    bf16 instantiation (``*_mma<D, ...>``) has none, or has a stack frame
+    at d 64."""
+    import re
+    from repro_torch.kernels import runtime
+    tool = os.path.join(os.path.dirname(runtime.nvcc_path()), "cuobjdump")
+    funcs = {}
+    for lib in ("moba_fwd", "moba_bwd"):
+        path = str(runtime.library_path(lib))
+        for flag in ("-res-usage", "-sass"):
+            text = subprocess.run([tool, flag, path], capture_output=True,
+                                  text=True, timeout=300, check=True).stdout
+            cur = None
+            for ln in text.splitlines():
+                m = re.search(r"Function\s*:?\s*(\w+)", ln)
+                if m:
+                    cur = funcs.setdefault(m.group(1), {"library": lib,
+                                                        "tensor_core": 0})
+                    continue
+                m = re.search(r"REG:(\d+) STACK:(\d+)", ln)
+                if m and cur is not None:
+                    cur["registers"] = int(m.group(1))
+                    cur["stack_bytes"] = int(m.group(2))
+                if flag == "-sass" and cur is not None and \
+                        re.search(r"\bHG?MMA\b", ln):
+                    cur["tensor_core"] += 1
+    bf16 = {n: f for n, f in funcs.items() if re.search(r"_mmaILi\d+E", n)}
+    bad = [n for n, f in bf16.items()
+           if not f["tensor_core"] or ("ILi64E" in n and
+                                       f.get("stack_bytes", 1) != 0)]
+    libs = {f["library"] for f in bf16.values()}
+    rec = {"functions": funcs, "bf16_functions": len(bf16),
+           "ok": libs == {"moba_fwd", "moba_bwd"} and not bad}
+    if not rec["ok"]:
+        emit({"phase": "train_kernels", "tensor_core_audit": rec})
+        raise SystemExit(f"train_kernels: a bf16 FlashMoBA kernel has no "
+                         f"tensor-core instruction or spills at d 64 (or "
+                         f"none was found): {bad or sorted(funcs)}")
+    return rec
+
+
 def phase_train_kernels():
     import torch
+    audit = _tensor_core_audit()
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     geoms = [("moba-340m", dict(h=16, hkv=16, n=TRAIN_SEQ, nq=TRAIN_SEQ,
                                 d=64), (torch.bfloat16, torch.float32)),
@@ -1145,8 +1240,8 @@ def phase_train_kernels():
                                      f"with the xla path: {vs_xla}")
             del c
             torch.cuda.empty_cache()
-    emit({"phase": "train_kernels", "checks": checks,
-          "flash_vs_xla": vs_xla, "timing": timing})
+    emit({"phase": "train_kernels", "tensor_core_audit": audit,
+          "checks": checks, "flash_vs_xla": vs_xla, "timing": timing})
     return timing, main_err
 
 
@@ -1164,9 +1259,13 @@ def _zero_counts():
         mod.LAUNCHES = 0
 
 
-def phase_train():
+def _train_run(backend: str, steps: int = TRAIN_STEPS):
+    """moba-340m at full width and depth (bf16, random weights from a
+    seeded torch.Generator), batch 1, seq 8192: ``steps`` steps of
+    ``make_train_step`` with remat on ``backend``, from the same weights
+    and batches on every call.  Returns the state for one more step, each
+    step's loss and seconds (each loss read waits for its step)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch import steps as S
@@ -1183,24 +1282,37 @@ def phase_train():
     batches = [{"tokens": torch.as_tensor(data.batch_at(i)["tokens"],
                                           device="cuda")}
                for i in range(TRAIN_STEPS + 1)]
-    step_fn = S.make_train_step(cfg, tcfg, backend="flash", remat=True)
+    step_fn = S.make_train_step(cfg, tcfg, backend=backend, remat=True)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
     losses, step_s = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         t0 = time.perf_counter()
         params, opt, m = step_fn(params, opt, batches[i])
-        losses.append(float(m["loss"]))          # waits for the step
+        losses.append(float(m["loss"]))
         step_s.append(time.perf_counter() - t0)
+    return cfg, (step_fn, params, opt, batches[steps]), losses, step_s
+
+
+def phase_train():
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    cfg, (step_fn, params, opt, batch), losses, step_s = _train_run("flash")
     launches = _counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        params, opt, m = step_fn(params, opt, batches[TRAIN_STEPS])
+        params, opt, m = step_fn(params, opt, batch)
         losses.append(float(m["loss"]))
         wall = time.perf_counter() - t0
+    del step_fn, params, opt, batch
+    torch.cuda.empty_cache()
+    # the same steps on xla (TRAIN_LOSS_TOL says why they may differ)
+    _, _, xla_losses, xla_s = _train_run("xla")
+    torch.cuda.empty_cache()
+    loss_gap = max(abs(a - b) for a, b in zip(losses, xla_losses))
     steady = float(np.median(step_s[1:]))
     want = {"block_centroids": 2 * MOBA_LAYERS, "flash_topk": 2 * MOBA_LAYERS,
             "moba_fwd": 2 * MOBA_LAYERS, "moba_bwd": MOBA_LAYERS}
@@ -1213,15 +1325,23 @@ def phase_train():
            "launches_per_step": {k: v / TRAIN_STEPS
                                  for k, v in launches.items()},
            "expected_per_step": want,
+           "xla_losses": xla_losses, "xla_step_ms": [t * 1e3 for t in xla_s],
+           "flash_vs_xla_max_loss_gap": loss_gap,
+           "flash_vs_xla_loss_tol": TRAIN_LOSS_TOL,
            "profile": _profile_summary(prof, wall, 1)}
     emit(rec)
-    if not all(np.isfinite(losses)):
-        raise SystemExit(f"train: a loss is not finite: {losses}")
+    if not all(np.isfinite(losses + xla_losses)):
+        raise SystemExit(f"train: a loss is not finite: {losses} / "
+                         f"{xla_losses}")
     for k, per_step in want.items():
         if launches[k] != per_step * TRAIN_STEPS:
             raise SystemExit(f"train: {k} launched {launches[k]} times in "
                              f"{TRAIN_STEPS} steps, expected {per_step} "
                              f"per step")
+    if loss_gap > TRAIN_LOSS_TOL:
+        raise SystemExit(f"train: flash and xla losses differ by "
+                         f"{loss_gap} > {TRAIN_LOSS_TOL}: {losses} / "
+                         f"{xla_losses}")
     return launches
 
 
@@ -1385,11 +1505,11 @@ def phase_swa():
     return launches, timing
 
 
-# ------------------------------------------------------------ --decode-ab
-def _decode_ab_one() -> dict:
-    """One tree's decode call (its ``src`` first on the path), at the
-    moba-340m phase-2 case with bf16 q and pool: ``call_cost`` of the
-    call and of the library call, and the reading without the spin."""
+# ------------------------------------------------------------------- --ab
+def _ab_decode() -> dict:
+    """The decode call at the moba-340m phase-2 case with bf16 q and pool:
+    ``call_cost`` of the call and of the library call, and the reading
+    without the spin."""
     import torch
     from repro_torch.configs.base import MoBAConfig
     from repro_torch.core.moba import moba_paged_route
@@ -1409,14 +1529,64 @@ def _decode_ab_one() -> dict:
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     out = call()
     torch.cuda.synchronize()
-    return {"module": MD.__file__, "finite": bool(torch.isfinite(out).all()),
+    return {"finite": bool(torch.isfinite(out).all()),
             **call_cost(call, flush),
             "ms_no_hold": cuda_events_ms(call, flush=flush, hold="none"),
             **call_cost(library, flush, "library_")}
 
 
-def decode_ab(other: str) -> int:
-    """The decode call of the checkout at ``other`` and of this one, each
+def _ab_train_kernels() -> dict:
+    """Device ms of ``moba_fwd.launch`` and ``moba_bwd.launch`` alone on
+    the phase-5 moba-340m bf16 case, dO in the dtype the tree's backward
+    wrapper takes."""
+    import torch
+    from repro_torch.kernels import moba_bwd as KB, moba_fwd as KF, ref
+    c = _train_case(h=16, hkv=16, n=TRAIN_SEQ, nq=TRAIN_SEQ, d=64,
+                    dtype=torch.bfloat16, seed=11)
+    lay, kw, tile = c["lay"], c["kw"], c["tile"]
+    fkw = {k: v for k, v in kw.items() if k != "block_size"}
+    args = (lay.tile_block, c["q_sorted"], c["q_pos"], c["k_blocks"],
+            c["v_blocks"])
+    _, m, l = ref.moba_partials_ref(*args, **kw)
+    lse = m.clamp(min=-5e29) + torch.log(l.clamp(min=1e-30))
+    do = torch.randn(c["q_sorted"].shape, generator=c["gen"],
+                     device="cuda").to(_do_dtype(KB, c))
+    delta = torch.randn(lse.shape, generator=c["gen"], device="cuda") * 0.1
+    tables = KB.segments(lay.tile_block, c["nb"])
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    return {"do_dtype": str(do.dtype),
+            "moba_fwd_ms": cuda_events_ms(
+                lambda: KF.launch(*args, q_tile=tile, kb_tile=128,
+                                  causal=True, **fkw), flush=flush),
+            "moba_bwd_ms": cuda_events_ms(
+                lambda: KB.launch(tables, c["q_sorted"], c["q_pos"], do, lse,
+                                  delta, c["k_blocks"], c["v_blocks"],
+                                  q_tile=tile, causal=True, **fkw),
+                flush=flush)}
+
+
+def _ab_one() -> dict:
+    """One tree's numbers for ``--ab`` (its ``src`` first on the path)."""
+    import torch
+    from repro_torch.kernels import moba_decode
+    rec = {"module": moba_decode.__file__, **_ab_decode(),
+           **_ab_train_kernels()}
+    torch.cuda.empty_cache()
+    _, _, losses, step_s = _train_run("flash")
+    rec.update(train_losses=losses,
+               train_median_step_ms=float(np.median(step_s[1:])) * 1e3)
+    rec["finite"] = rec["finite"] and bool(np.isfinite(losses).all())
+    return rec
+
+
+AB_KEYS = ("ms", "device_ms", "loop_us", "ms_no_hold", "library_ms",
+           "library_device_ms", "library_loop_us", "moba_fwd_ms",
+           "moba_bwd_ms", "train_median_step_ms")
+
+
+def ab(other: str) -> int:
+    """The decode call, the FlashMoBA forward and backward launches and
+    the training step of the checkout at ``other`` and of this one, each
     in a process of its own, in the order other, this, this, other, so a
     drift of the card shows.  One JSON line a process, then each tree's
     medians and the ratio other / this."""
@@ -1428,8 +1598,8 @@ def decode_ab(other: str) -> int:
     runs = {"other": [], "this": []}
     for which in ("other", "this", "this", "other"):
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--decode-ab-one", trees[which]],
-                             capture_output=True, text=True, timeout=600)
+                              "--ab-one", trees[which]],
+                             capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             print(res.stdout + res.stderr, file=sys.stderr)
             return res.returncode
@@ -1438,23 +1608,22 @@ def decode_ab(other: str) -> int:
         if not rec["finite"]:
             return 1
         runs[which].append(rec)
-    keys = ("ms", "device_ms", "loop_us", "ms_no_hold", "library_ms",
-            "library_device_ms", "library_loop_us")
-    med = {w: {k: float(np.median([r[k] for r in rs])) for k in keys}
+    med = {w: {k: float(np.median([r[k] for r in rs])) for k in AB_KEYS}
            for w, rs in runs.items()}
     emit({"nvidia_smi": smi, "median": med,
           "other_over_this": {k: med["other"][k] / med["this"][k]
-                              for k in keys}})
+                              for k in AB_KEYS}})
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
                                  "on one NVIDIA card and check it.")
-    ap.add_argument("--decode-ab", metavar="DIR",
-                    help="instead of the phases, time the decode call of "
-                         "the checkout at DIR and of this one")
-    ap.add_argument("--decode-ab-one", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--ab", metavar="DIR",
+                    help="instead of the phases, time the decode call, the "
+                         "FlashMoBA forward and backward and the training "
+                         "step of the checkout at DIR and of this one")
+    ap.add_argument("--ab-one", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
         import torch
@@ -1471,13 +1640,13 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.decode_ab_one:
-        sys.path.insert(0, os.path.join(args.decode_ab_one, "src"))
-        emit(_decode_ab_one())
+    if args.ab_one:
+        sys.path.insert(0, os.path.join(args.ab_one, "src"))
+        emit(_ab_one())
         return 0
     sys.path.insert(0, SRC)
-    if args.decode_ab:
-        return decode_ab(args.decode_ab)
+    if args.ab:
+        return ab(args.ab)
     smi = phase_env()
     timing = phase_kernel()
     launches, kernel_launches = {}, {}
@@ -1520,6 +1689,8 @@ def main() -> int:
             "device_ms": t["device_ms"], "kernel_only_ms": t["kernel_only_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **({"sdpa_yardstick_ms": t["sdpa_yardstick_ms"]}
+               if "sdpa_yardstick_ms" in t else {}),
             "checked": True})
     name, source, replaces = SWA_KERNEL
     kernels.append({

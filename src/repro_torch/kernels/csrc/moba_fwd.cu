@@ -9,27 +9,48 @@
 // and emits un-normalised partials o (fp32), row max m and row sum l.  The
 // per-query merge of the k partials happens in the wrapper.
 //
-// What bounds it on an H100: bytes, because the layout materialises
-// q_sorted (read once) and the fp32 partials (written once) in device
-// memory: at moba-340m training shapes about 0.5 GB against 34 GFLOP of
-// products, i.e. ~70 flops per byte, below the ~295 where the tensor
-// cores would become the limit.
+// What bounds it on an H100: bytes.  The layout materialises q_sorted
+// (read once) and the fp32 partials (written once) in device memory: at
+// moba-340m training shapes about 0.5 GB against 34.6 GFLOP, ~70 flops a
+// byte, below the ~295 where the bf16 tensor cores become the limit.  So
+// the products must run on the tensor cores (scalar fp32 FMAs reach ~19
+// TFLOP/s, which made the first design compute-bound at 12x its bound),
+// and loads must overlap the math.
 //
-// What the design does about it: one CTA per (batch*head, q tile) reads
-// its tile's block id itself, stages the q tile once in shared memory and
-// streams the block's K/V through shared memory in kb_tile chunks (16-byte
-// loads), so every q_sorted element is read once and every output element
-// written once, through shared memory so the stores are coalesced.  Each
-// thread owns one query row: scores for 16 keys at a time stay in
-// registers, the online softmax runs in fp32 with the m_safe =
-// max(m, -5e29) guard of the reference, and the row's d-wide accumulator
-// stays in registers.  An inactive tile (block id nb) still writes o = 0,
-// m = -1e30, l = 0: the merge reads those slots.
+// bf16 (the training path): one CTA of 8 warps per (batch*head, q tile),
+// each warp owning 16 query rows.  The tile's Q and the whole key block's
+// K and V are staged in shared memory as bf16 with 16-byte cp.async copies,
+// rows padded by 16 bytes so ldmatrix is conflict-free (55 KB at d 64,
+// block 128).  V is its own copy group, issued after Q and K, so the first
+// chunk's Q K^T and softmax run while V lands.  Each warp keeps its Q
+// fragments in registers for the whole block and walks the block in
+// chunks of KC keys (64 where the block allows): S = Q K^T with
+// mma.m16n8k16 (bf16 in, fp32 accumulate), the masks per accumulator
+// element, the online softmax in fp32 with quad shuffles and the m_safe =
+// max(m, -5e29) guard of the reference, then O += P V with P's
+// accumulators as the A operand (no shared-memory round trip) and V
+// through ldmatrix.trans.  P goes in as two bf16 parts, hi = bf16(p) and
+// lo = bf16(p - hi): o is an un-normalised sum over up to a block of keys,
+// and p rounded once to bf16 misses the 3e-2 tolerance on it at
+// moba-340m shapes; the second part costs one more mma per P V step and
+// keeps the partials as exact as fp32 p.  Sentinels stay in fp32
+// registers.
+// Rows past a ragged q_tile are zero-filled and carry q_pos -1, so they
+// mask themselves, and are never stored.  o is stored straight from the
+// accumulators as float2: each warp store covers eight whole 32-byte
+// sectors, so staging through shared memory would save instructions but
+// no bytes.  An inactive tile (block id nb) still writes o = 0, m =
+// -1e30, l = 0: the merge reads those slots.
 //
-// Not done yet (later work): wgmma for the (q_tile, kb) products and a TMA
-// ring that overlaps the next chunk's load with this chunk's math; fusing
-// the gather and the merge so q_sorted and the partials never reach
-// device memory.
+// fp32 keeps the SIMT body of the first design (one thread per query row,
+// fp32 FMAs, K/V streamed in kb_tile chunks): TF32 products would break
+// the fp32 tolerances the checks hold.  The dtype picks the body in the C
+// entry point; a bf16 shape the tensor-core kernel cannot take is refused
+// by the wrapper and never reaches the SIMT body.
+//
+// Not done yet (later work): fusing the Q gather and the lse merge so
+// q_sorted and the fp32 partials never reach device memory (the bytes
+// that bound this kernel); wgmma once the kernel is FLOP-bound.
 //
 // C interface (ctypes): every pointer and the stream are void*; returns
 // the cudaGetLastError() of the launch (0 = success).
@@ -38,53 +59,264 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;   // one thread per query row of the tile
-constexpr int kSub = 16;        // keys scored per register pass
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ void load16(const float* src, float* dst) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(src));
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) dst[j] = __bfloat162float(h[j]);
-}
+// ------------------------------------------------- bf16: tensor cores
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kTileRows = 16 * kMmaWarps;    // the largest q tile
 
-// Stage `rows` contiguous rows of width D from src as fp32 rows of stride
-// `ld` in shared memory.
-template <typename T, int D>
-__device__ __forceinline__ void stage(const T* __restrict__ src, int rows,
-                                      float* dst, int ld) {
-  constexpr int kVec = 16 / sizeof(T);
-  for (int e = threadIdx.x * kVec; e < rows * D; e += kThreads * kVec) {
-    float tmp[kVec];
-    load16(src + e, tmp);
-    const int r = e / D;
-    const int c = e - r * D;
+using bf16 = __nv_bfloat16;
+
+template <int D, int KC>
+__global__ void __launch_bounds__(kMmaThreads, D == 64 ? 2 : 1)
+moba_fwd_mma(const int32_t* __restrict__ tile_block,
+             const bf16* __restrict__ q_sorted,
+             const int32_t* __restrict__ q_pos,
+             const bf16* __restrict__ k_blocks,
+             const bf16* __restrict__ v_blocks, float* __restrict__ o,
+             float* __restrict__ m_out, float* __restrict__ l_out,
+             int n_tiles, int num_q_heads, int group, int nb, int bs,
+             int n_tokens, int q_tile, float scale, int causal) {
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);     // [kTileRows][LD]
+  bf16* ks = qs + kTileRows * LD;                    // [bs][LD]
+  bf16* vs = ks + bs * LD;                           // [bs][LD]
+
+  const int bh = blockIdx.y;
+  const int t = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int L = n_tiles * q_tile;
+  const size_t row0 =
+      static_cast<size_t>(bh) * L + static_cast<size_t>(t) * q_tile;
+  const int blk = tile_block[static_cast<size_t>(bh) * n_tiles + t];
+
+  if (blk < 0 || blk >= nb) {                // inactive tile
+    for (int e = tid; e < q_tile * D; e += kMmaThreads) o[row0 * D + e] = 0.f;
+    if (tid < q_tile) {
+      m_out[row0 + tid] = kNegInf;
+      l_out[row0 + tid] = 0.f;
+    }
+    return;
+  }
+
+  const int hkv = num_q_heads / group;
+  const int kv = (bh / num_q_heads) * hkv + (bh % num_q_heads) / group;
+  const size_t kv_off = (static_cast<size_t>(kv) * nb + blk) * bs * D;
+  mma::copy_rows<D, kMmaThreads>(qs, q_sorted + row0 * D, q_tile, kTileRows);
+  mma::copy_rows<D, kMmaThreads>(ks, k_blocks + kv_off, bs, bs);
+  mma::cp_async_commit();
+  mma::copy_rows<D, kMmaThreads>(vs, v_blocks + kv_off, bs, bs);
+  mma::cp_async_commit();
+
+  // this thread's two rows (g and g + 8 of the warp's 16)
+  const int r_lo = warp * 16 + g;
+  const int r_hi = r_lo + 8;
+  const int qp_lo = r_lo < q_tile ? q_pos[row0 + r_lo] : -1;
+  const int qp_hi = r_hi < q_tile ? q_pos[row0 + r_hi] : -1;
+  const int kbase = blk * bs;
+
+  mma::cp_async_wait<1>();                   // Q and K landed
+  __syncthreads();
+  uint32_t qf[D / 16][4];
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) dst[r * ld + c + j] = tmp[j];
+  for (int kk = 0; kk < D / 16; ++kk)
+    mma::ldsm_x4(qs + mma::a_offset(lane, warp * 16, kk * 16, LD), qf[kk]);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m_lo = kNegInf, m_hi = kNegInf;      // running row max
+  float l_lo = 0.f, l_hi = 0.f;              // this thread's share of l
+
+  for (int c0 = 0; c0 < bs; c0 += KC) {
+    float s[KC / 8][4];
+#pragma unroll
+    for (int j = 0; j < KC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int np = 0; np < KC / 16; ++np) {
+        uint32_t b[4];
+        mma::ldsm_x4(ks + mma::bn_offset(lane, c0 + np * 16, kk * 16, LD), b);
+        mma::mma16816(s[2 * np], qf[kk], b[0], b[1]);
+        mma::mma16816(s[2 * np + 1], qf[kk], b[2], b[3]);
+      }
+    // masks, scale and the chunk's row max
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int j = 0; j < KC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = kbase + c0 + 8 * j + 2 * tq + (e & 1);
+        const int qp = e < 2 ? qp_lo : qp_hi;
+        const bool ok = qp >= 0 && kpos < n_tokens && (!causal || kpos <= qp);
+        s[j][e] = ok ? s[j][e] * scale : kNegInf;
+        if (e < 2) mx_lo = fmaxf(mx_lo, s[j][e]);
+        else mx_hi = fmaxf(mx_hi, s[j][e]);
+      }
+#pragma unroll
+    for (int sh = 1; sh < 4; sh <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, sh));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, sh));
+    }
+    const float ms_lo = fmaxf(mx_lo, kNegInf * 0.5f);
+    const float ms_hi = fmaxf(mx_hi, kNegInf * 0.5f);
+    const float a_lo = __expf(m_lo - ms_lo);
+    const float a_hi = __expf(m_hi - ms_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    // a masked score sits at -1e30 <= m_safe - 5e29, so its p is 0
+    float ps_lo = 0.f, ps_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < KC / 8; ++j) {
+      s[j][0] = __expf(s[j][0] - ms_lo);
+      s[j][1] = __expf(s[j][1] - ms_lo);
+      s[j][2] = __expf(s[j][2] - ms_hi);
+      s[j][3] = __expf(s[j][3] - ms_hi);
+      ps_lo += s[j][0] + s[j][1];
+      ps_hi += s[j][2] + s[j][3];
+    }
+    l_lo = l_lo * a_lo + ps_lo;
+    l_hi = l_hi * a_hi + ps_hi;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][0] *= a_lo;
+      acc[j][1] *= a_lo;
+      acc[j][2] *= a_hi;
+      acc[j][3] *= a_hi;
+    }
+    if (c0 == 0) {                           // V landed
+      mma::cp_async_wait<0>();
+      __syncthreads();
+    }
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      mma::acc_to_a_split(s[2 * kk], s[2 * kk + 1], ph, pl);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t b[4];
+        mma::ldsm_x4_t(vs + mma::bk_offset(lane, c0 + kk * 16, dp * 16, LD), b);
+        mma::mma16816(acc[2 * dp], ph, b[0], b[1]);
+        mma::mma16816(acc[2 * dp + 1], ph, b[2], b[3]);
+        mma::mma16816(acc[2 * dp], pl, b[0], b[1]);
+        mma::mma16816(acc[2 * dp + 1], pl, b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int sh = 1; sh < 4; sh <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, sh);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, sh);
+  }
+  if (r_lo < q_tile) {
+    float* dst = o + (row0 + r_lo) * D + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(acc[j][0], acc[j][1]);
+    if (tq == 0) {
+      m_out[row0 + r_lo] = l_lo > 0.f ? m_lo : kNegInf;
+      l_out[row0 + r_lo] = l_lo;
+    }
+  }
+  if (r_hi < q_tile) {
+    float* dst = o + (row0 + r_hi) * D + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(acc[j][2], acc[j][3]);
+    if (tq == 0) {
+      m_out[row0 + r_hi] = l_hi > 0.f ? m_hi : kNegInf;
+      l_out[row0 + r_hi] = l_hi;
+    }
   }
 }
 
-template <typename T, int D>
+template <int D, int KC>
+int launch_mma(const void* tile_block, const void* q_sorted,
+               const void* q_pos, const void* k_blocks, const void* v_blocks,
+               void* o, void* m, void* l, int bh, int n_tiles,
+               int num_q_heads, int group, int nb, int bs, int n_tokens,
+               int q_tile, float scale, int causal, cudaStream_t s) {
+  const size_t smem =
+      sizeof(bf16) * (kTileRows + 2 * static_cast<size_t>(bs)) * (D + 8);
+  auto kernel = moba_fwd_mma<D, KC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(n_tiles, bh), kMmaThreads, smem, s>>>(
+      static_cast<const int32_t*>(tile_block),
+      static_cast<const bf16*>(q_sorted), static_cast<const int32_t*>(q_pos),
+      static_cast<const bf16*>(k_blocks), static_cast<const bf16*>(v_blocks),
+      static_cast<float*>(o), static_cast<float*>(m), static_cast<float*>(l),
+      n_tiles, num_q_heads, group, nb, bs, n_tokens, q_tile, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chunk: the largest of 64, 32, 16 keys that divides the block.
+template <int D>
+int dispatch_chunk(const void* tb, const void* qs, const void* qp,
+                   const void* kb, const void* vb, void* o, void* m, void* l,
+                   int bh, int n_tiles, int h, int g, int nb, int bs, int n,
+                   int q_tile, float scale, int causal, cudaStream_t s) {
+  if (bs % 64 == 0)
+    return launch_mma<D, 64>(tb, qs, qp, kb, vb, o, m, l, bh, n_tiles, h, g,
+                             nb, bs, n, q_tile, scale, causal, s);
+  if (bs % 32 == 0)
+    return launch_mma<D, 32>(tb, qs, qp, kb, vb, o, m, l, bh, n_tiles, h, g,
+                             nb, bs, n, q_tile, scale, causal, s);
+  return launch_mma<D, 16>(tb, qs, qp, kb, vb, o, m, l, bh, n_tiles, h, g,
+                           nb, bs, n, q_tile, scale, causal, s);
+}
+
+// ------------------------------------------------------ fp32: SIMT
+constexpr int kThreads = 128;   // one thread per query row of the tile
+constexpr int kSub = 16;        // keys scored per register pass
+
+// Stage `rows` contiguous rows of width D from src as rows of stride `ld`
+// in shared memory.
+template <int D>
+__device__ __forceinline__ void stage(const float* __restrict__ src,
+                                      int rows, float* dst, int ld) {
+  for (int e = threadIdx.x * 4; e < rows * D; e += kThreads * 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(src + e));
+    const int r = e / D;
+    float* d = dst + r * ld + e - r * D;
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  }
+}
+
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-moba_fwd_kernel(const int32_t* __restrict__ tile_block,
-                const T* __restrict__ q_sorted,
-                const int32_t* __restrict__ q_pos,
-                const T* __restrict__ k_blocks,
-                const T* __restrict__ v_blocks, float* __restrict__ o,
-                float* __restrict__ m_out, float* __restrict__ l_out,
-                int n_tiles, int num_q_heads, int group, int nb, int bs,
-                int n_tokens, int q_tile, int kb_tile, float scale,
-                int causal) {
+moba_fwd_simt(const int32_t* __restrict__ tile_block,
+              const float* __restrict__ q_sorted,
+              const int32_t* __restrict__ q_pos,
+              const float* __restrict__ k_blocks,
+              const float* __restrict__ v_blocks, float* __restrict__ o,
+              float* __restrict__ m_out, float* __restrict__ l_out,
+              int n_tiles, int num_q_heads, int group, int nb, int bs,
+              int n_tokens, int q_tile, int kb_tile, float scale,
+              int causal) {
   extern __shared__ float smem[];
   float* qs = smem;                          // [kThreads][D + 1]
   float* ks = qs + kThreads * (D + 1);       // [kb_tile][D]
@@ -109,7 +341,7 @@ moba_fwd_kernel(const int32_t* __restrict__ tile_block,
   const int hkv = num_q_heads / group;
   const int kv = (bh / num_q_heads) * hkv + (bh % num_q_heads) / group;
   const size_t kv_off = (static_cast<size_t>(kv) * nb + blk) * bs * D;
-  stage<T, D>(q_sorted + row0 * D, q_tile, qs, D + 1);
+  stage<D>(q_sorted + row0 * D, q_tile, qs, D + 1);
   const int qpos = r < q_tile ? q_pos[row0 + r] : -1;
   const int kbase = blk * bs;
 
@@ -121,10 +353,10 @@ moba_fwd_kernel(const int32_t* __restrict__ tile_block,
 
   for (int kb0 = 0; kb0 < bs; kb0 += kb_tile) {
     __syncthreads();                         // previous chunk consumed
-    stage<T, D>(k_blocks + kv_off + static_cast<size_t>(kb0) * D, kb_tile,
-                ks, D);
-    stage<T, D>(v_blocks + kv_off + static_cast<size_t>(kb0) * D, kb_tile,
-                vs, D);
+    stage<D>(k_blocks + kv_off + static_cast<size_t>(kb0) * D, kb_tile, ks,
+             D);
+    stage<D>(v_blocks + kv_off + static_cast<size_t>(kb0) * D, kb_tile, vs,
+             D);
     __syncthreads();
     for (int j0 = 0; j0 < kb_tile; j0 += kSub) {
       float s[kSub];
@@ -181,48 +413,38 @@ moba_fwd_kernel(const int32_t* __restrict__ tile_block,
   }
 }
 
-template <typename T, int D>
-int launch(const void* tile_block, const void* q_sorted, const void* q_pos,
-           const void* k_blocks, const void* v_blocks, void* o, void* m,
-           void* l, int bh, int n_tiles, int num_q_heads, int group, int nb,
-           int bs, int n_tokens, int q_tile, int kb_tile, float scale,
-           int causal, cudaStream_t s) {
+template <int D>
+int launch_simt(const void* tile_block, const void* q_sorted,
+                const void* q_pos, const void* k_blocks, const void* v_blocks,
+                void* o, void* m, void* l, int bh, int n_tiles,
+                int num_q_heads, int group, int nb, int bs, int n_tokens,
+                int q_tile, int kb_tile, float scale, int causal,
+                cudaStream_t s) {
   const size_t smem =
       sizeof(float) * (kThreads * (D + 1) + 2 * static_cast<size_t>(kb_tile) * D);
-  auto kernel = moba_fwd_kernel<T, D>;
+  auto kernel = moba_fwd_simt<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n_tiles, bh);
-  kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const int32_t*>(tile_block), static_cast<const T*>(q_sorted),
-      static_cast<const int32_t*>(q_pos), static_cast<const T*>(k_blocks),
-      static_cast<const T*>(v_blocks), static_cast<float*>(o),
+  kernel<<<dim3(n_tiles, bh), kThreads, smem, s>>>(
+      static_cast<const int32_t*>(tile_block),
+      static_cast<const float*>(q_sorted), static_cast<const int32_t*>(q_pos),
+      static_cast<const float*>(k_blocks),
+      static_cast<const float*>(v_blocks), static_cast<float*>(o),
       static_cast<float*>(m), static_cast<float*>(l), n_tiles, num_q_heads,
       group, nb, bs, n_tokens, q_tile, kb_tile, scale, causal);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_d(int d, const void* tb, const void* qs, const void* qp,
-               const void* kb, const void* vb, void* o, void* m, void* l,
-               int bh, int n_tiles, int h, int g, int nb, int bs, int n,
-               int q_tile, int kb_tile, float scale, int causal,
-               cudaStream_t s) {
-  if (d == 64)
-    return launch<T, 64>(tb, qs, qp, kb, vb, o, m, l, bh, n_tiles, h, g, nb,
-                         bs, n, q_tile, kb_tile, scale, causal, s);
-  return launch<T, 128>(tb, qs, qp, kb, vb, o, m, l, bh, n_tiles, h, g, nb,
-                        bs, n, q_tile, kb_tile, scale, causal, s);
 }
 
 }  // namespace
 
 // tile_block (bh, n_tiles) int32; q_sorted (bh, n_tiles*q_tile, d);
 // q_pos (bh, n_tiles*q_tile) int32; k/v_blocks (bh/group, nb, bs, d);
-// o (bh, L, d), m, l (bh, L) float32.  dtype: 0 = float32, 1 = bfloat16
-// (q_sorted and the K/V blocks share it).
+// o (bh, L, d), m, l (bh, L) float32.  dtype: 0 = float32 (SIMT body,
+// K/V streamed in kb_tile chunks), 1 = bfloat16 (tensor cores, the whole
+// block staged: bs a multiple of 16 up to 256; kb_tile is not read);
+// q_sorted and the K/V blocks share it.
 extern "C" int moba_fwd(const void* tile_block, const void* q_sorted,
                         const void* q_pos, const void* k_blocks,
                         const void* v_blocks, void* o, void* m, void* l,
@@ -232,19 +454,25 @@ extern "C" int moba_fwd(const void* tile_block, const void* q_sorted,
                         void* stream) {
   if (bh < 1 || bh > 65535 || n_tiles < 1 || num_q_heads < 1 || group < 1 ||
       num_q_heads % group != 0 || nb < 1 || (d != 64 && d != 128) ||
-      q_tile < 1 || q_tile > kThreads || kb_tile < kSub ||
+      q_tile < 1 || q_tile > kTileRows || kb_tile < kSub ||
       kb_tile % kSub != 0 || kb_tile > 128 || bs % kb_tile != 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && d == 64)
+    return launch_simt<64>(tile_block, q_sorted, q_pos, k_blocks, v_blocks,
+                           o, m, l, bh, n_tiles, num_q_heads, group, nb, bs,
+                           n_tokens, q_tile, kb_tile, scale, causal, s);
   if (dtype == 0)
-    return dispatch_d<float>(d, tile_block, q_sorted, q_pos, k_blocks,
-                             v_blocks, o, m, l, bh, n_tiles, num_q_heads,
-                             group, nb, bs, n_tokens, q_tile, kb_tile, scale,
-                             causal, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, tile_block, q_sorted, q_pos, k_blocks,
-                                     v_blocks, o, m, l, bh, n_tiles,
-                                     num_q_heads, group, nb, bs, n_tokens,
-                                     q_tile, kb_tile, scale, causal, s);
-  return cudaErrorInvalidValue;
+    return launch_simt<128>(tile_block, q_sorted, q_pos, k_blocks, v_blocks,
+                            o, m, l, bh, n_tiles, num_q_heads, group, nb, bs,
+                            n_tokens, q_tile, kb_tile, scale, causal, s);
+  if (dtype != 1 || bs > 256) return cudaErrorInvalidValue;
+  if (d == 64)
+    return dispatch_chunk<64>(tile_block, q_sorted, q_pos, k_blocks,
+                              v_blocks, o, m, l, bh, n_tiles, num_q_heads,
+                              group, nb, bs, n_tokens, q_tile, scale, causal,
+                              s);
+  return dispatch_chunk<128>(tile_block, q_sorted, q_pos, k_blocks, v_blocks,
+                             o, m, l, bh, n_tiles, num_q_heads, group, nb,
+                             bs, n_tokens, q_tile, scale, causal, s);
 }

@@ -3,10 +3,16 @@
 Replaces ``repro.kernels.moba_bwd.moba_bwd`` (the TPU's kb-tiled and flat
 grids).  The CUDA kernel is ``csrc/moba_bwd.cu``; its header says what
 bounds it on an H100 (bytes: q_sorted, dO and dQ live in device memory in
-the sorted layout) and what the design does about that (one CTA per
+the sorted layout) and what the design does about that: one CTA per
 segment of a key block's contiguous tile run, dK/dV in registers, dQ
 written once per slot without atomics, a second pass summing each
-block's segment partials in order).
+block's segment partials in order.  bf16 runs on the tensor cores: the
+block's K/V stay in shared memory, the segment's q/dO rows stream
+through it once in 64-row slices (32 at d 128), and blocks above 128
+keys split their keys across CTAs, each writing a dQ partial that this
+wrapper sums in order (:func:`dq_partials`).  fp32 keeps a SIMT body
+that walks the block 32 keys at a time (TF32 would break the fp32
+tolerances).
 
 The wrapper finds each block's tile run with a binary search on the
 sorted ``tile_block`` (id ``nb`` = the inactive tail, whose dQ slots the
@@ -16,10 +22,10 @@ the TPU kernel, unvisited blocks come back as zeros, not garbage.
 
 Device contract: a CPU tensor takes the plain PyTorch version
 (``kernels/ref.py::moba_bwd_ref``); a CUDA tensor launches the kernel or
-raises — there is no fallback.  The kernel takes q_sorted and K/V blocks
-of one dtype, bf16 or fp32, fp32 dO/lse/delta, and head_dim 64 or 128.
-``grid`` and ``kb_tile`` keep the reference's API: the kernel walks 32
-keys at a time whatever the grid.
+raises — there is no fallback.  The kernel takes q_sorted, dO and K/V
+blocks of one dtype, bf16 or fp32, fp32 lse/delta, and head_dim 64 or
+128; in bf16 a block of a multiple of 16 keys up to 256.  ``grid`` and
+``kb_tile`` keep the reference's API and do not change the launch.
 
 ``LAUNCHES`` counts kernel launches (and nothing else).
 """
@@ -39,7 +45,19 @@ _HEAD_DIMS = (64, 128)
 _ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 # tiles per segment of a key block's run: pass 1 runs one CTA a segment
-RUN_TILES = 4
+RUN_TILES = 8
+# keys one CTA of the bf16 kernel holds; a longer block splits across CTAs
+SPLIT_KEYS = 128
+_BF16_BLOCK_GRAIN = 16
+_MAX_BF16_BLOCK = 2 * SPLIT_KEYS
+
+
+def dq_partials(block_size: int, dtype: torch.dtype) -> int:
+    """The dQ partials the kernel writes: in bf16 one per ``SPLIT_KEYS``
+    keys of the block (summed in order by the wrapper), in fp32 one."""
+    if dtype == torch.bfloat16:
+        return -(-block_size // SPLIT_KEYS)
+    return 1
 
 
 def segments(tile_block: torch.Tensor, nb: int,
@@ -75,17 +93,22 @@ def check_contract(q_sorted, do_sorted, lse_sorted, delta_sorted, k_blocks,
                    num_q_heads: int, group: int) -> None:
     """Raise a shaped error for inputs the CUDA kernel does not take."""
     bh, ln, d = q_sorted.shape
-    bkv = k_blocks.shape[0]
+    bkv, _, bs, _ = k_blocks.shape
     problems = []
-    if q_sorted.dtype not in runtime.DTYPE_CODES or \
-            k_blocks.dtype != q_sorted.dtype or \
-            v_blocks.dtype != q_sorted.dtype:
-        problems.append(f"q_sorted and K/V of one dtype, bf16 or fp32 (got "
-                        f"{q_sorted.dtype}/{k_blocks.dtype}/"
-                        f"{v_blocks.dtype})")
-    if any(t.dtype != torch.float32
-           for t in (do_sorted, lse_sorted, delta_sorted)):
-        problems.append("fp32 dO, lse and delta")
+    if q_sorted.dtype not in runtime.DTYPE_CODES or any(
+            t.dtype != q_sorted.dtype for t in (do_sorted, k_blocks,
+                                                v_blocks)):
+        problems.append(f"q_sorted, dO and K/V of one dtype, bf16 or fp32 "
+                        f"(got {q_sorted.dtype}/{do_sorted.dtype}/"
+                        f"{k_blocks.dtype}/{v_blocks.dtype})")
+    if lse_sorted.dtype != torch.float32 or \
+            delta_sorted.dtype != torch.float32:
+        problems.append("fp32 lse and delta")
+    if q_sorted.dtype == torch.bfloat16 and (
+            bs % _BF16_BLOCK_GRAIN or bs > _MAX_BF16_BLOCK):
+        problems.append(f"in bf16 a block of a multiple of "
+                        f"{_BF16_BLOCK_GRAIN} keys up to {_MAX_BF16_BLOCK} "
+                        f"(got {bs})")
     if d not in _HEAD_DIMS:
         problems.append(f"head_dim in {_HEAD_DIMS} (got {d})")
     if q_tile < 1 or ln != tile_block.shape[1] * q_tile:
@@ -154,7 +177,8 @@ def launch(tables, q_sorted, q_pos, do_sorted, lse_sorted, delta_sorted,
     _, nb, bs, _ = k_blocks.shape
     n_seg = tables[0].shape[1]
     dev = q_sorted.device
-    dq = torch.empty((bh, ln, d), dtype=torch.float32, device=dev)
+    splits = dq_partials(bs, q_sorted.dtype)
+    dq = torch.empty((splits, bh, ln, d), dtype=torch.float32, device=dev)
     dk = torch.empty((bh, nb, bs, d), dtype=torch.float32, device=dev)
     dv = torch.empty_like(dk)
     part_dk = torch.empty((bh, n_seg, bs, d), dtype=torch.float32,
@@ -173,4 +197,4 @@ def launch(tables, q_sorted, q_pos, do_sorted, lse_sorted, delta_sorted,
     runtime.check(err, f"moba_bwd (q_sorted {tuple(q_sorted.shape)}, "
                        f"k_blocks {tuple(k_blocks.shape)})")
     LAUNCHES += 1
-    return dq, dk, dv
+    return (dq[0] if splits == 1 else dq.sum(0)), dk, dv

@@ -141,14 +141,16 @@ class FlashMoBA(torch.autograd.Function):
         k_blocks, nb = flatten_kv_blocks(k, bs)
         v_blocks, _ = flatten_kv_blocks(v, bs)
 
-        do = g_out.contiguous().reshape(bh, nq, d).float()
-        delta = (do * out).sum(dim=-1)                        # (BH, Nq)
+        do = g_out.contiguous().reshape(bh, nq, d)
+        delta = (do.float() * out).sum(dim=-1)                # (BH, Nq)
 
-        # per-query tensors to the sorted layout (q_pos = -1 pad and
-        # sentinel slots gather row 0 but are masked inside the kernel)
+        # per-query tensors to the sorted layout, dO in the kernel's dtype
+        # (q's: bf16 on the training path) and lse/delta in fp32 (q_pos =
+        # -1 pad and sentinel slots gather row 0 but are masked inside the
+        # kernel)
         rows = torch.arange(bh, device=q.device)[:, None]
         qi = (q_pos.long() - (n - nq)).clamp(min=0)
-        do_sorted = do[rows, qi]
+        do_sorted = do.to(q_sorted.dtype)[rows, qi]
         lse_sorted = lse.gather(1, qi)
         delta_sorted = delta.gather(1, qi)
 

@@ -3,10 +3,11 @@
 Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point.
 :func:`load_library` compiles it with ``nvcc`` for ``sm_90a`` into a
 shared library under ``kernels/build/`` (listed in ``.gitignore``),
-named by a hash of the source and the flags, and loads it with
-``ctypes``.  A rebuilt source gets a new name, so a stale library is
-never loaded.  Nothing builds at import time: the first launch builds,
-and ``chip_smoke.py`` calls :func:`build` up front to time it.
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, and loads it with ``ctypes``.  A rebuilt source gets a new
+name, so a stale library is never loaded.  Nothing builds at import
+time: the first launch builds, and ``chip_smoke.py`` calls :func:`build`
+up front to time it.
 
 A missing ``nvcc`` or a failed compile raises; there is no fallback.
 
@@ -83,8 +84,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
+    """The library's path, named by a hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -29,6 +29,8 @@ from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import ref as TREF
 from repro_torch.kernels.centroids import block_centroids_kernel
 from repro_torch.kernels.flash_topk import flash_topk
+from repro_torch.kernels import moba_bwd as TB
+from repro_torch.kernels import moba_fwd as TF
 from repro_torch.kernels.moba_bwd import moba_bwd, segments
 from repro_torch.kernels.moba_fwd import moba_fwd
 
@@ -183,7 +185,7 @@ def test_moba_bwd_matches_jax_on_visited_blocks(grid):
         assert not g.numpy()[~visited].any()   # the port's are zero
 
 
-@pytest.mark.parametrize("run_tiles", [1, 3])
+@pytest.mark.parametrize("run_tiles", [1, 3, TB.RUN_TILES])
 def test_moba_bwd_segments_cover_each_run(run_tiles):
     """The backward kernel's launch tables: every active tile belongs to
     exactly one segment of its own block, a segment holds at most
@@ -211,6 +213,137 @@ def test_moba_bwd_segments_cover_each_run(run_tiles):
         np.testing.assert_array_equal(owner[active], tb[r].numpy()[active])
         assert (owner[~active] == -1).all()
         assert tail_lo[r] == active.sum()
+
+
+def test_moba_bwd_plain_takes_bf16_do_as_its_fp32_upcast():
+    """The bf16 kernel takes dO in bf16; the plain version upcasts it, so
+    a bf16 dO and its fp32 upcast give bit-equal gradients."""
+    tb, qs, qp, kb, vb, kw = _layout_case(7)
+    rng = np.random.default_rng(7)
+    do = _t(rng.normal(size=qs.shape).astype(np.float32)).bfloat16()
+    lse = _t((rng.normal(size=qp.shape) + 2.0).astype(np.float32))
+    delta = _t(rng.normal(size=qp.shape).astype(np.float32) * 0.1)
+    args = [_t(x).bfloat16() if x.dtype == np.float32 else _t(x)
+            for x in (tb, qs, qp)]
+    blocks = [_t(x).bfloat16() for x in (kb, vb)]
+    got = moba_bwd(*args, do, lse, delta, *blocks, **kw)
+    want = moba_bwd(*args, do.float(), lse, delta, *blocks, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# ------------------------------------------- the CUDA kernels' contracts
+def _contract_operands(nq, bs, d, g, dtype, do_dtype=None, top_k=8):
+    """Shape-only operands (expanded scalars: no memory) of the forward
+    and backward kernels exactly as ``flash_moba`` hands them over for
+    H = 4 query heads on 4 / G kv heads, N = max(Nq, bs) keys and the
+    default q tile."""
+    h, n = 4, max(nq, bs)
+    tile = min(128, nq)
+    nb = -(-n // bs)
+    nq_p = -(-nq // tile) * tile
+    ln = TR.layout_capacity(nq_p, min(top_k, nb), nb, tile)
+
+    def t(shape, dt):
+        return torch.zeros((), dtype=dt).expand(shape)
+
+    q_sorted = t((h, ln, d), dtype)
+    return dict(tile_block=t((h, ln // tile), torch.int32),
+                q_sorted=q_sorted, q_pos=t((h, ln), torch.int32),
+                k_blocks=t((h // g, nb, bs, d), dtype),
+                v_blocks=t((h // g, nb, bs, d), dtype),
+                do_sorted=t((h, ln, d), do_dtype or dtype),
+                lse=t((h, ln), torch.float32), tile=tile, h=h, g=g,
+                kb_tile=TF.resolve_kb_tile(0, bs))
+
+
+def _check_fwd(o):
+    TF.check_contract(o["tile_block"], o["q_sorted"], o["q_pos"],
+                      o["k_blocks"], o["v_blocks"], o["tile"], o["kb_tile"],
+                      o["h"], o["g"])
+
+
+def _check_bwd(o):
+    TB.check_contract(o["q_sorted"], o["do_sorted"], o["lse"], o["lse"],
+                      o["k_blocks"], o["v_blocks"], o["tile_block"],
+                      o["q_pos"], o["tile"], o["h"], o["g"])
+
+
+@pytest.mark.parametrize("d,g", [(64, 1), (64, 2), (128, 1), (128, 2)])
+@pytest.mark.parametrize("bs", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("nq", [1, 37, 128, 1000, 8000])
+def test_kernel_contracts_accept_flash_moba_shapes(nq, bs, d, g):
+    """Every (q tile, block, kb_tile, d, G) that ``flash_moba`` produces
+    for the repo's configs and benchmarks passes both CUDA kernels'
+    contracts, in bf16 (dO in bf16) and fp32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        o = _contract_operands(nq, bs, d, g, dtype)
+        _check_fwd(o)
+        _check_bwd(o)
+
+
+FWD_REJECTS = {
+    # name: (operand overrides, message fragment)
+    "bf16-block-512": (dict(bs=512), "at most 256 keys"),
+    "head-dim-96": (dict(d=96), "head_dim"),
+    "fp16": (dict(dtype=torch.float16), "one dtype"),
+}
+BWD_REJECTS = {
+    "fp32-do-with-bf16-q": (dict(do_dtype=torch.float32), "one dtype"),
+    "bf16-block-512": (dict(bs=512), "multiple of 16 keys up to 256"),
+    "head-dim-96": (dict(d=96), "head_dim"),
+    "fp16": (dict(dtype=torch.float16), "one dtype"),
+}
+
+
+@pytest.mark.parametrize("case", FWD_REJECTS)
+def test_moba_fwd_contract_rejects(case):
+    over, frag = FWD_REJECTS[case]
+    kw = dict(nq=256, bs=128, d=64, g=1, dtype=torch.bfloat16)
+    kw.update(over)
+    with pytest.raises(ValueError, match=f"moba_fwd CUDA kernel needs.*"
+                                         f"{frag}"):
+        _check_fwd(_contract_operands(**kw))
+
+
+@pytest.mark.parametrize("case", BWD_REJECTS)
+def test_moba_bwd_contract_rejects(case):
+    over, frag = BWD_REJECTS[case]
+    kw = dict(nq=256, bs=128, d=64, g=1, dtype=torch.bfloat16)
+    kw.update(over)
+    with pytest.raises(ValueError, match=f"moba_bwd CUDA kernel needs.*"
+                                         f"{frag}"):
+        _check_bwd(_contract_operands(**kw))
+
+
+def test_moba_fwd_contract_rejects_long_q_tile_and_odd_kb_tile():
+    o = _contract_operands(256, 128, 64, 1, torch.bfloat16)
+    with pytest.raises(ValueError, match="q tile of 1..128"):
+        TF.check_contract(o["tile_block"][:, :1], o["q_sorted"][:, :256],
+                          o["q_pos"], o["k_blocks"], o["v_blocks"], 256, 128,
+                          4, 1)
+    with pytest.raises(ValueError, match="kb_tile a multiple of 16"):
+        TF.check_contract(o["tile_block"], o["q_sorted"], o["q_pos"],
+                          o["k_blocks"], o["v_blocks"], o["tile"], 24, 4, 1)
+
+
+def test_moba_bwd_contract_rejects_bf16_lse():
+    o = _contract_operands(256, 128, 64, 1, torch.bfloat16)
+    with pytest.raises(ValueError, match="fp32 lse and delta"):
+        TB.check_contract(o["q_sorted"], o["do_sorted"],
+                          o["lse"].bfloat16(), o["lse"], o["k_blocks"],
+                          o["v_blocks"], o["tile_block"], o["q_pos"],
+                          o["tile"], 4, 1)
+
+
+@pytest.mark.parametrize("bs,dtype,want", [
+    (16, torch.bfloat16, 1), (128, torch.bfloat16, 1),
+    (144, torch.bfloat16, 2), (256, torch.bfloat16, 2),
+    (256, torch.float32, 1), (512, torch.float32, 1)])
+def test_moba_bwd_dq_partials(bs, dtype, want):
+    """The bf16 backward holds SPLIT_KEYS keys a CTA, so a longer block
+    writes one dQ partial per 128 keys; the SIMT fp32 body writes one."""
+    assert TB.dq_partials(bs, dtype) == want
 
 
 # --------------------------------------------------------- flash_moba whole
