@@ -14,8 +14,12 @@ Phases, one JSON line each; any failure exits non-zero:
                top_k 8, a 320-page pool, shuffled block tables, ragged
                kv_len with 0, 1, an exact page boundary and a table
                shorter than top_k), a G=2, d=128 geometry, and page 16
-               with top_k 64 over 512-page tables (G=2: the route's
-               running top-k across four 128-page chunks); q in bf16
+               with top_k 64 and with top_k 128 over 512-page tables (G=2:
+               the route's running top-k across four 128-page chunks; at
+               top_k 128 its lists hold 256 slots a row in dynamic shared
+               memory), and G=8 at d 128 with top_k 200 over 512-page
+               tables (the route's static and dynamic shared memory
+               together past 48 KB, each record giving both); q in bf16
                and fp32 (TF32 off), pools in q's dtype and int8 and fp8
                (the dequant path) filled from the same keys and values.
                Each check reads the route tables of the decode call it
@@ -65,8 +69,17 @@ Phases, one JSON line each; any failure exits non-zero:
                TopK, forward, backward) against their plain PyTorch
                versions at the moba-340m training shapes (B=1, H=Hkv=16,
                N=Nq=8192, d=64, block 128, top_k 8, q tile 128) in bf16
-               and fp32, plus G=2/d=128, a ragged N=8000 and a query
-               suffix Nq=1000.  The forward and backward run on a layout
+               and fp32, plus G=2/d=128, a ragged N=8000, a query suffix
+               Nq=1000, the paper's small blocks (``small-blocks``: block
+               32, top_k 32, bf16 and fp32) and original MoBA's blocks
+               (``block-512``: block 512, top_k 2, bf16: the forward's
+               K/V ring and four backward key splits; ``block-512-d128``:
+               the same at G=2, d 128, N 4096), Flash TopK's register
+               bucket 16 (``top_k-16``: block 64, bf16) and its
+               shared-memory lists (``top_k-64``: block 16, N 4096, bf16
+               and fp32), and Flash TopK alone at its limit
+               (``top_k-1024``: one head, N 32768, block 16, bf16).  The
+               forward and backward run on a layout
                built from the plain routing; Flash TopK may differ from
                the plain routing only on near-ties (sorted selected scores
                within 1e-5·max(1, |s|)).  Tolerances: centroids bf16 1e-2,
@@ -77,11 +90,12 @@ Phases, one JSON line each; any failure exits non-zero:
                ``flash_moba`` forward and grads against the ``xla`` path
                (fp32 2e-4 / 5e-3; rows whose routing flipped on a near-tie
                are left out and counted).  First, a tensor-core audit of
-               the forward and backward libraries: per kernel function
-               the registers and stack bytes (``cuobjdump -res-usage``)
-               and the count of ``HMMA``/``HGMMA`` instructions in its
-               SASS; a bf16 instantiation with none, or with a stack
-               frame (a spill) at d 64, fails.  Per kernel at the main
+               the Flash TopK, forward and backward libraries: per kernel
+               function the registers and stack bytes (``cuobjdump
+               -res-usage``) and the count of ``HMMA``/``HGMMA``
+               instructions in its SASS; a bf16 instantiation with none,
+               or a FlashMoBA one with a stack frame (a spill) at d 64,
+               fails.  Per kernel at the main
                bf16 shapes: ``call_cost`` (as in phase 2) of the wrapper,
                the plain version and the library call where one computes
                the same thing (centroids: a mean), and the device ms of
@@ -91,7 +105,12 @@ Phases, one JSON line each; any failure exits non-zero:
                kernel (``by_hold``); causal SDPA at the same shape as a
                yardstick (not the same function) for the forward and
                backward; the backward launch with runs cut into segments
-               of 4, 8 and 16 tiles.
+               of 4, 8 and 16 tiles.  Flash TopK is timed at the main and
+               the small-block shapes (``call_cost``, alone, plain, the
+               bytes/FLOPs bound) beside a yardstick that is not the same
+               function (its tie order differs): ``torch.topk`` over the
+               masked ``torch.bmm`` scores; its launch alone and bound
+               also at ``top_k-16``, ``top_k-64`` and ``top_k-1024``.
   6. train   — moba-340m at full width and depth (bf16, random weights
                from a seeded torch.Generator), batch 1, seq 8192, 4
                ``make_train_step`` steps on ``flash`` with remat; losses
@@ -102,13 +121,17 @@ Phases, one JSON line each; any failure exits non-zero:
                torch.profiler.  Then the same 4 steps on ``xla`` from the
                same weights and batches: each step's loss within 2e-2 of
                flash's (the kernels round P, dS and dO to bf16; xla
-               multiplies in fp32).
+               multiplies in fp32).  Then ``train_small_blocks``: the
+               same model at block 32, top_k 32, 3 steps on ``flash``
+               (counts zeroed just before, read just after): finite
+               losses, exact launch counts, step ms, peak memory.
   7. train_grads — the same weights in fp32 (TF32 off), batch 1, seq
                2048: ``lm_loss`` and every gradient leaf under ``flash``
                against ``xla`` (loss 2e-4 relative, each leaf max |Δ| /
                max |g| <= 5e-3), the xla run replaying the flash run's
                block selections; each layer's selections must differ
-               from the plain routing only on near-ties.
+               from the plain routing only on near-ties.  Run at block
+               128, top_k 8 and again at block 32, top_k 32.
   8. swa     — ``swa_attention``'s CUDA kernel against its plain version
                at moba-340m's SWA shapes (N 8192, window 256, 16 heads,
                d 64) in bf16 (3e-2) and fp32 (2e-4), a GQA geometry (H 16,
@@ -120,7 +143,9 @@ Phases, one JSON line each; any failure exits non-zero:
                or training path launches it.
 
 Then the card's name and power limit, the kernel line (the six kernels,
-the decode kernels once per pool dtype), and as the last line
+the decode kernels once per pool dtype; Flash TopK also with its
+small-block times and launches and its times alone at top_k 16, 64
+and 1024), and as the last line
 ``{"ok": true, "device": {...}}``.
 
   python3 chip_smoke.py --ab DIR
@@ -131,7 +156,8 @@ parent commit, unpacked with ``git archive`` into a directory that
 in the order DIR, this, this, DIR: the decode call on the phase-2 case
 at moba-340m's shapes (bf16 q and pool, built by that tree's own
 prefill append; ``call_cost`` of the call and of the library call, and
-the CUDA-event reading without the spin kernel); ``moba_fwd.launch``
+the CUDA-event reading without the spin kernel); the Flash TopK launch
+(through its wrapper, whose only device work it is), ``moba_fwd.launch``
 and ``moba_bwd.launch`` alone on the phase-5 moba-340m bf16 case (dO in
 the dtype that tree's backward wrapper takes, read from its
 ``check_contract``); and the phase-6 median training step (steps 2–4).
@@ -399,7 +425,10 @@ def phase_kernel():
     dtype.  Geometries: moba-340m's decode shapes; G=2 at d 128; and the
     small-block regime (page 16, top_k 64 = n/(8·bs) at an 8K context,
     ``benchmarks/fig3_efficiency.py``), whose 512-page tables take the
-    route kernel's running top-k across four 128-page chunks."""
+    route kernel's running top-k across four 128-page chunks, and the
+    same tables at top_k 128 (G 2: 256 list slots a row, past the route's
+    old 64-slot cap); G 8 at d 128 with top_k 200, where the route's
+    static and dynamic shared memory together pass 48 KB."""
     import torch
     from repro_torch.configs.base import MoBAConfig
     from repro_torch.core.moba import moba_paged_attend, moba_paged_route
@@ -412,8 +441,14 @@ def phase_kernel():
               kv_lens=[0, 700, 1536, 129])
     k64 = dict(b=4, h=16, hkv=8, d=64, ps=16, npg=512, num_pages=1100,
                kv_lens=[8192, 6000, 2049, 0])
+    # G 8 at d 128, top_k 200: the route's lists (44,800 bytes) fit the
+    # 48 KB a block gets unasked, its static arrays on top do not
+    g8 = dict(b=2, h=16, hkv=2, d=128, ps=16, npg=512, num_pages=900,
+              kv_lens=[8192, 5001])
     geoms = (("moba-340m", main, main_cfg), ("g2-d128", g2, main_cfg),
-             ("page16-k64", k64, MoBAConfig(block_size=16, top_k=64)))
+             ("page16-k64", k64, MoBAConfig(block_size=16, top_k=64)),
+             ("page16-k128", k64, MoBAConfig(block_size=16, top_k=128)),
+             ("g8-k200-d128", g8, MoBAConfig(block_size=16, top_k=200)))
     tols = {torch.bfloat16: 3e-2, torch.float32: 1e-3}
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     checks, timing = [], {}
@@ -452,6 +487,9 @@ def phase_kernel():
                 zeros = bool((out[~act] == 0).all())
                 rec = {"geometry": name, "kv_dtype": kv_dtype,
                        "dtype": str(dtype), "top_k": cfg.top_k,
+                       "route_smem_bytes": MD.route_smem_bytes(
+                           geom["h"] // geom["hkv"], cfg.top_k,
+                           geom["npg"], geom["d"]),
                        "max_abs_err": err, "tol": tol,
                        "route_rows_differing": rows,
                        "route_rows": int(rt.sel.shape[0] * rt.sel.shape[1]),
@@ -848,10 +886,9 @@ def _max_rel(got, want) -> float:
                  / want.float().abs().max().clamp(min=1e-30))
 
 
-def _train_case(*, h, hkv, n, nq, d, dtype, seed, bs=128, top_k=8,
-                tile=128):
-    """Random q, k, v on the card; the plain routing and the sorted layout
-    built from it, as ``kernels/ops.py`` builds it."""
+def _topk_case(*, h, hkv, n, nq, d, dtype, seed, bs=128, top_k=8,
+               tile=128):
+    """Random q, k, v on the card, the centroids and the plain routing."""
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -863,22 +900,31 @@ def _train_case(*, h, hkv, n, nq, d, dtype, seed, bs=128, top_k=8,
     q, k, v = rnd(1, h, nq, d, scale=0.5), rnd(1, hkv, n, d, scale=0.5), \
         rnd(1, hkv, n, d)
     g = h // hkv
-    nb = -(-n // bs)
     kf = k.reshape(hkv, n, d)
     cents = ref.centroids_ref(kf, bs)
     tile = min(tile, nq)
     qf = ops.padded_queries(q, tile)
     sel = ref.flash_topk_ref(qf, cents, top_k, bs, group=g, num_q_heads=h,
                              q_pos_offset=n - nq)
-    lay, q_sorted, q_pos = ops.sorted_layout(qf, sel, nq, nb, tile, n - nq)
-    k_blocks, _ = ops.flatten_kv_blocks(k, bs)
-    v_blocks, _ = ops.flatten_kv_blocks(v, bs)
-    kw = dict(scale=d ** -0.5, block_size=bs, n_tokens=n, num_q_heads=h,
-              group=g)
-    return dict(q=q, k=k, v=v, kf=kf, cents=cents, qf=qf, sel=sel, lay=lay,
-                q_sorted=q_sorted, q_pos=q_pos, k_blocks=k_blocks,
-                v_blocks=v_blocks, kw=kw, tile=tile, top_k=top_k, bs=bs,
-                nb=nb, g=g, h=h, n=n, nq=nq, gen=gen)
+    return dict(q=q, k=k, v=v, kf=kf, cents=cents, qf=qf, sel=sel,
+                tile=tile, top_k=top_k, bs=bs, nb=-(-n // bs), g=g, h=h,
+                n=n, nq=nq, gen=gen)
+
+
+def _train_case(**kw):
+    """``_topk_case`` and the sorted layout built from its routing, as
+    ``kernels/ops.py`` builds it."""
+    from repro_torch.kernels import ops
+    c = _topk_case(**kw)
+    n, bs = c["n"], c["bs"]
+    lay, q_sorted, q_pos = ops.sorted_layout(c["qf"], c["sel"], c["nq"],
+                                             c["nb"], c["tile"], n - c["nq"])
+    c.update(lay=lay, q_sorted=q_sorted, q_pos=q_pos,
+             k_blocks=ops.flatten_kv_blocks(c["k"], bs)[0],
+             v_blocks=ops.flatten_kv_blocks(c["v"], bs)[0],
+             kw=dict(scale=c["q"].shape[-1] ** -0.5, block_size=bs,
+                     n_tokens=n, num_q_heads=c["h"], group=c["g"]))
+    return c
 
 
 def _masked_scores(q_rows, cent_rows, n: int, bs: int):
@@ -934,6 +980,17 @@ def _do_dtype(KB, c):
     return qs.dtype
 
 
+def _check_flash_topk(c) -> dict:
+    """Flash TopK on case ``c`` against the plain routing."""
+    from repro_torch.kernels import flash_topk as KT
+    s_k = KT.flash_topk(c["qf"], c["cents"], c["top_k"], c["bs"],
+                        group=c["g"], num_q_heads=c["h"],
+                        q_pos_offset=c["n"] - c["nq"], q_tile=c["tile"])
+    rows, gap, ok = _topk_near_ties(c, s_k)
+    return {"rows_differing": rows, "rows": s_k.shape[0] * c["nq"],
+            "max_abs_err": gap, "ok": ok}
+
+
 def _check_train_kernels(c, dtype) -> dict:
     """Each training kernel against its plain version on case ``c``."""
     import torch
@@ -949,12 +1006,7 @@ def _check_train_kernels(c, dtype) -> dict:
         "tol": tol, "ok": bool(torch.allclose(cent.float(),
                                               c["cents"].float(), atol=tol,
                                               rtol=tol))}
-    s_k = KT.flash_topk(c["qf"], c["cents"], c["top_k"], c["bs"],
-                        group=c["g"], num_q_heads=c["h"],
-                        q_pos_offset=c["n"] - c["nq"], q_tile=c["tile"])
-    rows, gap, ok = _topk_near_ties(c, s_k)
-    rec["flash_topk"] = {"rows_differing": rows, "rows": s_k.shape[0]
-                         * c["nq"], "max_abs_err": gap, "ok": ok}
+    rec["flash_topk"] = _check_flash_topk(c)
     args = (lay.tile_block, c["q_sorted"], c["q_pos"], c["k_blocks"],
             c["v_blocks"])
     o_k = KF.moba_fwd(*args, q_tile=c["tile"], **kw)
@@ -994,7 +1046,7 @@ def _time_train_kernels(c, flush) -> dict:
     this case's tensors, and a library call where one exists."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import centroids as KC, flash_topk as KT
+    from repro_torch.kernels import centroids as KC
     from repro_torch.kernels import moba_bwd as KB, moba_fwd as KF, ref
     lay, kw, tile, bs, d = c["lay"], c["kw"], c["tile"], c["bs"], \
         c["q"].shape[-1]
@@ -1037,20 +1089,7 @@ def _time_train_kernels(c, flush) -> dict:
         for what, fn in (("kernel", lambda: KC.launch(kf, bs)),
                          ("library", mean))
         for hold in ("first", "after_flush", "none")}
-    # the kernel scores every block before the query's own (causal)
-    pos = torch.arange(c["qf"].shape[1], device="cuda") + c["n"] - c["nq"]
-    scored = float((pos // bs).clamp(max=nb).sum()) * c["qf"].shape[0]
-    off = c["n"] - c["nq"]
-    timed("flash_topk",
-          lambda: KT.launch(c["qf"], cent, c["top_k"], bs, group=c["g"],
-                            causal=True, q_pos_offset=off, q_tile=tile),
-          lambda: KT.flash_topk(c["qf"], cent, c["top_k"], bs, group=c["g"],
-                                num_q_heads=c["h"], q_pos_offset=off,
-                                q_tile=tile),
-          lambda: ref.flash_topk_ref(c["qf"], cent, c["top_k"], bs,
-                                     group=c["g"], num_q_heads=c["h"],
-                                     q_pos_offset=off),
-          _bound(_nbytes(c["qf"], cent, c["sel"]), 2 * d * scored, rate))
+    out["flash_topk"] = _time_flash_topk(c, flush)
     args = (lay.tile_block, c["q_sorted"], c["q_pos"], c["k_blocks"],
             c["v_blocks"])
     fkw = {k: v for k, v in kw.items() if k != "block_size"}
@@ -1092,6 +1131,53 @@ def _time_train_kernels(c, flush) -> dict:
         for rt in (4, 8, 16)}
     out["moba_bwd"]["run_tiles"] = KB.RUN_TILES
     return out
+
+
+def _time_flash_topk(c, flush, full: bool = True, reps: int = 25) -> dict:
+    """Flash TopK on case ``c``: the launch alone (median of ``reps``), the
+    bound (bytes: q, centroids and the ids once; FLOPs: 2·d a scored
+    (query, block) pair); with ``full``, also ``call_cost`` of the wrapper
+    and of the plain version, and as a yardstick — not the same function:
+    ``torch.topk`` promises no tie order — ``torch.topk`` over the masked
+    ``torch.bmm`` scores."""
+    import torch
+    from repro_torch.kernels import flash_topk as KT, ref
+    qf, cent, bs, tk, nb = c["qf"], c["cents"], c["bs"], c["top_k"], c["nb"]
+    d = qf.shape[-1]
+    off = c["n"] - c["nq"]
+    rate = BF16_FLOPS if qf.dtype == torch.bfloat16 else FP32_FLOPS
+    # the kernel scores every block before the query's own (causal)
+    pos = torch.arange(qf.shape[1], device="cuda") + off
+    own = pos // bs
+    scored = float(own.clamp(max=nb).sum()) * qf.shape[0]
+    rec = {"kernel_only_ms": cuda_events_ms(lambda: KT.launch(
+               qf, cent, tk, bs, group=c["g"], causal=True,
+               q_pos_offset=off), reps=reps, flush=flush),
+           "shape": {"bh": qf.shape[0], "nq": qf.shape[1], "nb": nb,
+                     "d": d, "block_size": bs, "top_k": tk,
+                     "dtype": str(qf.dtype)},
+           **_bound(_nbytes(qf, cent, c["sel"]), 2 * d * scored, rate)}
+    if not full:
+        return rec
+    cent_rows = cent[ref.kv_rows(qf.shape[0], c["h"], c["g"], "cuda")]
+    blk = torch.arange(nb, device="cuda")
+    future, is_own = blk[None] > own[:, None], blk[None] == own[:, None]
+
+    def yardstick():
+        sc = torch.bmm(qf, cent_rows.transpose(1, 2)).float()
+        sc = sc.masked_fill(future, float("-inf")).masked_fill(
+            is_own, float("inf"))
+        return torch.topk(sc, min(tk, nb), dim=-1)
+
+    return {**call_cost(lambda: KT.flash_topk(
+                qf, cent, tk, bs, group=c["g"], num_q_heads=c["h"],
+                q_pos_offset=off, q_tile=c["tile"]), flush),
+            **rec,
+            **call_cost(lambda: ref.flash_topk_ref(
+                qf, cent, tk, bs, group=c["g"], num_q_heads=c["h"],
+                q_pos_offset=off), flush, "plain_"),
+            "library_ms": None,
+            **call_cost(yardstick, flush, "topk_yardstick_")}
 
 
 def _flash_vs_xla(c) -> dict:
@@ -1160,17 +1246,18 @@ def _time_flash_moba(c, flush) -> dict:
 
 
 def _tensor_core_audit() -> dict:
-    """Per kernel function of the built FlashMoBA forward and backward
-    libraries: registers and stack bytes (``cuobjdump -res-usage``; a
-    spill needs a stack frame) and the count of tensor-core instructions
-    in its SASS (``HMMA``/``HGMMA``, ``cuobjdump -sass``).  Fails if a
-    bf16 instantiation (``*_mma<D, ...>``) has none, or has a stack frame
-    at d 64."""
+    """Per kernel function of the built Flash TopK, FlashMoBA forward and
+    backward libraries: registers and stack bytes (``cuobjdump
+    -res-usage``; a spill needs a stack frame) and the count of
+    tensor-core instructions in its SASS (``HMMA``/``HGMMA``, ``cuobjdump
+    -sass``).  Fails if a bf16 instantiation (``*_mma<D, ...>``, or
+    ``flash_topk_kernel<bf16, ...>``) has none, or if a FlashMoBA one has
+    a stack frame at d 64."""
     import re
     from repro_torch.kernels import runtime
     tool = os.path.join(os.path.dirname(runtime.nvcc_path()), "cuobjdump")
     funcs = {}
-    for lib in ("moba_fwd", "moba_bwd"):
+    for lib in ("flash_topk", "moba_fwd", "moba_bwd"):
         path = str(runtime.library_path(lib))
         for flag in ("-res-usage", "-sass"):
             text = subprocess.run([tool, flag, path], capture_output=True,
@@ -1189,18 +1276,21 @@ def _tensor_core_audit() -> dict:
                 if flag == "-sass" and cur is not None and \
                         re.search(r"\bHG?MMA\b", ln):
                     cur["tensor_core"] += 1
-    bf16 = {n: f for n, f in funcs.items() if re.search(r"_mmaILi\d+E", n)}
+    bf16 = {n: f for n, f in funcs.items()
+            if re.search(r"_mmaILi\d+E|flash_topk_kernelI13__nv_bfloat16", n)}
     bad = [n for n, f in bf16.items()
-           if not f["tensor_core"] or ("ILi64E" in n and
-                                       f.get("stack_bytes", 1) != 0)]
+           if not f["tensor_core"] or (
+               f["library"] != "flash_topk" and "ILi64E" in n
+               and f.get("stack_bytes", 1) != 0)]
     libs = {f["library"] for f in bf16.values()}
     rec = {"functions": funcs, "bf16_functions": len(bf16),
-           "ok": libs == {"moba_fwd", "moba_bwd"} and not bad}
+           "ok": libs == {"flash_topk", "moba_fwd", "moba_bwd"} and not bad}
     if not rec["ok"]:
         emit({"phase": "train_kernels", "tensor_core_audit": rec})
-        raise SystemExit(f"train_kernels: a bf16 FlashMoBA kernel has no "
-                         f"tensor-core instruction or spills at d 64 (or "
-                         f"none was found): {bad or sorted(funcs)}")
+        raise SystemExit(f"train_kernels: a bf16 Flash TopK or FlashMoBA "
+                         f"kernel has no tensor-core instruction, or a "
+                         f"FlashMoBA one spills at d 64 (or none was "
+                         f"found): {bad or sorted(funcs)}")
     return rec
 
 
@@ -1215,8 +1305,19 @@ def phase_train_kernels():
              ("ragged-n", dict(h=16, hkv=16, n=8000, nq=8000, d=64),
               (torch.bfloat16,)),
              ("suffix-nq", dict(h=16, hkv=16, n=TRAIN_SEQ, nq=1000, d=64),
-              (torch.bfloat16,))]
-    checks, timing, main_err = [], None, {}
+              (torch.bfloat16,)),
+             ("small-blocks", dict(h=16, hkv=16, n=TRAIN_SEQ, nq=TRAIN_SEQ,
+                                   d=64, bs=32, top_k=32),
+              (torch.bfloat16, torch.float32)),
+             ("block-512", dict(h=16, hkv=16, n=TRAIN_SEQ, nq=TRAIN_SEQ,
+                                d=64, bs=512, top_k=2), (torch.bfloat16,)),
+             ("block-512-d128", dict(h=16, hkv=8, n=4096, nq=4096, d=128,
+                                     bs=512, top_k=2), (torch.bfloat16,)),
+             ("top_k-16", dict(h=16, hkv=16, n=TRAIN_SEQ, nq=TRAIN_SEQ,
+                               d=64, bs=64, top_k=16), (torch.bfloat16,)),
+             ("top_k-64", dict(h=16, hkv=16, n=4096, nq=4096, d=64, bs=16,
+                               top_k=64), (torch.bfloat16, torch.float32))]
+    checks, timing, main_err, topk_more = [], None, {}, {}
     for name, geom, dtypes in geoms:
         for dtype in dtypes:
             c = _train_case(dtype=dtype, seed=11, **geom)
@@ -1231,6 +1332,10 @@ def phase_train_kernels():
                 main_err = {k: r["max_abs_err"] for k, r in rec.items()}
                 timing = _time_train_kernels(c, flush)
                 timing["flash_moba"] = _time_flash_moba(c, flush)
+            if name == "small-blocks" and dtype == torch.bfloat16:
+                small_topk = _time_flash_topk(c, flush)
+            if name.startswith("top_k-") and dtype == torch.bfloat16:
+                topk_more[name] = _time_flash_topk(c, flush, full=False)
             if name == "moba-340m" and dtype == torch.float32:
                 vs_xla = _flash_vs_xla(c)
                 if not vs_xla["ok"]:
@@ -1240,6 +1345,22 @@ def phase_train_kernels():
                                      f"with the xla path: {vs_xla}")
             del c
             torch.cuda.empty_cache()
+    # Flash TopK alone at its limit, top_k 1024 (shared-memory lists, 16
+    # rows a CTA): one head, so the plain routing's scores stay 0.27 GB
+    c = _topk_case(h=1, hkv=1, n=32768, nq=32768, d=64,
+                   dtype=torch.bfloat16, seed=11, bs=16, top_k=1024)
+    rec = {"flash_topk": _check_flash_topk(c)}
+    checks.append({"geometry": "top_k-1024", "dtype": str(c["q"].dtype),
+                   **rec})
+    if not rec["flash_topk"]["ok"]:
+        emit({"phase": "train_kernels", "checks": checks})
+        raise SystemExit(f"train_kernels: Flash TopK disagrees with the "
+                         f"plain routing: {checks[-1]}")
+    topk_more["top_k-1024"] = _time_flash_topk(c, flush, full=False, reps=5)
+    del c
+    torch.cuda.empty_cache()
+    timing["flash_topk_small_blocks"] = small_topk
+    timing["flash_topk_more"] = topk_more
     emit({"phase": "train_kernels", "tensor_core_audit": audit,
           "checks": checks, "flash_vs_xla": vs_xla, "timing": timing})
     return timing, main_err
@@ -1259,11 +1380,12 @@ def _zero_counts():
         mod.LAUNCHES = 0
 
 
-def _train_run(backend: str, steps: int = TRAIN_STEPS):
+def _train_run(backend: str, steps: int = TRAIN_STEPS, **moba):
     """moba-340m at full width and depth (bf16, random weights from a
     seeded torch.Generator), batch 1, seq 8192: ``steps`` steps of
     ``make_train_step`` with remat on ``backend``, from the same weights
-    and batches on every call.  Returns the state for one more step, each
+    and batches on every call; ``moba`` (block_size, top_k) overrides the
+    config's MoBA settings.  Returns the state for one more step, each
     step's loss and seconds (each loss read waits for its step)."""
     import torch
     from repro_torch.configs import TrainConfig, get_config
@@ -1272,7 +1394,7 @@ def _train_run(backend: str, steps: int = TRAIN_STEPS):
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
 
-    cfg = get_config("moba-340m")
+    cfg = get_config("moba-340m", **moba)
     tcfg = TrainConfig(global_batch_size=1, seq_len=TRAIN_SEQ,
                        total_steps=TRAIN_STEPS + 1, warmup_steps=1)
     params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
@@ -1345,8 +1467,43 @@ def phase_train():
     return launches
 
 
+def phase_train_small_blocks(steps: int = 3):
+    """The paper's small-block setting on the same model: block 32, top_k
+    32 (the same 1,024 keys a query as block 128, top_k 8), 3 steps on
+    ``flash``: finite losses, exact launch counts, step ms, peak memory.
+    The counts are zeroed just before this run and read just after."""
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    cfg, _, losses, step_s = _train_run("flash", steps, block_size=32,
+                                        top_k=32)
+    launches = _counts()
+    want = {"block_centroids": 2 * MOBA_LAYERS, "flash_topk": 2 * MOBA_LAYERS,
+            "moba_fwd": 2 * MOBA_LAYERS, "moba_bwd": MOBA_LAYERS}
+    rec = {"phase": "train_small_blocks", "arch": cfg.name,
+           "block_size": 32, "top_k": 32, "batch": 1, "seq": TRAIN_SEQ,
+           "remat": True, "backend": "flash", "losses": losses,
+           "step_ms": [t * 1e3 for t in step_s],
+           "median_step_ms_steps_2_3": float(np.median(step_s[1:])) * 1e3,
+           "tokens_per_s": TRAIN_SEQ / float(np.median(step_s[1:])),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches, "expected_per_step": want}
+    emit(rec)
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"train_small_blocks: a loss is not finite: "
+                         f"{losses}")
+    for k, per_step in want.items():
+        if launches[k] != per_step * steps:
+            raise SystemExit(f"train_small_blocks: {k} launched "
+                             f"{launches[k]} times in {steps} steps, "
+                             f"expected {per_step} per step")
+    return rec
+
+
 # ------------------------------------------------------------------ phase 7
-def phase_train_grads():
+def phase_train_grads(block_size: int = 128, top_k: int = 8):
     """flash against xla through the whole model in fp32.  The xla run
     replays the flash run's block selections layer by layer, so both
     sides compute the same function; each replayed selection is held to
@@ -1363,7 +1520,8 @@ def phase_train_grads():
     from repro_torch.optim import adamw
 
     seq = 2048
-    cfg = dataclasses.replace(get_config("moba-340m"), dtype="float32")
+    cfg = dataclasses.replace(get_config("moba-340m", block_size=block_size,
+                                         top_k=top_k), dtype="float32")
     params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
     tokens = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                     global_batch=1, seed=1)).batch_at(0)
@@ -1411,6 +1569,7 @@ def phase_train_grads():
     routing_ok = len(audit) == MOBA_LAYERS and all(ok for _, _, ok in audit)
     ok = loss_rel <= 2e-4 and rels[worst] <= 5e-3 and routing_ok
     emit({"phase": "train_grads", "dtype": "float32", "seq": seq,
+          "block_size": block_size, "top_k": top_k,
           "loss_flash": out["flash"][0], "loss_xla": out["xla"][0],
           "loss_rel_err": loss_rel, "loss_tol": 2e-4,
           "worst_leaf": worst, "worst_leaf_rel_err": rels[worst],
@@ -1536,10 +1695,11 @@ def _ab_decode() -> dict:
 
 
 def _ab_train_kernels() -> dict:
-    """Device ms of ``moba_fwd.launch`` and ``moba_bwd.launch`` alone on
-    the phase-5 moba-340m bf16 case, dO in the dtype the tree's backward
-    wrapper takes."""
+    """Device ms of the Flash TopK launch, ``moba_fwd.launch`` and
+    ``moba_bwd.launch`` alone on the phase-5 moba-340m bf16 case, dO in
+    the dtype the tree's backward wrapper takes."""
     import torch
+    from repro_torch.kernels import flash_topk as KT
     from repro_torch.kernels import moba_bwd as KB, moba_fwd as KF, ref
     c = _train_case(h=16, hkv=16, n=TRAIN_SEQ, nq=TRAIN_SEQ, d=64,
                     dtype=torch.bfloat16, seed=11)
@@ -1554,7 +1714,14 @@ def _ab_train_kernels() -> dict:
     delta = torch.randn(lse.shape, generator=c["gen"], device="cuda") * 0.1
     tables = KB.segments(lay.tile_block, c["nb"])
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    # Flash TopK through its wrapper, whose only device work is the launch
+    # (the trees' ``launch`` signatures differ)
     return {"do_dtype": str(do.dtype),
+            "flash_topk_ms": cuda_events_ms(
+                lambda: KT.flash_topk(c["qf"], c["cents"], c["top_k"],
+                                      c["bs"], group=c["g"],
+                                      num_q_heads=c["h"], q_tile=tile),
+                flush=flush),
             "moba_fwd_ms": cuda_events_ms(
                 lambda: KF.launch(*args, q_tile=tile, kb_tile=128,
                                   causal=True, **fkw), flush=flush),
@@ -1580,8 +1747,8 @@ def _ab_one() -> dict:
 
 
 AB_KEYS = ("ms", "device_ms", "loop_us", "ms_no_hold", "library_ms",
-           "library_device_ms", "library_loop_us", "moba_fwd_ms",
-           "moba_bwd_ms", "train_median_step_ms")
+           "library_device_ms", "library_loop_us", "flash_topk_ms",
+           "moba_fwd_ms", "moba_bwd_ms", "train_median_step_ms")
 
 
 def ab(other: str) -> int:
@@ -1658,7 +1825,9 @@ def main() -> int:
         phase_logits(kv_dtype)
     train_timing, train_err = phase_train_kernels()
     train_launches = phase_train()
+    small_blocks = phase_train_small_blocks()
     phase_train_grads()
+    phase_train_grads(block_size=32, top_k=32)
     swa_launches, swa_timing = phase_swa()
     print(smi, flush=True)
     kernels = []
@@ -1691,6 +1860,18 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **({"sdpa_yardstick_ms": t["sdpa_yardstick_ms"]}
                if "sdpa_yardstick_ms" in t else {}),
+            **({"topk_yardstick_ms": t["topk_yardstick_ms"],
+                "small_blocks": {
+                    k: train_timing["flash_topk_small_blocks"][k]
+                    for k in ("ms", "kernel_only_ms", "plain_ms",
+                              "bound_ms", "bound_by", "topk_yardstick_ms",
+                              "shape")},
+                "small_blocks_launches": small_blocks["launches"][name],
+                "alone_at": {
+                    g: {k: r[k] for k in ("kernel_only_ms", "bound_ms",
+                                          "bound_by", "shape")}
+                    for g, r in train_timing["flash_topk_more"].items()}}
+               if name == "flash_topk" else {}),
             "checked": True})
     name, source, replaces = SWA_KERNEL
     kernels.append({

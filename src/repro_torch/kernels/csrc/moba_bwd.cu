@@ -46,7 +46,8 @@
 // q and dO are read once a segment and dQ is written once; the next
 // slice's copies run under this slice's math; a slice takes two barriers.
 // Rows past the segment's end are zero-filled, masked and never stored.
-// Blocks above 128 keys split their keys across CTAs (blockIdx.z); each
+// Blocks above 128 keys split their keys across ceil(bs / 128) CTAs
+// (blockIdx.z, any number: original MoBA's 512-key blocks take 4); each
 // split writes its own dQ partial, summed in split order by the wrapper,
 // so dQ stays exact and deterministic.  The registers this takes (~220 a
 // thread) leave one CTA an SM; longer segments cost no re-reads now, and
@@ -637,8 +638,8 @@ int launch_simt(const int32_t* const* tables, const void* qs, const void* qp,
 // d) in q_sorted's dtype; lse/delta (bh, L) float32; k/v_blocks
 // (bh/group, nb, bs, d); dk/dv (bh, nb, bs, d) and the scratch
 // part_dk/part_dv (bh, n_seg, bs, d) float32.  dtype: 0 = float32 (SIMT
-// body; dq (bh, L, d)), 1 = bfloat16 (tensor cores; bs a multiple of 16
-// up to 256; dq (ceil(bs / 128), bh, L, d): one dQ partial per 128 keys).
+// body; dq (bh, L, d)), 1 = bfloat16 (tensor cores; bs any multiple of
+// 16; dq (ceil(bs / 128), bh, L, d): one dQ partial per 128 keys).
 extern "C" int moba_bwd(const void* seg_block, const void* seg_lo,
                         const void* seg_hi, const void* tail_lo,
                         const void* seg_first, const void* seg_count,
@@ -653,7 +654,7 @@ extern "C" int moba_bwd(const void* seg_block, const void* seg_lo,
   if (bh < 1 || bh > 65535 || n_tiles < 1 || n_seg < 1 ||
       num_q_heads < 1 || group < 1 || num_q_heads % group != 0 || nb < 1 ||
       bs < 1 || (d != 64 && d != 128) || q_tile < 1 ||
-      (dtype == 1 && (bs % 16 != 0 || bs > 2 * kSplitKeys)) ||
+      (dtype == 1 && bs % 16 != 0) ||
       (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   const int32_t* tables[6] = {

@@ -24,6 +24,9 @@
 //     read once and serves all G heads), forces the own page (+1e30), masks
 //     pages past kv_len or unassigned (-1e30), and keeps a running top-k in
 //     shared memory over chunks of kRouteChunk pages, so npg is unbounded.
+//     The lists and the union tables sit in dynamic shared memory sized
+//     from G * min(top_k, npg), the slots that can be filled (7 words a
+//     slot: 112 KB at G 8, top_k 512), which sets top_k <= kMaxTopK.
 //     Each chunk is merged by rank: an entry's new position is the number
 //     of entries that beat it (higher score, or equal score and lower page),
 //     which keeps lax.top_k's tie order.  Then the group's union is sorted
@@ -81,9 +84,8 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;
-constexpr int kMaxTopK = 64;
+constexpr int kMaxTopK = 512;      // every page of 8K tokens at page 16
 constexpr int kRouteChunk = 128;   // pages scored per step of the route
-constexpr int kMaxUnion = kMaxG * kMaxTopK;
 constexpr int kVec = 8;            // values a lane holds in the products
 constexpr int kTileBytes = 16384;  // K (and V) bytes one CTA stages at most
 constexpr int kMaxChunk = 128;     // tokens one CTA attends at most
@@ -214,22 +216,34 @@ struct RouteArgs {
 };
 
 // ---------------------------------------------------------------- route
+// Slots a head can fill: min(top_k, npg).  The route's lists and union
+// tables live in dynamic shared memory sized from G times that: 7 words a
+// slot (route_smem_bytes).
+__host__ __device__ inline int live_slots(int top_k, int npg) {
+  return top_k < npg ? top_k : npg;
+}
+inline size_t route_smem_bytes(int g, int top_k, int npg) {
+  return sizeof(int) * 7 * static_cast<size_t>(g) * live_slots(top_k, npg);
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 moba_decode_route_kernel(RouteArgs a) {
   __shared__ __align__(16) float qs[kMaxG][D];
   __shared__ float cs[kMaxG][kRouteChunk];  // the chunk's masked scores
-  __shared__ float ts[2][kMaxG][kMaxTopK];  // running top-k, double buffer
-  __shared__ int ti[2][kMaxG][kMaxTopK];
-  __shared__ int ids[kMaxUnion];            // head-major selections
-  __shared__ int first[kMaxUnion];          // first occurrence of a page
-  __shared__ int uni[kMaxUnion];            // the sorted union
-
   const int row = blockIdx.x;
   const int b = row / a.hkv;
   const int h = row - b * a.hkv;
   const int tid = threadIdx.x;
   const int G = a.g, K = a.top_k, npg = a.npg, ps = a.ps;
+  const int KE = live_slots(K, npg);        // slots a head can fill
+  const int NE = G * KE;
+  extern __shared__ int dyn[];
+  float* ts = reinterpret_cast<float*>(dyn);  // [2][G][KE] running top-k
+  int* ti = dyn + 2 * NE;                   // [2][G][KE] their pages
+  int* ids = ti + 2 * NE;                   // [G][KE] head-major selections
+  int* first = ids + NE;                    // first occurrence of a page
+  int* uni = first + NE;                    // the sorted union
   const int kvl = load_len(a.kv_len, a.kvl64, b);
   const int own = max(kvl - 1, 0) / ps;
   const int32_t* tbl = a.table + static_cast<size_t>(b) * npg;
@@ -297,15 +311,16 @@ moba_decode_route_kernel(RouteArgs a) {
     for (int e = tid; e < G * ncand; e += kThreads) {
       const int gg = e / ncand;
       const int i = e - gg * ncand;
-      const float s = i < filled ? ts[cur][gg][i] : cs[gg][i - filled];
-      const int p = i < filled ? ti[cur][gg][i] : c0 + i - filled;
+      const float* ls = ts + cur * NE + gg * KE;
+      const int* li = ti + cur * NE + gg * KE;
+      const float s = i < filled ? ls[i] : cs[gg][i - filled];
+      const int p = i < filled ? li[i] : c0 + i - filled;
       int rank = 0;
-      for (int j = 0; j < filled; ++j)
-        rank += beats(ts[cur][gg][j], ti[cur][gg][j], s, p);
+      for (int j = 0; j < filled; ++j) rank += beats(ls[j], li[j], s, p);
       for (int j = 0; j < cn; ++j) rank += beats(cs[gg][j], c0 + j, s, p);
       if (rank < keep) {
-        ts[cur ^ 1][gg][rank] = s;
-        ti[cur ^ 1][gg][rank] = p;
+        ts[(cur ^ 1) * NE + gg * KE + rank] = s;
+        ti[(cur ^ 1) * NE + gg * KE + rank] = p;
       }
     }
     __syncthreads();
@@ -319,15 +334,15 @@ moba_decode_route_kernel(RouteArgs a) {
   for (int e = tid; e < nsel; e += kThreads) {
     const int gg = e / K;
     const int j = e - gg * K;
-    const int id = (j < filled && ts[cur][gg][j] > kNegInf / 2)
-                       ? ti[cur][gg][j] : -1;
-    ids[e] = id;
+    const int x = cur * NE + gg * KE + j;
+    const int id = (j < filled && ts[x] > kNegInf / 2) ? ti[x] : -1;
+    if (j < KE) ids[gg * KE + j] = id;
     sel[e] = id;
   }
   __syncthreads();
   // the union: a page's first occurrence counts; its slot is the number of
   // distinct pages below it
-  for (int e = tid; e < nsel; e += kThreads) {
+  for (int e = tid; e < NE; e += kThreads) {
     const int id = ids[e];
     int f = id >= 0;
     for (int j = 0; j < e && f; ++j) f = ids[j] != id;
@@ -335,28 +350,28 @@ moba_decode_route_kernel(RouteArgs a) {
     uni[e] = 0;
   }
   int nu = 0;
-  for (int e0 = 0; e0 < nsel; e0 += kThreads) {
+  for (int e0 = 0; e0 < NE; e0 += kThreads) {
     __syncthreads();
     const int e = e0 + tid;
-    nu += __syncthreads_count(e < nsel && first[e]);
+    nu += __syncthreads_count(e < NE && first[e]);
   }
-  const int U = nsel;
+  const int U = nsel;                       // the tables' width, G * top_k
   int32_t* base = a.base + static_cast<size_t>(row) * G * U;
   const int sentinel = npg * ps;
   for (int i = tid; i < G * U; i += kThreads) base[i] = sentinel;
   __syncthreads();
-  for (int e = tid; e < nsel; e += kThreads) {
+  for (int e = tid; e < NE; e += kThreads) {
     const int id = ids[e];
     if (id < 0) continue;
     int slot = 0;
-    for (int j = 0; j < nsel; ++j) slot += first[j] && ids[j] < id;
+    for (int j = 0; j < NE; ++j) slot += first[j] && ids[j] < id;
     if (first[e]) uni[slot] = id;
-    base[(e / K) * U + slot] = id * ps;
+    base[(e / KE) * U + slot] = id * ps;
   }
   __syncthreads();
   int32_t* phys = a.phys + static_cast<size_t>(row) * U;
   for (int u = tid; u < U; u += kThreads) {
-    const int entry = tbl[uni[u]];
+    const int entry = tbl[u < NE ? uni[u] : 0];
     phys[u] = min(max(entry, 0), a.num_pages - 1);
   }
   if (tid == 0) a.n_uniq[row] = nu;
@@ -587,7 +602,15 @@ moba_decode_merge_kernel(const float* __restrict__ o_part,
 // ---------------------------------------------------------------- host
 template <typename T, int D>
 cudaError_t launch_route(const RouteArgs& a, int rows, cudaStream_t s) {
-  moba_decode_route_kernel<T, D><<<rows, kThreads, 0, s>>>(a);
+  const size_t smem = route_smem_bytes(a.g, a.top_k, a.npg);
+  auto kernel = moba_decode_route_kernel<T, D>;
+  // always: the kernel's static arrays (qs, cs: 6-8 KB) count against the
+  // 48 KB a block gets without the request
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<rows, kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 

@@ -18,11 +18,21 @@
 // and loads must overlap the math.
 //
 // bf16 (the training path): one CTA of 8 warps per (batch*head, q tile),
-// each warp owning 16 query rows.  The tile's Q and the whole key block's
-// K and V are staged in shared memory as bf16 with 16-byte cp.async copies,
-// rows padded by 16 bytes so ldmatrix is conflict-free (55 KB at d 64,
-// block 128).  V is its own copy group, issued after Q and K, so the first
-// chunk's Q K^T and softmax run while V lands.  Each warp keeps its Q
+// each warp owning 16 query rows.  For blocks up to kWholeBlock (256)
+// keys, the tile's Q and the whole key block's K and V are staged in
+// shared memory as bf16 with 16-byte cp.async copies, rows padded by 16
+// bytes so ldmatrix is conflict-free (55 KB at d 64, block 128).  V is its
+// own copy group, issued after Q and K, so the first chunk's Q K^T and
+// softmax run while V lands.  Longer blocks (original MoBA's 512, or any
+// multiple of 16 keys) stream K and V through a two-chunk cp.async ring
+// instead: chunk i + 1's copies are issued before chunk i's Q K^T, so the
+// shared memory no longer grows with the block (Q plus 2 x 2 x KC rows:
+// 37 KB at d 64, KC 32).  Blocks up to kWholeBlock keep the whole-block
+// staging because the ring is slower there: at block 128, d 64 (moba-340m
+// training) the ring alone took 0.3191 ms against 0.2844 ms staged whole
+// (chip_smoke.py --ab, medians of two processes each, H100 80GB HBM3 at
+// 700 W): KC 32 doubles the chunks, their barriers and the per-chunk
+// rescales, and KC 64 spills in the ring.  Each warp keeps its Q
 // fragments in registers for the whole block and walks the block in
 // chunks of KC keys (64 where the block allows): S = Q K^T with
 // mma.m16n8k16 (bf16 in, fp32 accumulate), the masks per accumulator
@@ -69,10 +79,13 @@ constexpr float kNegInf = -1e30f;
 constexpr int kMmaWarps = 8;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kTileRows = 16 * kMmaWarps;    // the largest q tile
+constexpr int kWholeBlock = 256;   // blocks staged whole; longer ones ring
 
 using bf16 = __nv_bfloat16;
 
-template <int D, int KC>
+// RING false: the whole block's K and V staged at once (blocks up to
+// kWholeBlock keys); RING true: K and V stream through a two-chunk ring.
+template <int D, int KC, bool RING>
 __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 2 : 1)
 moba_fwd_mma(const int32_t* __restrict__ tile_block,
              const bf16* __restrict__ q_sorted,
@@ -84,9 +97,10 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
              int n_tokens, int q_tile, float scale, int causal) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kKeyRows = KC * 2;            // ring rows of K (and V)
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);     // [kTileRows][LD]
-  bf16* ks = qs + kTileRows * LD;                    // [bs][LD]
-  bf16* vs = ks + bs * LD;                           // [bs][LD]
+  bf16* ks = qs + kTileRows * LD;          // [bs][LD], ring: [2][KC][LD]
+  bf16* vs = ks + (RING ? kKeyRows : bs) * LD;      // the same for V
 
   const int bh = blockIdx.y;
   const int t = blockIdx.x;
@@ -113,10 +127,23 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
   const int kv = (bh / num_q_heads) * hkv + (bh % num_q_heads) / group;
   const size_t kv_off = (static_cast<size_t>(kv) * nb + blk) * bs * D;
   mma::copy_rows<D, kMmaThreads>(qs, q_sorted + row0 * D, q_tile, kTileRows);
-  mma::copy_rows<D, kMmaThreads>(ks, k_blocks + kv_off, bs, bs);
-  mma::cp_async_commit();
-  mma::copy_rows<D, kMmaThreads>(vs, v_blocks + kv_off, bs, bs);
-  mma::cp_async_commit();
+  // chunk i of the ring goes to buffer i & 1
+  auto load_chunk = [&](int i) {
+    const size_t off = kv_off + static_cast<size_t>(i) * KC * D;
+    mma::copy_rows<D, kMmaThreads>(ks + (i & 1) * KC * LD, k_blocks + off,
+                                   KC, KC);
+    mma::copy_rows<D, kMmaThreads>(vs + (i & 1) * KC * LD, v_blocks + off,
+                                   KC, KC);
+  };
+  if constexpr (RING) {
+    load_chunk(0);
+    mma::cp_async_commit();
+  } else {
+    mma::copy_rows<D, kMmaThreads>(ks, k_blocks + kv_off, bs, bs);
+    mma::cp_async_commit();
+    mma::copy_rows<D, kMmaThreads>(vs, v_blocks + kv_off, bs, bs);
+    mma::cp_async_commit();
+  }
 
   // this thread's two rows (g and g + 8 of the warp's 16)
   const int r_lo = warp * 16 + g;
@@ -125,12 +152,14 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
   const int qp_hi = r_hi < q_tile ? q_pos[row0 + r_hi] : -1;
   const int kbase = blk * bs;
 
-  mma::cp_async_wait<1>();                   // Q and K landed
-  __syncthreads();
   uint32_t qf[D / 16][4];
+  if constexpr (!RING) {
+    mma::cp_async_wait<1>();                 // Q and K landed
+    __syncthreads();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    mma::ldsm_x4(qs + mma::a_offset(lane, warp * 16, kk * 16, LD), qf[kk]);
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma::ldsm_x4(qs + mma::a_offset(lane, warp * 16, kk * 16, LD), qf[kk]);
+  }
 
   float acc[D / 8][4];
 #pragma unroll
@@ -141,6 +170,27 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
   float l_lo = 0.f, l_hi = 0.f;              // this thread's share of l
 
   for (int c0 = 0; c0 < bs; c0 += KC) {
+    // the chunk's keys: rows kc0.. of the staged K and V
+    int kc0 = c0;
+    if constexpr (RING) {
+      const int i = c0 / KC;
+      if (c0 + KC < bs) {
+        __syncthreads();                     // chunk i - 1's buffer is free
+        load_chunk(i + 1);
+        mma::cp_async_commit();
+        mma::cp_async_wait<1>();             // chunk i (and Q) landed
+      } else {
+        mma::cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (i == 0) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma::ldsm_x4(qs + mma::a_offset(lane, warp * 16, kk * 16, LD),
+                       qf[kk]);
+      }
+      kc0 = (i & 1) * KC;
+    }
     float s[KC / 8][4];
 #pragma unroll
     for (int j = 0; j < KC / 8; ++j)
@@ -151,7 +201,8 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
 #pragma unroll
       for (int np = 0; np < KC / 16; ++np) {
         uint32_t b[4];
-        mma::ldsm_x4(ks + mma::bn_offset(lane, c0 + np * 16, kk * 16, LD), b);
+        mma::ldsm_x4(ks + mma::bn_offset(lane, kc0 + np * 16, kk * 16, LD),
+                     b);
         mma::mma16816(s[2 * np], qf[kk], b[0], b[1]);
         mma::mma16816(s[2 * np + 1], qf[kk], b[2], b[3]);
       }
@@ -199,7 +250,7 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
       acc[j][2] *= a_hi;
       acc[j][3] *= a_hi;
     }
-    if (c0 == 0) {                           // V landed
+    if (!RING && c0 == 0) {                  // V landed
       mma::cp_async_wait<0>();
       __syncthreads();
     }
@@ -210,7 +261,8 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t b[4];
-        mma::ldsm_x4_t(vs + mma::bk_offset(lane, c0 + kk * 16, dp * 16, LD), b);
+        mma::ldsm_x4_t(vs + mma::bk_offset(lane, kc0 + kk * 16, dp * 16, LD),
+                       b);
         mma::mma16816(acc[2 * dp], ph, b[0], b[1]);
         mma::mma16816(acc[2 * dp + 1], ph, b[2], b[3]);
         mma::mma16816(acc[2 * dp], pl, b[0], b[1]);
@@ -248,15 +300,15 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
   }
 }
 
-template <int D, int KC>
+template <int D, int KC, bool RING>
 int launch_mma(const void* tile_block, const void* q_sorted,
                const void* q_pos, const void* k_blocks, const void* v_blocks,
                void* o, void* m, void* l, int bh, int n_tiles,
                int num_q_heads, int group, int nb, int bs, int n_tokens,
                int q_tile, float scale, int causal, cudaStream_t s) {
-  const size_t smem =
-      sizeof(bf16) * (kTileRows + 2 * static_cast<size_t>(bs)) * (D + 8);
-  auto kernel = moba_fwd_mma<D, KC>;
+  const size_t key_rows = RING ? 2 * KC : bs;   // K (and V) rows staged
+  const size_t smem = sizeof(bf16) * (kTileRows + 2 * key_rows) * (D + 8);
+  auto kernel = moba_fwd_mma<D, KC, RING>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -270,20 +322,27 @@ int launch_mma(const void* tile_block, const void* q_sorted,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The chunk: the largest of 64, 32, 16 keys that divides the block.
-template <int D>
+// The chunk: the largest of 64, 32, 16 keys that divides the block (32,
+// 16 for the ring: at KC 64 its d-64 body needs more than the 128
+// registers two CTAs an SM leave, and spills); the whole block staged up
+// to kWholeBlock keys, the ring above.
+template <int D, bool RING>
 int dispatch_chunk(const void* tb, const void* qs, const void* qp,
                    const void* kb, const void* vb, void* o, void* m, void* l,
                    int bh, int n_tiles, int h, int g, int nb, int bs, int n,
                    int q_tile, float scale, int causal, cudaStream_t s) {
-  if (bs % 64 == 0)
-    return launch_mma<D, 64>(tb, qs, qp, kb, vb, o, m, l, bh, n_tiles, h, g,
-                             nb, bs, n, q_tile, scale, causal, s);
+  if constexpr (!RING) {
+    if (bs % 64 == 0)
+      return launch_mma<D, 64, false>(tb, qs, qp, kb, vb, o, m, l, bh,
+                                      n_tiles, h, g, nb, bs, n, q_tile,
+                                      scale, causal, s);
+  }
   if (bs % 32 == 0)
-    return launch_mma<D, 32>(tb, qs, qp, kb, vb, o, m, l, bh, n_tiles, h, g,
-                             nb, bs, n, q_tile, scale, causal, s);
-  return launch_mma<D, 16>(tb, qs, qp, kb, vb, o, m, l, bh, n_tiles, h, g,
-                           nb, bs, n, q_tile, scale, causal, s);
+    return launch_mma<D, 32, RING>(tb, qs, qp, kb, vb, o, m, l, bh, n_tiles,
+                                   h, g, nb, bs, n, q_tile, scale, causal,
+                                   s);
+  return launch_mma<D, 16, RING>(tb, qs, qp, kb, vb, o, m, l, bh, n_tiles, h,
+                                 g, nb, bs, n, q_tile, scale, causal, s);
 }
 
 // ------------------------------------------------------ fp32: SIMT
@@ -442,9 +501,10 @@ int launch_simt(const void* tile_block, const void* q_sorted,
 // tile_block (bh, n_tiles) int32; q_sorted (bh, n_tiles*q_tile, d);
 // q_pos (bh, n_tiles*q_tile) int32; k/v_blocks (bh/group, nb, bs, d);
 // o (bh, L, d), m, l (bh, L) float32.  dtype: 0 = float32 (SIMT body,
-// K/V streamed in kb_tile chunks), 1 = bfloat16 (tensor cores, the whole
-// block staged: bs a multiple of 16 up to 256; kb_tile is not read);
-// q_sorted and the K/V blocks share it.
+// K/V streamed in kb_tile chunks), 1 = bfloat16 (tensor cores: the whole
+// block staged up to kWholeBlock keys, streamed through the ring above;
+// kb_tile is only checked); bs a multiple of kb_tile, itself a multiple of
+// 16 up to 128; q_sorted and the K/V blocks share the dtype.
 extern "C" int moba_fwd(const void* tile_block, const void* q_sorted,
                         const void* q_pos, const void* k_blocks,
                         const void* v_blocks, void* o, void* m, void* l,
@@ -466,13 +526,13 @@ extern "C" int moba_fwd(const void* tile_block, const void* q_sorted,
     return launch_simt<128>(tile_block, q_sorted, q_pos, k_blocks, v_blocks,
                             o, m, l, bh, n_tiles, num_q_heads, group, nb, bs,
                             n_tokens, q_tile, kb_tile, scale, causal, s);
-  if (dtype != 1 || bs > 256) return cudaErrorInvalidValue;
-  if (d == 64)
-    return dispatch_chunk<64>(tile_block, q_sorted, q_pos, k_blocks,
-                              v_blocks, o, m, l, bh, n_tiles, num_q_heads,
-                              group, nb, bs, n_tokens, q_tile, scale, causal,
-                              s);
-  return dispatch_chunk<128>(tile_block, q_sorted, q_pos, k_blocks, v_blocks,
-                             o, m, l, bh, n_tiles, num_q_heads, group, nb,
-                             bs, n_tokens, q_tile, scale, causal, s);
+  if (dtype != 1 || bs % 16 != 0) return cudaErrorInvalidValue;
+  const bool ring = bs > kWholeBlock;
+  auto* run = d == 64 ? (ring ? &dispatch_chunk<64, true>
+                              : &dispatch_chunk<64, false>)
+                      : (ring ? &dispatch_chunk<128, true>
+                              : &dispatch_chunk<128, false>);
+  return run(tile_block, q_sorted, q_pos, k_blocks, v_blocks, o, m, l, bh,
+             n_tiles, num_q_heads, group, nb, bs, n_tokens, q_tile, scale,
+             causal, s);
 }

@@ -3,8 +3,11 @@
 Replaces ``repro.kernels.flash_topk.flash_topk`` (the TPU's grouped and
 flat grids).  The CUDA kernel is ``csrc/flash_topk.cu``; its header says
 what bounds it on an H100 (bytes: q read once, the (Nq, nb) scores never
-stored) and what the design does about that (one CTA per GQA group and
-q tile, the running top-k in registers).
+stored) and what the design does about that: one CTA covers the G heads
+of a GQA group for a run of queries, bf16 scores on the tensor cores
+(fp32 on a SIMT body), and one thread a row keeps the running top-k,
+filtering each candidate against the row's k-th score and merging the
+survivors by rank (in registers up to top_k 32, in shared memory above).
 
 Selections follow ``core/routing.py::select_blocks`` exactly: future
 blocks -1e30, the own block +1e30, sentinel ``nb`` for slots at or below
@@ -13,9 +16,13 @@ blocks -1e30, the own block +1e30, sentinel ``nb`` for slots at or below
 Device contract: a CPU tensor takes the plain PyTorch version
 (``kernels/ref.py::flash_topk_ref``); a CUDA tensor launches the kernel
 or raises — there is no fallback.  The kernel takes q and centroids of
-one dtype, bf16 or fp32, head_dim 64 or 128 and ``top_k`` up to 16.
-``grid`` ("grouped" | "flat") and ``cent_tile`` keep the reference's
-API; both grids reach the one kernel, which stages its own tile.
+one dtype, bf16 or fp32, 16-byte aligned, head_dim 64 or 128, ``top_k``
+up to :data:`MAX_TOP_K` (the rows a CTA covers shrink as ``top_k`` grows
+so the shared-memory lists fit: :func:`rows_per_cta`) and a GQA group of
+at most that many rows.  ``top_k`` at or above nb gives every valid
+block, then sentinels.  ``grid`` ("grouped" | "flat"), ``q_tile`` and
+``cent_tile`` keep the reference's API; both grids reach the one kernel,
+which picks its own rows and centroid tile.
 
 ``LAUNCHES`` counts kernel launches (and nothing else).
 """
@@ -31,9 +38,20 @@ LAUNCHES = 0
 
 GRIDS = ("grouped", "flat")
 _HEAD_DIMS = (64, 128)
-_MAX_TOP_K = 16
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
+MAX_TOP_K = 1024      # 16 rows a CTA with 128 KB of lists
+_REG_MAX_K = 32       # register lists up to this top_k, 128 rows a CTA
+_LIST_BYTES = 131072
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
              + [ctypes.c_void_p])
+
+
+def rows_per_cta(top_k: int) -> int:
+    """Rows (heads x queries) one CTA covers: 128, or for shared-memory
+    lists (top_k > 32) ``16·floor(1024 / top_k)`` when that is fewer (the
+    kernel's ``rows_for``)."""
+    if top_k <= _REG_MAX_K:
+        return 128
+    return min(128, 16 * (_LIST_BYTES // (8 * 16 * top_k)))
 
 
 def check_contract(q: torch.Tensor, centroids: torch.Tensor, top_k: int,
@@ -48,13 +66,19 @@ def check_contract(q: torch.Tensor, centroids: torch.Tensor, top_k: int,
     if d not in _HEAD_DIMS or centroids.shape[-1] != d:
         problems.append(f"head_dim in {_HEAD_DIMS} (got {d}/"
                         f"{centroids.shape[-1]})")
-    if not 1 <= top_k <= _MAX_TOP_K:
-        problems.append(f"top_k in 1..{_MAX_TOP_K} (got {top_k})")
+    if not 1 <= top_k <= MAX_TOP_K:
+        problems.append(f"top_k in 1..{MAX_TOP_K}, the limit the "
+                        f"shared-memory lists of 16 rows set (got {top_k})")
+    elif group > rows_per_cta(top_k):
+        problems.append(f"a GQA group of at most {rows_per_cta(top_k)} "
+                        f"heads at top_k {top_k} (got {group})")
     if num_q_heads % group or bh != bkv * group:
         problems.append(f"BH = BKV·G with G | H (got BH={bh}, BKV={bkv}, "
                         f"G={group}, H={num_q_heads})")
     if not 1 <= bkv <= 65535:
         problems.append(f"1..65535 kv rows (got {bkv})")
+    if any(t.data_ptr() % 16 for t in (q, centroids)):
+        problems.append("16-byte aligned q and centroids")
     if q_pos_offset < 0:
         problems.append(f"queries that are a suffix of the keys "
                         f"(q_pos_offset {q_pos_offset})")
@@ -85,24 +109,22 @@ def flash_topk(q: torch.Tensor, centroids: torch.Tensor, top_k: int,
                          f"(plain version) or cuda (kernel)")
     check_contract(q, centroids, top_k, group, h, q_pos_offset)
     return launch(q.contiguous(), centroids.contiguous(), top_k, block_size,
-                  group=group, causal=causal, q_pos_offset=q_pos_offset,
-                  q_tile=q_tile)
+                  group=group, causal=causal, q_pos_offset=q_pos_offset)
 
 
 def launch(q: torch.Tensor, centroids: torch.Tensor, top_k: int,
-           block_size: int, *, group: int, causal: bool, q_pos_offset: int,
-           q_tile: int) -> torch.Tensor:
+           block_size: int, *, group: int, causal: bool,
+           q_pos_offset: int) -> torch.Tensor:
     """One launch of the CUDA kernel on contiguous, checked inputs."""
     global LAUNCHES
     bh, nq, d = q.shape
     bkv, nb, _ = centroids.shape
-    q_tile = min(q_tile, nq)
     out = torch.empty((bh, nq, top_k), dtype=torch.int32, device=q.device)
     lib = runtime.bind("flash_topk", "flash_topk", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = lib.flash_topk(runtime.ptr(q), runtime.ptr(centroids),
                              runtime.ptr(out), bkv, nq, nb, d, top_k,
-                             block_size, group, q_tile, int(causal),
+                             block_size, group, int(causal),
                              q_pos_offset, runtime.DTYPE_CODES[q.dtype],
                              runtime.stream_of(q))
     runtime.check(err, f"flash_topk (q {tuple(q.shape)}, centroids "

@@ -58,11 +58,23 @@ GRIDS = ("grouped", "flat")
 _HEAD_DIMS = (64, 128)
 _MAX_PAGE = 256
 _MAX_GROUP = 8
-MAX_TOP_K = 64         # the route kernel's running top-k in shared memory
+# the route kernel's lists and union tables take 7 words a slot of
+# dynamic shared memory, G·min(top_k, npg) slots: 112 KB at G 8, top_k 512
+MAX_TOP_K = 512
 ROUTE_CHUNK = 128      # pages the route kernel scores per step
 _TILE_BYTES = 16384    # K (and V) bytes one attention CTA stages at most
 _MAX_CHUNK = 128       # tokens one attention CTA attends at most
 _MAX_ROWS = 65535      # B * Hkv: the attention grid's y dimension
+
+
+def route_smem_bytes(g: int, top_k: int, npg: int, d: int) -> Tuple[int, int]:
+    """Shared memory of one route CTA, as ``csrc/moba_decode.cu`` sizes it:
+    (static, dynamic) bytes.  Static: q and a chunk's masked scores for
+    ``_MAX_GROUP`` heads (fp32); dynamic: 7 words a live slot,
+    ``G·min(top_k, npg)`` slots.  Past 48 KB together the launch needs the
+    attribute request the kernel always makes."""
+    static = 4 * _MAX_GROUP * (d + ROUTE_CHUNK)
+    return static, 4 * 7 * g * min(top_k, npg)
 
 
 def union_pages(idx: torch.Tensor, sel_valid: torch.Tensor, npg: int
@@ -162,7 +174,9 @@ def check_contract(q: torch.Tensor, pages_k: torch.Tensor,
         problems.append(f"kv_len as contiguous int32 or int64 ({b},) (got "
                         f"{tuple(kv_len.shape)}, {kv_len.dtype})")
     if top_k is not None and not 1 <= top_k <= MAX_TOP_K:
-        problems.append(f"top_k in 1..{MAX_TOP_K} (got {top_k})")
+        problems.append(f"top_k in 1..{MAX_TOP_K}, the limit the route "
+                        f"kernel's shared memory sets at G <= {_MAX_GROUP} "
+                        f"(got {top_k})")
     if problems:
         raise ValueError(
             f"moba_paged_decode CUDA kernel needs "
@@ -210,8 +224,10 @@ class Plan(NamedTuple):
 
     The route and merge kernels run one CTA per row; the attention
     kernel a (slots, rows) grid, slot x = union slot x // n_chunks,
-    token chunk x % n_chunks.  Only union slots below
-    ``min(G·top_k, npg)`` can be active, so the grid stops there."""
+    token chunk x % n_chunks.  A head fills at most ``min(top_k, npg)``
+    slots, so the union holds at most ``min(G·min(top_k, npg), npg) =
+    min(G·top_k, npg)`` pages and the grid stops there; the route
+    kernel sizes its shared lists from the same ``G·min(top_k, npg)``."""
 
     rows: int       # B·Hkv
     g: int

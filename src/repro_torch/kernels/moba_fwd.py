@@ -5,9 +5,9 @@ grids).  The CUDA kernel is ``csrc/moba_fwd.cu``; its header says what
 bounds it on an H100 (bytes: q_sorted and the fp32 partials live in
 device memory) and what the design does about that.  bf16 runs on the
 tensor cores: one CTA of 8 warps a q tile stages the tile's Q and the
-whole key block's K/V in shared memory with asynchronous copies, and
-each warp runs Q Kᵀ, the online softmax and P V for 16 query rows in
-registers.  fp32 keeps a SIMT body that streams K/V in ``kb_tile``
+key block's K/V in shared memory with asynchronous copies (the whole
+block up to 256 keys, a two-chunk ring above), and each warp runs Q Kᵀ,
+the online softmax and P V for 16 query rows in registers.  fp32 keeps a SIMT body that streams K/V in ``kb_tile``
 chunks (TF32 would break the fp32 tolerances).
 
 Device contract: a CPU tensor takes the plain PyTorch version
@@ -15,8 +15,9 @@ Device contract: a CPU tensor takes the plain PyTorch version
 kernel or raises — there is no fallback.  The kernel takes q_sorted and
 K/V blocks of one dtype, bf16 or fp32; head_dim 64 or 128; a q tile of
 at most 128 rows; ``kb_tile`` a multiple of 16 up to 128 that divides
-the block size; in bf16 a block of at most 256 keys (the whole block
-sits in shared memory).  ``grid`` keeps the reference's API; both grids
+the block size (the reference's rule: the fp32 body streams K/V in
+``kb_tile`` chunks, and in bf16 it makes the block any multiple of 16
+keys that ``kb_tile`` divides: 512 and 1024 included).  ``grid`` keeps the reference's API; both grids
 reach the one kernel.
 
 ``LAUNCHES`` counts kernel launches (and nothing else).
@@ -36,7 +37,6 @@ GRIDS = ("grouped", "flat")
 _HEAD_DIMS = (64, 128)
 _MAX_Q_TILE = 128
 _KB_GRAIN = 16
-_MAX_BF16_BLOCK = 256
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
@@ -69,9 +69,6 @@ def check_contract(tile_block, q_sorted, q_pos, k_blocks, v_blocks,
     if kb_tile % _KB_GRAIN or kb_tile > 128 or bs % kb_tile:
         problems.append(f"kb_tile a multiple of {_KB_GRAIN} up to 128 "
                         f"dividing block_size (got {kb_tile}, block {bs})")
-    if q_sorted.dtype == torch.bfloat16 and bs > _MAX_BF16_BLOCK:
-        problems.append(f"in bf16 a block of at most {_MAX_BF16_BLOCK} keys "
-                        f"(got {bs})")
     if num_q_heads % group or bh != bkv * group:
         problems.append(f"BH = BKV·G with G | H (got BH={bh}, BKV={bkv}, "
                         f"G={group}, H={num_q_heads})")

@@ -60,6 +60,42 @@ def flash_topk_ref(q: torch.Tensor, centroids: torch.Tensor, top_k: int,
                                  causal=causal)
 
 
+def flash_topk_merge_ref(q: torch.Tensor, centroids: torch.Tensor,
+                         top_k: int, block_size: int, *, group: int = 1,
+                         num_q_heads: int = 0, causal: bool = True,
+                         q_pos_offset: int = 0) -> torch.Tensor:
+    """The CUDA kernel's selection arithmetic in PyTorch, for every row at
+    once: candidates offered in the kernel's order (ascending block id,
+    only blocks up to the own one when causal, the own one at +1e30); a
+    candidate not strictly above the row's k-th score is filtered out; a
+    survivor is merged by rank — its place is the number of list entries
+    that beat it (strictly higher score: every entry has a lower id), and
+    each entry it beats moves down one place.  Empty slots hold -3e30;
+    slots at or below -5e29 end as the sentinel nb.  Same arguments and
+    result as :func:`flash_topk_ref`."""
+    bh, nq, _ = q.shape
+    nb = centroids.shape[1]
+    h = num_q_heads or bh
+    kv = kv_rows(bh, h, group, q.device)
+    scores = routing.routing_scores(q, centroids[kv])        # (BH, Nq, nb)
+    own = (torch.arange(nq, device=q.device) + q_pos_offset) // block_size
+    ls = torch.full((bh, nq, top_k), -3e30, device=q.device)
+    li = torch.zeros((bh, nq, top_k), dtype=torch.int64, device=q.device)
+    for c in range(nb):
+        x = scores[..., c:c + 1]
+        if causal:
+            x = torch.where((own == c)[:, None], routing.POS_INF, x)
+        offered = (own >= c) if causal else torch.ones_like(own, dtype=bool)
+        beats = (x > ls) & offered[:, None]
+        above = torch.cat([torch.zeros_like(beats[..., :1]),
+                           beats[..., :-1]], dim=-1)          # beats j - 1
+        ls = torch.where(beats, torch.where(above, torch.cat(
+            [ls[..., :1], ls[..., :-1]], -1), x), ls)
+        li = torch.where(beats, torch.where(above, torch.cat(
+            [li[..., :1], li[..., :-1]], -1), c), li)
+    return torch.where(ls <= NEG_INF / 2, nb, li).to(torch.int32)
+
+
 # ------------------------------------------------------------- fwd partials
 class MobaPartials(NamedTuple):
     o: torch.Tensor   # (BH, L, d) fp32 un-normalised partial outputs

@@ -36,6 +36,8 @@ from test_torch_decode import DISAGREE, GEOMETRIES, _case
 
 ATOL = RTOL = 1e-3   # tests/test_backends.py:201, test_quantized_pages.py:43
 
+PAGE16_K128 = dict(kv_lens=(8192, 5000, 40), top_k=128, h=4, hkv=2, d=16,
+                   ps=16, npg=512, num_pages=1100)
 ROUTE_GEOMETRIES = {
     **GEOMETRIES,
     "g4-disagree": DISAGREE,
@@ -45,6 +47,9 @@ ROUTE_GEOMETRIES = {
     # top_k 64 (the small-block regime's k) over three route chunks, G = 1
     "long-table-k64": dict(kv_lens=(4000, 3000, 16), top_k=64, h=2,
                            hkv=2, d=16, ps=16, npg=260, num_pages=800),
+    # top_k 128 at page 16 over 512-page tables (8K tokens), G = 2: the
+    # route's lists past the old 64-slot cap, four route chunks
+    "page16-k128": PAGE16_K128,
 }
 # two 32-token chunks per 64-token page (fp32 pool at d 128)
 MULTI_CHUNK = dict(kv_lens=(150, 64, 0, 97), top_k=2, h=4, hkv=2, d=128,
@@ -194,6 +199,29 @@ def test_partials_and_merge_match_jax_pallas(geom, kv_dtype, grid):
     assert bool((out[torch.from_numpy(~active)] == 0).all())
 
 
+def test_decode_page16_k128_matches_jax():
+    """The split decode from the kernels' plain pieces (route tables,
+    partials, merge) and the public wrapper's plain version at page 16,
+    top_k 128, G 2, against the JAX package's XLA decode."""
+    g = PAGE16_K128
+    q, cache, table, kv_lens = _case(g)
+    t = {k: torch.from_numpy(cache[k]) for k in ("pages_k", "pages_v")}
+    out, _, rt, _ = _split_decode(g, q, cache, table, kv_lens, t)
+    assert int((rt.sel >= 0).sum(-1).max()) == g["top_k"]
+    cfg = MoBAConfig(block_size=g["ps"], top_k=g["top_k"])
+    whole = TMD.moba_paged_decode(
+        torch.from_numpy(q), t["pages_k"], t["pages_v"],
+        torch.from_numpy(cache["centroids"]), torch.from_numpy(table),
+        torch.from_numpy(kv_lens), cfg)
+    want = np.asarray(JM.moba_paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(cache["pages_k"]),
+        jnp.asarray(cache["pages_v"]), jnp.asarray(cache["centroids"]),
+        jnp.asarray(table), jnp.asarray(kv_lens),
+        JMoBAConfig(block_size=g["ps"], top_k=g["top_k"])))
+    np.testing.assert_allclose(out.numpy(), want, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(whole.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("chunk", [16, 32, 64])
 def test_partials_independent_of_chunking(chunk):
     """Cutting a page into more token chunks (more CTAs, more partials)
@@ -235,6 +263,7 @@ PLAN_CASES = {
     "fp32-d128-page256": ((2, 16, 8, 4, 40, 256, 128, 4), (32, 8)),
     "bf16-d128-page256": ((3, 24, 4, 8, 9, 256, 128, 2), (64, 4)),
     "g8-k64-short-table": ((1, 64, 8, 64, 20, 16, 64, 2), (16, 1)),
+    "g8-k512-page16": ((1, 64, 8, 512, 512, 16, 64, 2), (16, 1)),
     "fp8-d128-page48": ((5, 4, 4, 2, 7, 48, 128, 1), (48, 1)),
 }
 
@@ -286,6 +315,41 @@ def test_contract_routing_inputs():
                        (dict(centroids=cents.double()), "centroids")):
         with pytest.raises(ValueError, match=match):
             TMD.check_contract(q, pool, pool, **{**ok, **bad})
+
+
+def test_contract_names_the_route_limit():
+    """top_k up to 512 at G 8 passes; past it the shaped error names the
+    limit the route kernel's shared memory sets."""
+    q = torch.zeros(1, 64, 1, 64, dtype=torch.bfloat16)
+    pool = torch.zeros(4, 16, 8, 64, dtype=torch.bfloat16)
+    assert TMD.MAX_TOP_K == 512
+    TMD.check_contract(q, pool, pool, top_k=512)
+    with pytest.raises(ValueError, match="top_k in 1..512, the limit the "
+                                         "route kernel's shared memory"):
+        TMD.check_contract(q, pool, pool, top_k=513)
+
+
+ROUTE_SMEM_CASES = {
+    # name: (g, top_k, npg, d) -> (static, dynamic) bytes
+    "moba-340m": ((1, 8, 33, 64), (6144, 224)),
+    "g8-k200-page16-d128": ((8, 200, 512, 128), (8192, 44800)),
+    "g8-k512-short-table": ((8, 512, 100, 64), (6144, 22400)),
+    "g8-k512-page16-d128": ((8, 512, 512, 128), (8192, 114688)),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_SMEM_CASES))
+def test_route_smem_bytes(case):
+    """The route CTA's shared memory: lists sized from G·min(top_k, npg);
+    at G 8 / top_k 200 / d 128 the dynamic part alone is under 48 KB but
+    static plus dynamic is over it (the launch must ask for it), and the
+    limit's geometry fits the card's 227 KB a block."""
+    args, want = ROUTE_SMEM_CASES[case]
+    static, dynamic = TMD.route_smem_bytes(*args)
+    assert (static, dynamic) == want
+    assert static + dynamic <= 227 * 1024
+    if case == "g8-k200-page16-d128":
+        assert dynamic < 48 * 1024 < static + dynamic
 
 
 def test_cpu_call_counts_no_launch():

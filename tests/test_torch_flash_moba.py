@@ -29,6 +29,7 @@ from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import ref as TREF
 from repro_torch.kernels.centroids import block_centroids_kernel
 from repro_torch.kernels.flash_topk import flash_topk
+from repro_torch.kernels import flash_topk as TK
 from repro_torch.kernels import moba_bwd as TB
 from repro_torch.kernels import moba_fwd as TF
 from repro_torch.kernels.moba_bwd import moba_bwd, segments
@@ -79,6 +80,11 @@ TOPK_CASES = {
     "nb-below-top-k": (4, 2, 48, 48, 16, 5, 16, 128, True),
     "query-suffix": (4, 2, 128, 64, 16, 3, 32, 128, True),
     "tied-centroids": (4, 2, 128, 128, 16, 3, 64, 128, True),
+    # the small-block regime: top_k 32 over 64 blocks of 16
+    "k32-block16": (2, 2, 1024, 1024, 16, 32, 128, 128, True),
+    "k64-g2": (4, 2, 1024, 1024, 16, 64, 128, 128, True),
+    "k32-above-nb": (4, 2, 256, 256, 16, 32, 64, 128, True),
+    "tied-centroids-k32": (4, 2, 1024, 1024, 16, 32, 128, 128, True),
 }
 
 
@@ -87,7 +93,7 @@ TOPK_CASES = {
 def test_flash_topk_bit_equal_to_jax(case, grid):
     h, hkv, n, nq, bs, tk, qt, ct, causal = TOPK_CASES[case]
     q, k, _ = _qkv(len(case) + tk, h=h, hkv=hkv, n=n, nq=nq)
-    if case == "tied-centroids":
+    if case.startswith("tied-centroids"):
         k[:] = k[:, :, :1]                    # every block scores the same
     cents = np.asarray(JR.block_centroids(jnp.asarray(k), bs)).reshape(
         hkv, -1, 16)
@@ -98,6 +104,75 @@ def test_flash_topk_bit_equal_to_jax(case, grid):
     want = j_flash_topk(jnp.asarray(qf), jnp.asarray(cents), tk, bs, **kw)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.dtype == torch.int32
+
+
+MERGE_CASES = {
+    # name: (h, hkv, nq, nb, bs, top_k, causal, q_pos_offset)
+    "k8-causal": (2, 2, 256, 16, 16, 8, True, 0),
+    "k32-g2": (4, 2, 512, 32, 16, 32, True, 0),
+    "k64-above-nb": (2, 1, 128, 16, 8, 64, True, 0),
+    "k5-suffix": (4, 2, 64, 12, 16, 5, True, 128),
+    "k12-bidirectional": (2, 2, 64, 20, 16, 12, False, 256),
+}
+
+
+@pytest.mark.parametrize("case", MERGE_CASES)
+def test_flash_topk_merge_mirror_bit_equal_to_jax(case):
+    """The CUDA kernel's filter-and-rank merge (``flash_topk_merge_ref``,
+    candidates in the kernel's order) against the Pallas kernel on
+    integer-valued scores with many exact ties: the tie order is
+    lax.top_k's."""
+    h, hkv, nq, nb, bs, tk, causal, off = MERGE_CASES[case]
+    rng = np.random.default_rng(nb + tk)
+    q = rng.integers(-1, 2, size=(h, nq, 16)).astype(np.float32)
+    cents = rng.integers(-1, 2, size=(hkv, nb, 16)).astype(np.float32)
+    kw = dict(group=h // hkv, num_q_heads=h, causal=causal,
+              q_pos_offset=off)
+    got = TREF.flash_topk_merge_ref(_t(q), _t(cents), tk, bs, **kw)
+    want = np.asarray(j_flash_topk(jnp.asarray(q), jnp.asarray(cents), tk,
+                                   bs, q_tile=min(64, nq), **kw))
+    np.testing.assert_array_equal(got.numpy(), want)
+    scores = np.einsum("hqd,hbd->hqb", q, np.repeat(cents, h // hkv, 0))
+    assert (scores == np.round(scores)).all()
+    # many ties: most rows hold a score shared by two of their blocks
+    srt = np.sort(scores, -1)
+    assert (srt[..., 1:] == srt[..., :-1]).any(-1).mean() > 0.5
+
+
+@pytest.mark.parametrize("top_k", [1, 8, 16, 17, 32, 33, 64, 128, 129, 256,
+                                   512, 1000, 1024])
+def test_flash_topk_contract_accepts_top_k(top_k):
+    """Every top_k up to the limit, at d 64 and 128, G 1 and 8, in bf16
+    and fp32 (shape-only operands)."""
+    for d in (64, 128):
+        for g in (1, 8):
+            for dt in (torch.bfloat16, torch.float32):
+                q = torch.zeros((), dtype=dt).expand(2 * g, 8192, d)
+                cents = torch.zeros((), dtype=dt).expand(2, 512, d)
+                TK.check_contract(q, cents, top_k, g, 2 * g, 0)
+
+
+@pytest.mark.parametrize("top_k,rows", [(1, 128), (32, 128), (33, 128),
+                                        (128, 128), (129, 112), (256, 64),
+                                        (512, 32), (1024, 16)])
+def test_flash_topk_rows_per_cta(top_k, rows):
+    """Rows a CTA covers: 128 with register lists (top_k <= 32) and while
+    the shared-memory lists fit, then 16·floor(1024 / top_k)."""
+    assert TK.rows_per_cta(top_k) == rows
+
+
+def test_flash_topk_contract_names_its_limits():
+    """Past the limit the shaped error names it: top_k 1025, and a GQA
+    group wider than the rows a CTA covers at that top_k."""
+    q = torch.zeros(32, 64, 64, dtype=torch.bfloat16)
+    cents = torch.zeros(1, 8, 64, dtype=torch.bfloat16)
+    assert TK.MAX_TOP_K == 1024
+    with pytest.raises(ValueError, match="top_k in 1..1024, the limit"):
+        TK.check_contract(q[:1], cents, 1025, 1, 1, 0)
+    with pytest.raises(ValueError, match="group of at most 16 heads at "
+                                         "top_k 1024"):
+        TK.check_contract(q, cents, 1024, 32, 32, 0)
+    TK.check_contract(q, cents, 128, 32, 32, 0)
 
 
 def test_flash_topk_rejects_unknown_grid():
@@ -270,7 +345,7 @@ def _check_bwd(o):
 
 
 @pytest.mark.parametrize("d,g", [(64, 1), (64, 2), (128, 1), (128, 2)])
-@pytest.mark.parametrize("bs", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("bs", [16, 32, 64, 128, 256, 512, 1024])
 @pytest.mark.parametrize("nq", [1, 37, 128, 1000, 8000])
 def test_kernel_contracts_accept_flash_moba_shapes(nq, bs, d, g):
     """Every (q tile, block, kb_tile, d, G) that ``flash_moba`` produces
@@ -284,13 +359,13 @@ def test_kernel_contracts_accept_flash_moba_shapes(nq, bs, d, g):
 
 FWD_REJECTS = {
     # name: (operand overrides, message fragment)
-    "bf16-block-512": (dict(bs=512), "at most 256 keys"),
+    "bf16-block-24": (dict(bs=24), "multiple of 16"),
     "head-dim-96": (dict(d=96), "head_dim"),
     "fp16": (dict(dtype=torch.float16), "one dtype"),
 }
 BWD_REJECTS = {
     "fp32-do-with-bf16-q": (dict(do_dtype=torch.float32), "one dtype"),
-    "bf16-block-512": (dict(bs=512), "multiple of 16 keys up to 256"),
+    "bf16-block-24": (dict(bs=24), "multiple of 16 keys"),
     "head-dim-96": (dict(d=96), "head_dim"),
     "fp16": (dict(dtype=torch.float16), "one dtype"),
 }
@@ -339,7 +414,8 @@ def test_moba_bwd_contract_rejects_bf16_lse():
 @pytest.mark.parametrize("bs,dtype,want", [
     (16, torch.bfloat16, 1), (128, torch.bfloat16, 1),
     (144, torch.bfloat16, 2), (256, torch.bfloat16, 2),
-    (256, torch.float32, 1), (512, torch.float32, 1)])
+    (256, torch.float32, 1), (512, torch.float32, 1),
+    (512, torch.bfloat16, 4), (1024, torch.bfloat16, 8)])
 def test_moba_bwd_dq_partials(bs, dtype, want):
     """The bf16 backward holds SPLIT_KEYS keys a CTA, so a longer block
     writes one dQ partial per 128 keys; the SIMT fp32 body writes one."""
@@ -352,6 +428,9 @@ FLASH_CASES = {
     "fp32-gqa": (4, 2, 128, 32, 16, 3, 64, "float32"),
     "fp32-odd-nq": (2, 2, 100, 32, 16, 3, 64, "float32"),
     "bf16-gqa": (4, 1, 128, 16, 16, 4, 64, "bfloat16"),
+    # the paper's small blocks, and original MoBA's 512-key blocks
+    "fp32-block16-k32": (2, 2, 1024, 16, 16, 32, 128, "float32"),
+    "bf16-block512-k2": (2, 1, 1024, 16, 512, 2, 128, "bfloat16"),
 }
 
 
