@@ -132,20 +132,30 @@ Phases, one JSON line each; any failure exits non-zero:
                block selections; each layer's selections must differ
                from the plain routing only on near-ties.  Run at block
                128, top_k 8 and again at block 32, top_k 32.
-  8. swa     — ``swa_attention``'s CUDA kernel against its plain version
-               at moba-340m's SWA shapes (N 8192, window 256, 16 heads,
-               d 64) in bf16 (3e-2) and fp32 (2e-4), a GQA geometry (H 16,
-               Hkv 8, d 128), window 100 with q_tile 128 / k_tile 64, and a
-               window >= N.  Times at the main bf16 shapes: ``call_cost``
-               of the wrapper, the plain version and causal SDPA with a
-               band mask as the library call; the launch alone; the
-               bound.  No serving
-               or training path launches it.
+  8. swa     — a tensor-core audit of the ``swa`` library first (as in
+               phase 5: every bf16 instantiation has ``HMMA`` in its SASS,
+               none has a stack frame at d 64; d 128's registers and
+               stack reported).  ``swa_attention``'s CUDA kernel against
+               its plain version in bf16 (the tensor-core body, 3e-2) and
+               fp32 (the SIMT body, 2e-4) at moba-340m's SWA shapes (N
+               8192, window 256, 16 heads, d 64) and the same at d 128,
+               GQA geometries (H 16 on Hkv 8 and, ``gqa-g8``, 2 x 32
+               heads on 4, both d 128), window 100 with q_tile 128 /
+               k_tile 64, a window >= N, window 1 and N 96 (a ragged
+               tile).  At the moba-340m shapes, d 64 and d 128, bf16 and
+               fp32: the launch alone, ``call_cost`` of the wrapper, the
+               plain version and causal SDPA with a band mask as the
+               library call, the bound from these tensors (bf16 tensor-core or
+               fp32 peak); in bf16 also ``flex_attention`` with a
+               sliding-window ``BlockMask``, compiled once, as a second
+               yardstick (its error instead if it cannot be built).  No
+               serving or training path launches the kernel.
 
 Then the card's name and power limit, the kernel line (the six kernels,
 the decode kernels once per pool dtype; Flash TopK also with its
 small-block times and launches and its times alone at top_k 16, 64
-and 1024), and as the last line
+and 1024; ``swa_attention`` also at d 128 and in fp32), and as the last
+line
 ``{"ok": true, "device": {...}}``.
 
   python3 chip_smoke.py --ab DIR
@@ -160,7 +170,9 @@ the CUDA-event reading without the spin kernel); the Flash TopK launch
 (through its wrapper, whose only device work it is), ``moba_fwd.launch``
 and ``moba_bwd.launch`` alone on the phase-5 moba-340m bf16 case (dO in
 the dtype that tree's backward wrapper takes, read from its
-``check_contract``); and the phase-6 median training step (steps 2–4).
+``check_contract``); ``swa_attention`` through its public wrapper at
+moba-340m's SWA shape (bf16 and fp32 at d 64, bf16 at d 128); and the
+phase-6 median training step (steps 2–4).
 The last line holds each tree's medians and the ratio DIR / this.
 
 Without a usable card, or run from a directory that lacks the
@@ -1245,19 +1257,19 @@ def _time_flash_moba(c, flush) -> dict:
                     *x, is_causal=True), dense), flush=flush)}
 
 
-def _tensor_core_audit() -> dict:
-    """Per kernel function of the built Flash TopK, FlashMoBA forward and
-    backward libraries: registers and stack bytes (``cuobjdump
-    -res-usage``; a spill needs a stack frame) and the count of
-    tensor-core instructions in its SASS (``HMMA``/``HGMMA``, ``cuobjdump
-    -sass``).  Fails if a bf16 instantiation (``*_mma<D, ...>``, or
-    ``flash_topk_kernel<bf16, ...>``) has none, or if a FlashMoBA one has
-    a stack frame at d 64."""
+def _tensor_core_audit(phase: str, libs) -> dict:
+    """Per kernel function of the built libraries ``libs``: registers and
+    stack bytes (``cuobjdump -res-usage``; a spill needs a stack frame)
+    and the count of tensor-core instructions in its SASS
+    (``HMMA``/``HGMMA``, ``cuobjdump -sass``).  Fails if a bf16
+    instantiation (``*_mma<D, ...>``, or ``flash_topk_kernel<bf16,
+    ...>``) has none, if an ``*_mma`` one has a stack frame at d 64, or
+    if a library shows no bf16 instantiation."""
     import re
     from repro_torch.kernels import runtime
     tool = os.path.join(os.path.dirname(runtime.nvcc_path()), "cuobjdump")
     funcs = {}
-    for lib in ("flash_topk", "moba_fwd", "moba_bwd"):
+    for lib in libs:
         path = str(runtime.library_path(lib))
         for flag in ("-res-usage", "-sass"):
             text = subprocess.run([tool, flag, path], capture_output=True,
@@ -1280,23 +1292,22 @@ def _tensor_core_audit() -> dict:
             if re.search(r"_mmaILi\d+E|flash_topk_kernelI13__nv_bfloat16", n)}
     bad = [n for n, f in bf16.items()
            if not f["tensor_core"] or (
-               f["library"] != "flash_topk" and "ILi64E" in n
-               and f.get("stack_bytes", 1) != 0)]
-    libs = {f["library"] for f in bf16.values()}
+               re.search(r"_mmaILi64E", n) and f.get("stack_bytes", 1) != 0)]
     rec = {"functions": funcs, "bf16_functions": len(bf16),
-           "ok": libs == {"flash_topk", "moba_fwd", "moba_bwd"} and not bad}
+           "ok": {f["library"] for f in bf16.values()} == set(libs)
+           and not bad}
     if not rec["ok"]:
-        emit({"phase": "train_kernels", "tensor_core_audit": rec})
-        raise SystemExit(f"train_kernels: a bf16 Flash TopK or FlashMoBA "
-                         f"kernel has no tensor-core instruction, or a "
-                         f"FlashMoBA one spills at d 64 (or none was "
-                         f"found): {bad or sorted(funcs)}")
+        emit({"phase": phase, "tensor_core_audit": rec})
+        raise SystemExit(f"{phase}: a bf16 kernel of {list(libs)} has no "
+                         f"tensor-core instruction, or an mma one spills at "
+                         f"d 64 (or none was found): {bad or sorted(funcs)}")
     return rec
 
 
 def phase_train_kernels():
     import torch
-    audit = _tensor_core_audit()
+    audit = _tensor_core_audit("train_kernels",
+                               ("flash_topk", "moba_fwd", "moba_bwd"))
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     geoms = [("moba-340m", dict(h=16, hkv=16, n=TRAIN_SEQ, nq=TRAIN_SEQ,
                                 d=64), (torch.bfloat16, torch.float32)),
@@ -1592,30 +1603,107 @@ def _swa_inputs(*, b, h, hkv, n, d, dtype, seed):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-def phase_swa():
-    """``swa_attention``'s CUDA kernel against its plain version
-    (``dense_attention`` with the window) at moba-340m's SWA shapes (one
-    sequence of 8192 tokens, 16 heads of 64, window 256) in bf16 and
-    fp32, a GQA geometry (16 heads on 8 kv heads, d 128), window 100 with
-    q_tile 128 and k_tile 64, and a window at least N.  No serving or
-    training path calls it; its launches are this phase's checks."""
+def _flex_yardstick(q4, k4, v4, w: int, scale: float, ref, flush) -> dict:
+    """``torch.nn.attention.flex_attention`` with a sliding-window
+    ``BlockMask`` (it skips the blocks outside the band), compiled once
+    and then timed: one PyTorch call for the same function, a yardstick
+    the port never calls.  If it cannot be built, the error instead."""
+    import torch
+    try:
+        import torch._inductor.config as inductor_config
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        build = os.path.join(SRC, "repro_torch", "kernels", "build")
+        os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                              os.path.join(build, "inductor"))
+        os.environ.setdefault("TRITON_CACHE_DIR",
+                              os.path.join(build, "triton"))
+        inductor_config.compile_threads = 1      # no worker processes
+        n = q4.shape[2]
+        mask = create_block_mask(
+            lambda b, h, qi, ki: (qi >= ki) & (qi - ki < w), B=None, H=None,
+            Q_LEN=n, KV_LEN=n, device="cuda")
+        flex = torch.compile(flex_attention, dynamic=False)
+        t0 = time.perf_counter()
+        out = flex(q4, k4, v4, block_mask=mask, scale=scale)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+    except Exception as e:          # a yardstick: record why, time none
+        return {"flex_error": f"{type(e).__name__}: {e}"[:600]}
+    return {"flex_ms": cuda_events_ms(
+                lambda: flex(q4, k4, v4, block_mask=mask, scale=scale),
+                flush=flush),
+            "flex_compile_s": compile_s,
+            "flex_max_abs_err": float((out[0].float() - ref.float())
+                                      .abs().max())}
+
+
+def _time_swa(KS, q, k, v, w: int, kw: dict, flush) -> dict:
+    """At one shape: the kernel launch alone, the wrapper, the plain
+    version and band SDPA as calls, flex in bf16, and the bound from
+    these tensors."""
     import torch
     import torch.nn.functional as F
+    n, d = q.shape[1], q.shape[2]
+    scale = d ** -0.5
+    pos = torch.arange(n, device="cuda")
+    band = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < w)
+    pairs = float(band.sum()) * q.shape[0]       # (query, key) pairs kept
+    q4, k4, v4 = (x[None] for x in (q, k, v))    # (1, H, N, d)
+
+    bf16 = q.dtype == torch.bfloat16
+    rec = {"kernel_only_ms": cuda_events_ms(
+               lambda: KS.launch(q, k, v, w, kw["num_q_heads"], kw["group"],
+                                 scale, 128, 128), flush=flush),
+           **call_cost(lambda: KS.swa_attention(q, k, v, w, **kw), flush),
+           **call_cost(lambda: KS.swa_attention_plain(q, k, v, w, **kw),
+                       flush, "plain_"),
+           **call_cost(lambda: F.scaled_dot_product_attention(
+               q4, k4, v4, attn_mask=band), flush, "library_"),
+           **_bound(4 * q.numel() * q.element_size(), 4.0 * pairs * d,
+                    BF16_FLOPS if bf16 else FP32_FLOPS)}
+    if bf16:
+        ref = KS.swa_attention_plain(q, k, v, w, **kw)
+        rec.update(_flex_yardstick(q4, k4, v4, w, scale, ref, flush))
+    return rec
+
+
+def phase_swa():
+    """``swa_attention``'s CUDA kernel against its plain version
+    (``dense_attention`` with the window) in bf16 (the tensor-core body,
+    3e-2) and fp32 (the SIMT body, 2e-4): moba-340m's SWA shapes (one
+    sequence of 8192 tokens, 16 heads of 64, window 256) and the same at
+    d 128, GQA (16 heads on 8 kv heads at d 128; 32 on 4 at d 128),
+    window 100 with q_tile 128 / k_tile 64, a window at least N, window
+    1, and N 96 (a ragged tile).  First the tensor-core audit of the
+    library.  Then times at the moba-340m shapes, d 64 and d 128, bf16
+    and fp32 (``_time_swa``).  No serving or training path calls it; its
+    launches are this phase's checks."""
+    import torch
     from repro_torch.kernels import swa as KS
+    audit = _tensor_core_audit("swa", ("swa",))
     bf16, fp32 = torch.bfloat16, torch.float32
     cases = [("moba-340m", dict(b=1, h=16, hkv=16, n=TRAIN_SEQ, d=64),
-              dict(window=256), (bf16, fp32)),
+              dict(window=256)),
              ("gqa-d128", dict(b=2, h=16, hkv=8, n=2048, d=128),
-              dict(window=256), (bf16, fp32)),
+              dict(window=256)),
              ("window-100", dict(b=1, h=16, hkv=16, n=4096, d=64),
-              dict(window=100, q_tile=128, k_tile=64), (bf16, fp32)),
+              dict(window=100, q_tile=128, k_tile=64)),
              ("window-ge-n", dict(b=2, h=4, hkv=4, n=1024, d=64),
-              dict(window=1500), (bf16, fp32))]
+              dict(window=1500)),
+             ("n-96", dict(b=1, h=4, hkv=4, n=96, d=64), dict(window=40)),
+             ("window-1", dict(b=1, h=16, hkv=16, n=2048, d=64),
+              dict(window=1)),
+             ("moba-340m-d128", dict(b=1, h=16, hkv=16, n=TRAIN_SEQ, d=128),
+              dict(window=256)),
+             ("gqa-g8", dict(b=2, h=32, hkv=4, n=4096, d=128),
+              dict(window=256))]
+    timed = ("moba-340m", "moba-340m-d128")
     tols = {bf16: 3e-2, fp32: 2e-4}
-    checks, main = [], None
+    checks, mains = [], {}
     KS.LAUNCHES = 0
-    for name, shape, opts, dtypes in cases:
-        for dtype in dtypes:
+    for name, shape, opts in cases:
+        for dtype in (bf16, fp32):
             q, k, v = _swa_inputs(dtype=dtype, seed=5, **shape)
             kw = dict(num_q_heads=shape["h"],
                       group=shape["h"] // shape["hkv"])
@@ -1625,7 +1713,7 @@ def phase_swa():
             err = float((out.float() - ref.float()).abs().max())
             tol = tols[dtype]
             ok = bool(torch.allclose(out.float(), ref.float(), atol=tol,
-                                     rtol=tol))
+                                     rtol=tol)) and out.dtype == dtype
             checks.append({"geometry": name, "dtype": str(dtype),
                            **opts, "max_abs_err": err, "tol": tol,
                            "ok": ok})
@@ -1633,33 +1721,20 @@ def phase_swa():
                 emit({"phase": "swa", "checks": checks})
                 raise SystemExit(f"swa: the kernel disagrees with its plain "
                                  f"version: {checks[-1]}")
-            if name == "moba-340m" and dtype == bf16:
-                main = (q, k, v, opts["window"], kw, err)
-            else:
-                del q, k, v, out, ref
+            if name in timed:
+                mains[name, dtype] = (q, k, v, opts["window"], kw, err)
+            del out, ref
+            torch.cuda.empty_cache()
     launches = KS.LAUNCHES
-    q, k, v, w, kw, err = main
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    n, d = q.shape[1], q.shape[2]
-    pos = torch.arange(n, device="cuda")
-    band = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < w)
-    pairs = float(band.sum()) * q.shape[0]       # (query, key) pairs kept
-    q4, k4, v4 = (x[None] for x in (q, k, v))    # (1, H, N, d)
-    scale = d ** -0.5
-    timing = {
-        **call_cost(lambda: KS.swa_attention(q, k, v, w, **kw), flush),
-        "kernel_only_ms": cuda_events_ms(
-            lambda: KS.launch(q, k, v, w, kw["num_q_heads"], kw["group"],
-                              scale, 128, 128), flush=flush),
-        **call_cost(lambda: KS.swa_attention_plain(q, k, v, w, **kw), flush,
-                    "plain_"),
-        **call_cost(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=band), flush, "library_"),
-        **_bound(4 * q.numel() * q.element_size(), 4.0 * pairs * d,
-                 BF16_FLOPS),
-        "max_abs_err": err}
+    timing = {}
+    for (name, dtype), (q, k, v, w, kw, err) in mains.items():
+        timing[f"{name}:{str(dtype).split('.')[-1]}"] = {
+            **_time_swa(KS, q, k, v, w, kw, flush), "max_abs_err": err,
+            "shape": [1, q.shape[0], q.shape[1], q.shape[2]], "window": w}
     emit({"phase": "swa", "replaces": "src/repro/kernels/swa.py:77",
-          "shape": [1, q.shape[0], n, d], "window": w, "checks": checks,
+          "tensor_core_audit": audit, "cta_rows": KS.CTA_ROWS,
+          "key_chunk": KS.KEY_CHUNK, "checks": checks,
           "launches": launches, "timing": timing})
     return launches, timing
 
@@ -1732,12 +1807,32 @@ def _ab_train_kernels() -> dict:
                 flush=flush)}
 
 
+def _ab_swa() -> dict:
+    """Device ms of ``swa_attention`` through its public wrapper (whose
+    API both trees share; its only device work is the launch and the
+    output's allocation) at moba-340m's SWA shape: bf16 and fp32 at d 64,
+    bf16 at d 128."""
+    import torch
+    from repro_torch.kernels import swa as KS
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    rec = {}
+    for key, d, dtype in (("swa_bf16_ms", 64, torch.bfloat16),
+                          ("swa_fp32_ms", 64, torch.float32),
+                          ("swa_d128_ms", 128, torch.bfloat16)):
+        q, k, v = _swa_inputs(b=1, h=16, hkv=16, n=TRAIN_SEQ, d=d,
+                              dtype=dtype, seed=5)
+        rec[key] = cuda_events_ms(
+            lambda: KS.swa_attention(q, k, v, 256, num_q_heads=16),
+            flush=flush)
+    return rec
+
+
 def _ab_one() -> dict:
     """One tree's numbers for ``--ab`` (its ``src`` first on the path)."""
     import torch
     from repro_torch.kernels import moba_decode
     rec = {"module": moba_decode.__file__, **_ab_decode(),
-           **_ab_train_kernels()}
+           **_ab_train_kernels(), **_ab_swa()}
     torch.cuda.empty_cache()
     _, _, losses, step_s = _train_run("flash")
     rec.update(train_losses=losses,
@@ -1748,15 +1843,16 @@ def _ab_one() -> dict:
 
 AB_KEYS = ("ms", "device_ms", "loop_us", "ms_no_hold", "library_ms",
            "library_device_ms", "library_loop_us", "flash_topk_ms",
-           "moba_fwd_ms", "moba_bwd_ms", "train_median_step_ms")
+           "moba_fwd_ms", "moba_bwd_ms", "swa_bf16_ms", "swa_fp32_ms",
+           "swa_d128_ms", "train_median_step_ms")
 
 
 def ab(other: str) -> int:
-    """The decode call, the FlashMoBA forward and backward launches and
-    the training step of the checkout at ``other`` and of this one, each
-    in a process of its own, in the order other, this, this, other, so a
-    drift of the card shows.  One JSON line a process, then each tree's
-    medians and the ratio other / this."""
+    """The decode call, the FlashMoBA forward and backward launches,
+    ``swa_attention`` and the training step of the checkout at ``other``
+    and of this one, each in a process of its own, in the order other,
+    this, this, other, so a drift of the card shows.  One JSON line a
+    process, then each tree's medians and the ratio other / this."""
     trees = {"other": os.path.abspath(other), "this": ROOT}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1788,8 +1884,9 @@ def main() -> int:
                                  "on one NVIDIA card and check it.")
     ap.add_argument("--ab", metavar="DIR",
                     help="instead of the phases, time the decode call, the "
-                         "FlashMoBA forward and backward and the training "
-                         "step of the checkout at DIR and of this one")
+                         "FlashMoBA forward and backward, swa_attention and "
+                         "the training step of the checkout at DIR and of "
+                         "this one")
     ap.add_argument("--ab-one", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
@@ -1874,16 +1971,23 @@ def main() -> int:
                if name == "flash_topk" else {}),
             "checked": True})
     name, source, replaces = SWA_KERNEL
+    t = swa_timing["moba-340m:bfloat16"]
     kernels.append({
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": swa_launches,
         "launches_from": "the swa phase's checks: no serving or training "
                          "path launches it",
-        "max_abs_err": swa_timing["max_abs_err"], "ms": swa_timing["ms"],
-        "plain_ms": swa_timing["plain_ms"],
-        "bound_ms": swa_timing["bound_ms"],
-        "bound_by": swa_timing["bound_by"],
-        "library_ms": swa_timing["library_ms"], "checked": True})
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+        "device_ms": t["device_ms"], "kernel_only_ms": t["kernel_only_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        **{k: t[k] for k in ("flex_ms", "flex_error") if k in t},
+        "also_at": {g: {k: r[k] for k in (
+            "kernel_only_ms", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err", "shape", "flex_ms", "flex_error")
+            if k in r}
+            for g, r in swa_timing.items() if g != "moba-340m:bfloat16"},
+        "checked": True})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
