@@ -56,7 +56,14 @@ Phases, one JSON line each; any failure exits non-zero:
                the same cell from int8 and from fp8 pools
                (``serve_quantized``, 32 new tokens):
                the same checks, decode tokens/s and step ms, and the
-               pools' bytes against the bf16 run's.
+               pools' bytes against the bf16 run's.  Then
+               ``serve_key_conv``: moba-340m-kconv3 (key convolution of
+               width 3 on the MoBA layers) with the same prompts, 32 new
+               tokens, ``prefill_chunk`` 1000 (chunk edges inside conv
+               windows and off page edges), from bf16 and from int8
+               pools: the same checks, and the per-slot ring
+               ``key_conv_state`` bf16 of shape (12, 8, 16, 2, 64) in
+               both.
   4. logits  — the same model in fp32 (TF32 off): one shared paged
                prefill, then one decode step under ``flash`` and one under
                ``xla`` from cloned caches; logits within 2e-3 and equal
@@ -64,7 +71,26 @@ Phases, one JSON line each; any failure exits non-zero:
                decode call's route kernel made, in every MoBA layer; the
                xla run replays them, and each may differ from xla's own
                routing only on a near-tie (counted).  Repeated from int8
-               and from fp8 pools.
+               and from fp8 pools.  Then ``key_conv_logits``: the kconv3
+               model in fp32 after a prefill in chunks of 1000; every
+               sequence's ring row must equal the last 2 of the raw keys
+               its chunks computed (recomputed one-shot) bit for bit,
+               pages and centroids a one-shot prefill's within 2e-4, and
+               the decode step passes phase 4's check; then a swap
+               check at 4 layers (full width, fp32): four prompts just
+               under a page boundary in a pool one page larger than
+               they take, so growth preempts by swap (at least one
+               restore); every restored ring row equals its snapshot
+               bit for bit, and each greedy stream equals an engine's
+               with room for all up to its first step whose top-2
+               logit gap (teacher-forced, ``reference``) is at most
+               1e-3 (counted).  Then ``serve_qwen3``: qwen3-0.6b at
+               full width and depth (28 MoBA layers, d 128, 16 heads on
+               8 kv heads, tied 151,936-token embeddings, qk-norm),
+               bf16, 4 of the prompts, 16 new tokens: every request
+               finishes, 28 decode calls and 84 kernel launches a step,
+               decode tokens/s, step ms, peak memory and a profiled
+               window; then phase 4's check on this model in fp32.
   5. train_kernels — the four FlashMoBA training kernels (centroids, Flash
                TopK, forward, backward) against their plain PyTorch
                versions at the moba-340m training shapes (B=1, H=Hkv=16,
@@ -124,14 +150,22 @@ Phases, one JSON line each; any failure exits non-zero:
                multiplies in fp32).  Then ``train_small_blocks``: the
                same model at block 32, top_k 32, 3 steps on ``flash``
                (counts zeroed just before, read just after): finite
-               losses, exact launch counts, step ms, peak memory.
+               losses, exact launch counts, step ms, peak memory.  Then
+               ``train_key_conv``: moba-340m-kconv3, 3 steps on
+               ``flash`` as phase 6's (counts zeroed just before, read
+               just after): finite losses, phase 6's launch counts,
+               every MoBA layer's ``key_conv`` gradient finite and
+               nonzero in every step, the conv weights moved; step ms,
+               tokens/s and peak memory beside phase 6's; then the same
+               steps on ``xla``, each loss within 2e-2 of flash's.
   7. train_grads — the same weights in fp32 (TF32 off), batch 1, seq
                2048: ``lm_loss`` and every gradient leaf under ``flash``
                against ``xla`` (loss 2e-4 relative, each leaf max |Δ| /
                max |g| <= 5e-3), the xla run replaying the flash run's
                block selections; each layer's selections must differ
                from the plain routing only on near-ties.  Run at block
-               128, top_k 8 and again at block 32, top_k 32.
+               128, top_k 8, again at block 32, top_k 32, and on the
+               kconv3 model (the ``key_conv`` leaves among the checked).
   8. swa     — a tensor-core audit of the ``swa`` library first (as in
                phase 5: every bf16 instantiation has ``HMMA`` in its SASS,
                none has a stack frame at d 64; d 128's registers and
@@ -151,11 +185,14 @@ Phases, one JSON line each; any failure exits non-zero:
                yardstick (its error instead if it cannot be built).  No
                serving or training path launches the kernel.
 
-Then the card's name and power limit, the kernel line (the six kernels,
+Then each phase's wall seconds and the script's total, the card's name
+and power limit, the kernel line (the six kernels,
 the decode kernels once per pool dtype; Flash TopK also with its
-small-block times and launches and its times alone at top_k 16, 64
-and 1024; ``swa_attention`` also at d 128 and in fp32), and as the last
-line
+small-block times and its times alone at top_k 16, 64 and 1024;
+``swa_attention`` also at d 128 and in fp32; ``launches_also``: each
+kernel's launches on the other paths, ``serve_key_conv`` and
+``serve_qwen3`` for the decode kernels, ``train_small_blocks`` and
+``train_key_conv`` for the training kernels), and as the last line
 ``{"ok": true, "device": {...}}``.
 
   python3 chip_smoke.py --ab DIR
@@ -183,6 +220,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -643,26 +681,39 @@ def _time_decode(q, pool, table, kv, cfg, args, err, flush):
 
 
 # ------------------------------------------------------------------ phase 3
+def _moba_layers(cfg) -> int:
+    return cfg.num_layers // len(cfg.layer_pattern) * \
+        cfg.layer_pattern.count("moba")
+
+
 def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
-                bf16_pool_bytes: int = 0):
-    """The serve cell on ``flash`` from ``kv_dtype`` pools.  Returns the
-    decode calls and the decode kernels' launches in the measured run, and
-    the pools' bytes."""
+                bf16_pool_bytes: int = 0, *, arch: str = "moba-340m",
+                key_conv_width: int = 0, prefill_chunk: int = 0,
+                prompts: int = 8, phase: str = ""):
+    """The serve cell on ``flash`` from ``kv_dtype`` pools: ``arch`` (with
+    key conv of ``key_conv_width``) at full width and depth, ``prompts``
+    requests of 1024..4095 tokens.  Returns the decode calls and the
+    decode kernels' launches in the measured run, the pools' bytes and
+    the record."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import moba_decode as MD
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import Engine, EngineConfig
 
-    cfg = get_config("moba-340m")
+    phase = phase or ("serve" if kv_dtype == "fp32" else "serve_quantized")
+    cfg = get_config(arch, **({"key_conv_width": key_conv_width}
+                              if key_conv_width else {}))
+    moba_layers = _moba_layers(cfg)
     params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
     eng = Engine(cfg, params, EngineConfig(
         max_seqs=8, max_prefill_batch=2, max_seq_len=4224,
-        attn_backend="flash", kv_dtype=kv_dtype), device="cuda")
+        attn_backend="flash", kv_dtype=kv_dtype,
+        prefill_chunk=prefill_chunk), device="cuda")
     pool_bytes = sum(t.numel() * t.element_size()
                      for pool in eng.caches.values() for t in pool.values())
     rng = np.random.default_rng(0)
-    lens = rng.integers(1024, 4096, 8)
+    lens = rng.integers(1024, 4096, 8)[:prompts]
     reqs = [eng.submit(rng.integers(0, cfg.vocab_size, int(n),
                                     dtype=np.int32), max_new_tokens=new_tokens)
             for n in lens]
@@ -678,8 +729,9 @@ def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
     outs_ok = all(len(r.out) == new_tokens and r.done for r in reqs)
     toks = np.concatenate([np.asarray(r.out) for r in reqs])
     in_vocab = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
-    rec = {"phase": "serve" if kv_dtype == "fp32" else "serve_quantized",
+    rec = {"phase": phase,
            "arch": cfg.name, "dtype": cfg.dtype, "kv_dtype": kv_dtype,
+           "prefill_chunk": prefill_chunk,
            "prompt_lens": [int(n) for n in lens], "new_tokens": new_tokens,
            "requests_done": sum(r.done for r in reqs),
            "prefill_tokens": st["prefill_tokens"],
@@ -698,22 +750,39 @@ def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
                kernel_launches / max(st["decode_steps"], 1)}
     if bf16_pool_bytes:
         rec["pool_bytes_vs_bf16"] = pool_bytes / bf16_pool_bytes
+    ring = next((pool["key_conv_state"] for pool in eng.caches.values()
+                 if "key_conv_state" in pool), None)
+    want = (cfg.num_layers // len(cfg.layer_pattern), 8, cfg.num_kv_heads,
+            key_conv_width - 1, cfg.resolved_head_dim)
+    ring_ok = ring is None and not key_conv_width
+    if ring is not None:
+        rec["ring"] = {"shape": list(ring.shape), "dtype": str(ring.dtype),
+                       "expected_shape": list(want)}
+        ring_ok = tuple(ring.shape) == want and ring.dtype == torch.bfloat16
     rec["profile"] = _profile_decode(eng, cfg, rng)
     emit(rec)
-    del eng, params
+    # the engine sits in a reference cycle (its scheduler's preemption
+    # hook), so only the collector frees its pools before the next phase
+    # resets the peak-memory counter
+    del eng, params, ring
+    gc.collect()
     torch.cuda.empty_cache()
+    what = f"{phase} ({cfg.name}, {kv_dtype})"
     if not outs_ok or not in_vocab:
-        raise SystemExit(f"serve ({kv_dtype}): a request did not finish with "
+        raise SystemExit(f"{what}: a request did not finish with "
                          f"{new_tokens} tokens in the vocabulary")
-    if launches == 0 or launches != MOBA_LAYERS * st["decode_steps"]:
-        raise SystemExit(f"serve ({kv_dtype}): {launches} decode calls for "
+    if launches == 0 or launches != moba_layers * st["decode_steps"]:
+        raise SystemExit(f"{what}: {launches} decode calls for "
                          f"{st['decode_steps']} decode steps, expected "
-                         f"{MOBA_LAYERS} per step")
+                         f"{moba_layers} per step")
     if kernel_launches != 3 * launches:
-        raise SystemExit(f"serve ({kv_dtype}): {kernel_launches} decode "
+        raise SystemExit(f"{what}: {kernel_launches} decode "
                          f"kernel launches for {launches} calls, expected 3 "
                          f"per call")
-    return launches, kernel_launches, pool_bytes
+    if not ring_ok:
+        raise SystemExit(f"{what}: the key-conv ring is missing or is not "
+                         f"bf16 of shape {want}: {rec.get('ring')}")
+    return launches, kernel_launches, pool_bytes, rec
 
 
 def _profile_decode(eng, cfg, rng, steps: int = 6):
@@ -771,28 +840,23 @@ def _profile_summary(prof, wall: float, steps: int) -> dict:
 
 
 # ------------------------------------------------------------------ phase 4
-def phase_logits(kv_dtype: str = "fp32"):
-    """flash against xla for one decode step in fp32.  The flash run
-    records the route kernel's selections in every MoBA layer; the xla run
-    replays them, each held to xla's own routing by the near-tie rule (the
-    kernel sums its fp32 dot products in another order than the plain
-    einsum, so a near-tie can flip a page)."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.core import moba as CM
-    from repro_torch.kernels import moba_decode as MD
-    from repro_torch.launch import steps as S
-    from repro_torch.models import transformer as T
+LOGITS_LENS = (1500, 900, 2000, 300)      # phase 4's four sequences
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+
+def _logits_case(cfg, kv_dtype: str = "fp32", seed: int = 1):
+    """fp32 weights from ``seed`` and the paged-prefill inputs of phase 4:
+    four sequences of :data:`LOGITS_LENS` tokens on shuffled 128-token
+    pages, each at the sequence slot of its row.  Returns (params,
+    empty caches with one key-conv ring row a sequence, device inputs,
+    host tokens, a caches factory)."""
+    import torch
+    from repro_torch.models import transformer as T
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config("moba-340m"), dtype="float32")
-    params = T.init_lm(torch.Generator(device=dev).manual_seed(1), cfg)
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(seed), cfg)
     ps, npg = 128, 33
-    lens = np.array([1500, 900, 2000, 300], np.int32)
+    lens = np.array(LOGITS_LENS, np.int32)
     b = len(lens)
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed)
     pages = rng.permutation(b * npg)
     table = np.full((b, npg), -1, np.int32)
     for i, n in enumerate(lens):
@@ -801,15 +865,33 @@ def phase_logits(kv_dtype: str = "fp32"):
     tokens = np.zeros((b, 2048), np.int32)
     for i, n in enumerate(lens):
         tokens[i, :n] = rng.integers(0, cfg.vocab_size, n)
-    caches = T.init_paged_caches(cfg, b * npg, ps, dtype=torch.float32,
-                                 device=dev, kv_dtype=kv_dtype)
+
+    def caches():
+        return T.init_paged_caches(cfg, b * npg, ps, dtype=torch.float32,
+                                   device=dev, kv_dtype=kv_dtype,
+                                   max_seqs=b)
+
     t = {k: torch.as_tensor(v, device=dev) for k, v in dict(
         tokens=tokens, table=table, kv0=np.zeros(b, np.int32), lens=lens,
         slots=np.arange(b, dtype=np.int32),
         active=np.ones(b, bool)).items()}
-    first, caches = S.make_paged_prefill_step(cfg, "xla", chunked=True)(
-        params, t["tokens"], caches, t["table"], t["kv0"], t["lens"],
-        t["slots"], t["active"])
+    return params, t, tokens, caches
+
+
+def _decode_flash_vs_xla(cfg, params, caches, t, first) -> dict:
+    """One decode step under ``flash`` and one under ``xla`` from clones
+    of the prefilled ``caches``.  The flash run records the route
+    kernel's selections in every MoBA layer; the xla run replays them,
+    each held to xla's own routing by the near-tie rule (the kernel sums
+    its fp32 dot products in another order than the plain einsum, so a
+    near-tie can flip a page).  Returns the record's fields and ``ok``."""
+    import torch
+    from repro_torch.core import moba as CM
+    from repro_torch.kernels import moba_decode as MD
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+
+    moba_layers = _moba_layers(cfg)
     page_state = {"block_table": t["table"], "kv_len": t["lens"],
                   "q_len": t["active"].to(torch.int32),
                   "active": t["active"]}
@@ -837,46 +919,238 @@ def phase_logits(kv_dtype: str = "fp32"):
                                       rt.sel, idx, sel_valid))
         return _kernel_selection(rt, q, centroids)
 
+    def clone():
+        return {s: {k: v.clone() for k, v in pool.items()}
+                for s, pool in caches.items()}
+
     logits, toks = {}, {}
     try:
         for backend in ("flash", "xla"):
             MD.moba_paged_decode, CM.moba_paged_route = (
                 (record, plain_route) if backend == "flash"
                 else (decode, replay))
-            cloned = {s: {k: v.clone() for k, v in pool.items()}
-                      for s, pool in caches.items()}
-            lg, _ = T.decode_step(params, first[:, None], cfg, cloned,
+            lg, _ = T.decode_step(params, first[:, None], cfg, clone(),
                                   backend=backend, page_state=page_state)
             step_tok, _ = S.make_paged_decode_step(cfg, backend)(
-                params, first, {s: {k: v.clone() for k, v in pool.items()}
-                                for s, pool in caches.items()},
-                t["table"], t["lens"], t["active"])
+                params, first, clone(), t["table"], t["lens"], t["active"])
             logits[backend] = lg[:, -1]
             toks[backend] = step_tok
     finally:
         MD.moba_paged_decode, CM.moba_paged_route = decode, plain_route
     torch.cuda.synchronize()
-    routing_ok = (len(audit) == len(recorded) == 2 * MOBA_LAYERS
+    routing_ok = (len(audit) == len(recorded) == 2 * moba_layers
                   and all(ok for _, _, ok in audit))
     diff = float((logits["flash"] - logits["xla"]).abs().max())
-    ok = bool(torch.allclose(logits["flash"], logits["xla"], atol=2e-3,
-                             rtol=2e-3))
+    close = bool(torch.allclose(logits["flash"], logits["xla"], atol=2e-3,
+                                rtol=2e-3))
     finite = bool(torch.isfinite(logits["flash"]).all())
     same = bool(torch.equal(toks["flash"], toks["xla"])
                 and torch.equal(toks["flash"],
                                 logits["flash"].argmax(-1).to(torch.int32)))
-    emit({"phase": "logits", "dtype": "float32", "kv_dtype": kv_dtype,
-          "batch": b,
-          "kv_lens": lens.tolist(), "vocab": cfg.vocab_size,
-          "max_abs_diff": diff, "tol": 2e-3, "allclose": ok,
-          "finite": finite, "greedy_equal": same,
-          "routing_rows_differing_per_layer": [r for r, _, _ in audit],
-          "routing_max_gap": max((g for _, g, _ in audit), default=0.0),
-          "routing_near_ties_ok": routing_ok})
-    if not (ok and finite and same and routing_ok):
-        raise SystemExit(f"logits ({kv_dtype}): flash and xla decode steps "
+    return {"vocab": cfg.vocab_size, "max_abs_diff": diff, "tol": 2e-3,
+            "allclose": close, "finite": finite, "greedy_equal": same,
+            "routing_rows_differing_per_layer": [r for r, _, _ in audit],
+            "routing_max_gap": max((g for _, g, _ in audit), default=0.0),
+            "routing_near_ties_ok": routing_ok,
+            "ok": close and finite and same and routing_ok}
+
+
+def phase_logits(kv_dtype: str = "fp32", arch: str = "moba-340m",
+                 phase: str = "logits"):
+    """flash against xla for one decode step in fp32 after one shared
+    paged prefill (:func:`_decode_flash_vs_xla`)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    params, t, _, new_caches = _logits_case(cfg, kv_dtype)
+    first, caches = S.make_paged_prefill_step(cfg, "xla", chunked=True)(
+        params, t["tokens"], new_caches(), t["table"], t["kv0"], t["lens"],
+        t["slots"], t["active"])
+    rec = _decode_flash_vs_xla(cfg, params, caches, t, first)
+    emit({"phase": phase, "arch": cfg.name, "dtype": "float32",
+          "kv_dtype": kv_dtype, "batch": len(LOGITS_LENS),
+          "kv_lens": list(LOGITS_LENS), **rec})
+    del params, caches
+    torch.cuda.empty_cache()
+    if not rec["ok"]:
+        raise SystemExit(f"{phase} ({kv_dtype}): flash and xla decode steps "
                          f"disagree, or a routing difference is no "
                          f"near-tie")
+
+
+# ------------------------------------------------------- key-conv logits
+KEY_CONV_WIDTH = 3                          # the paper's kconv3
+GAP_TOL = 1e-3          # a top-2 logit gap at or below which a greedy
+#                         stream may part from another path's (fp32)
+
+
+def phase_key_conv_logits(chunk: int = 1000):
+    """moba-340m-kconv3 in fp32 (TF32 off), phase 4's sequences: a
+    chunked prefill (chunks of ``chunk``) whose rings must hold each
+    sequence's last W-1 raw keys bit for bit (recomputed one-shot from
+    the raw keys every chunk computed), pools within 2e-4 of a one-shot
+    prefill's, then :func:`_decode_flash_vs_xla` from the chunked caches;
+    then the swap check (:func:`_key_conv_swap`)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import key_conv as KC
+    from repro_torch.launch import steps as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(
+        get_config("moba-340m", key_conv_width=KEY_CONV_WIDTH),
+        dtype="float32")
+    groups = cfg.num_layers // len(cfg.layer_pattern)
+    params, t, tokens, new_caches = _logits_case(cfg)
+    step = S.make_paged_prefill_step(cfg, "flash", chunked=True)
+    _, one = step(params, t["tokens"], new_caches(), t["table"], t["kv0"],
+                  t["lens"], t["slots"], t["active"])
+    conv, raw, takes = KC.apply_key_conv_with_state, [], []
+
+    def recording(weights, k, state):
+        raw.append(k.clone())
+        return conv(weights, k, state)
+
+    lens = np.array(LOGITS_LENS, np.int32)
+    b = len(lens)
+    chunked = new_caches()
+    first = torch.zeros(b, dtype=torch.int32, device=dev)
+    KC.apply_key_conv_with_state = recording
+    try:
+        for s0 in range(0, int(lens.max()), chunk):
+            q = np.clip(lens - s0, 0, chunk).astype(np.int32)
+            kv = np.minimum(lens, s0).astype(np.int32)
+            dv = {k: torch.as_tensor(v, device=dev) for k, v in dict(
+                tok=np.ascontiguousarray(tokens[:, s0:s0 + chunk]), q=q,
+                kv=kv, active=q > 0, last=(q > 0) & (kv + q == lens)).items()}
+            out, chunked = step(params, dv["tok"], chunked, t["table"],
+                                dv["kv"], dv["q"], t["slots"], dv["active"])
+            first = torch.where(dv["last"], out, first)
+            takes.append(q)
+    finally:
+        KC.apply_key_conv_with_state = conv
+    torch.cuda.synchronize()
+    # the rings against the last W-1 of the raw keys the chunks computed
+    ring_equal = len(raw) == groups * len(takes)
+    for g in range(groups):
+        full = torch.zeros((b, cfg.num_kv_heads, int(lens.max()),
+                            cfg.resolved_head_dim), device=dev)
+        for c, q in enumerate(takes):
+            k = raw[c * groups + g]
+            for i in range(b):
+                full[i, :, c * chunk:c * chunk + q[i]] = k[i, :, :q[i]]
+        want = KC.key_conv_state_update(
+            torch.zeros_like(full[:, :, :KEY_CONV_WIDTH - 1]), full,
+            t["lens"])
+        ring_equal &= bool(torch.equal(
+            chunked["slot_1"]["key_conv_state"][g], want))
+    del raw
+    pools = {f"{sname}/{leaf}": float((x - one[sname][leaf]).abs().max())
+             for sname, pool in chunked.items() for leaf, x in pool.items()}
+    pools_close = all(
+        bool(torch.allclose(x, one[sname][leaf], atol=2e-4, rtol=2e-4))
+        for sname, pool in chunked.items() for leaf, x in pool.items()
+        if leaf in ("pages_k", "pages_v", "centroids"))
+    del one
+    torch.cuda.empty_cache()
+    rec = _decode_flash_vs_xla(cfg, params, chunked, t, first)
+    del params, chunked
+    torch.cuda.empty_cache()
+    swap = _key_conv_swap()
+    ok = ring_equal and pools_close and rec["ok"] and swap["ok"]
+    emit({"phase": "key_conv_logits", "arch": cfg.name, "dtype": "float32",
+          "batch": b, "kv_lens": list(LOGITS_LENS), "prefill_chunk": chunk,
+          "rings_equal_last_raw_keys": ring_equal,
+          "chunked_vs_one_shot_max_abs": pools,
+          "pools_within_2e-4": pools_close, "decode": rec, "swap": swap,
+          "ok": ok})
+    if not ok:
+        raise SystemExit("key_conv_logits: a ring is not the last raw "
+                         "keys, chunked and one-shot pools differ, flash "
+                         "and xla disagree, or the swap check failed")
+
+
+def _key_conv_swap(layers: int = 4, new_tokens: int = 32) -> dict:
+    """Swap preemption under key conv at full width, depth cut to
+    ``layers`` (fp32): four prompts just under a page boundary in a pool
+    of one page more than they take, so growing past it preempts by
+    swap.  Every restored ring row must equal its snapshot bit for bit,
+    and each greedy stream equal the stream of an engine with room for
+    all up to its first step whose top-2 logit gap (teacher-forced,
+    ``reference``) is at most :data:`GAP_TOL`."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import paged_cache as PC
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = dataclasses.replace(
+        get_config("moba-340m", key_conv_width=KEY_CONV_WIDTH),
+        dtype="float32", num_layers=layers)
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(2), cfg)
+    rng = np.random.default_rng(2)
+    lens = (1020, 1010, 1015, 1000)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in lens]
+    scatter, restored = PC.scatter_ring_rows, []
+
+    def checked(caches, slot, data):
+        caches = scatter(caches, slot, data)
+        restored.append(all(
+            torch.equal(caches[s][leaf][:, slot].cpu(), x)
+            for (s, leaf), x in data.items()))
+        return caches
+
+    outs, stats = {}, {}
+    for name, pages in (("roomy", 0), ("tight", 33)):
+        eng = Engine(cfg, params, EngineConfig(
+            max_seqs=4, max_seq_len=1152, num_pages=pages,
+            attn_backend="flash"), device="cuda")
+        reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        PC.scatter_ring_rows = checked
+        try:
+            eng.run()
+        finally:
+            PC.scatter_ring_rows = scatter
+        outs[name] = [list(r.out) for r in reqs]
+        stats[name] = {k: eng.stats[k] for k in (
+            "preemptions", "swap_saves", "swap_restores", "decode_steps")}
+        del eng
+        gc.collect()               # as in phase_serve
+    # teacher-forced top-2 gaps along the roomy streams
+    first_tie, ties, diverged, explained = [], 0, 0, True
+    for p, want, got in zip(prompts, outs["roomy"], outs["tight"]):
+        seq = torch.as_tensor(np.concatenate([p, want[:-1]]),
+                              device="cuda")[None]
+        with torch.no_grad():
+            lg, _, _ = T.lm_apply(params, seq, cfg, backend="reference")
+        top2 = lg[0, len(p) - 1:].topk(2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        tie = next((j for j, g in enumerate(gaps) if g <= GAP_TOL), None)
+        ties += int((gaps <= GAP_TOL).sum())
+        first_tie.append(tie)
+        d = next((j for j, (a, c) in enumerate(zip(want, got)) if a != c),
+                 None)
+        if d is not None:
+            diverged += 1
+            explained &= tie is not None and tie <= d
+    ok = (stats["tight"]["swap_restores"] > 0 and bool(restored)
+          and all(restored) and stats["roomy"]["preemptions"] == 0
+          and explained)
+    return {"num_layers": layers, "prompt_lens": list(lens),
+            "new_tokens": new_tokens, "stats": stats,
+            "ring_restores_checked": len(restored),
+            "ring_restores_equal": sum(restored),
+            "streams_equal": sum(a == c for a, c in zip(outs["roomy"],
+                                                       outs["tight"])),
+            "streams_diverged": diverged, "near_tie_steps": ties,
+            "first_near_tie_step": first_tie, "gap_tol": GAP_TOL, "ok": ok}
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1395,9 +1669,10 @@ def _train_run(backend: str, steps: int = TRAIN_STEPS, **moba):
     """moba-340m at full width and depth (bf16, random weights from a
     seeded torch.Generator), batch 1, seq 8192: ``steps`` steps of
     ``make_train_step`` with remat on ``backend``, from the same weights
-    and batches on every call; ``moba`` (block_size, top_k) overrides the
-    config's MoBA settings.  Returns the state for one more step, each
-    step's loss and seconds (each loss read waits for its step)."""
+    and batches on every call; ``moba`` (block_size, top_k,
+    key_conv_width) overrides the config's MoBA settings.  Returns the
+    state for one more step, each step's loss and seconds (each loss
+    read waits for its step)."""
     import torch
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -1475,7 +1750,7 @@ def phase_train():
         raise SystemExit(f"train: flash and xla losses differ by "
                          f"{loss_gap} > {TRAIN_LOSS_TOL}: {losses} / "
                          f"{xla_losses}")
-    return launches
+    return launches, rec
 
 
 def phase_train_small_blocks(steps: int = 3):
@@ -1513,8 +1788,133 @@ def phase_train_small_blocks(steps: int = 3):
     return rec
 
 
+def phase_train_key_conv(train_rec: dict, steps: int = 3):
+    """moba-340m-kconv3 at full width and depth, phase 6's batches, 3
+    steps on ``flash`` with remat (counts zeroed just before, read just
+    after): finite losses, phase 6's launch counts, every MoBA layer's
+    ``key_conv`` gradient finite and nonzero in every step, the conv
+    weights moved; step ms, tokens/s and peak memory beside phase 6's.
+    Then the same steps on ``xla``: each loss within TRAIN_LOSS_TOL."""
+    import torch
+    from repro_torch.optim import adamw
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    update, grads, start = adamw.adamw_update, [], {}
+
+    def recording(params, g, state, tcfg, lr_fn=None):
+        """The step's own update, keeping the conv leaves' gradients and
+        (on the first step) weights."""
+        if not start:
+            start.update({p: x.detach().clone() for p, x in
+                          adamw.tree_leaves(params) if p.endswith("key_conv")})
+        grads.append({p: x.detach().clone() for p, x in adamw.tree_leaves(g)
+                      if p.endswith("key_conv")})
+        return update(params, g, state, tcfg, lr_fn)
+
+    adamw.adamw_update = recording
+    try:
+        _zero_counts()
+        cfg, (_, params, _, _), losses, step_s = _train_run(
+            "flash", steps, key_conv_width=KEY_CONV_WIDTH)
+        launches = _counts()
+    finally:
+        adamw.adamw_update = update
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    leaves = dict(adamw.tree_leaves(params))
+    moved = {p: [float(x) for x in
+                 (leaves[p].detach() - w).flatten(1).abs().amax(1)]
+             for p, w in start.items()}
+    grad_max = [{p: [float(x) for x in g.flatten(1).abs().amax(1)]
+                 for p, g in step.items()} for step in grads]
+    grads_ok = bool(grads) and all(
+        torch.isfinite(g).all() and (g.flatten(1).abs().amax(1) > 0).all()
+        for step in grads for g in step.values())
+    del params, leaves, start, grads
+    torch.cuda.empty_cache()
+    _, _, xla_losses, xla_s = _train_run("xla", steps,
+                                         key_conv_width=KEY_CONV_WIDTH)
+    torch.cuda.empty_cache()
+    loss_gap = max(abs(a - b) for a, b in zip(losses, xla_losses))
+    steady = float(np.median(step_s[1:]))
+    want = {"block_centroids": 2 * MOBA_LAYERS, "flash_topk": 2 * MOBA_LAYERS,
+            "moba_fwd": 2 * MOBA_LAYERS, "moba_bwd": MOBA_LAYERS}
+    rec = {"phase": "train_key_conv", "arch": cfg.name, "dtype": cfg.dtype,
+           "batch": 1, "seq": TRAIN_SEQ, "remat": True, "backend": "flash",
+           "losses": losses, "step_ms": [t * 1e3 for t in step_s],
+           "median_step_ms_steps_2_3": steady * 1e3,
+           "tokens_per_s": TRAIN_SEQ / steady, "peak_mem_gib": peak,
+           "train_phase": {k: train_rec[k] for k in (
+               "median_step_ms_steps_2_4", "tokens_per_s", "peak_mem_gib")},
+           "launches": launches, "expected_per_step": want,
+           "key_conv_grad_max_per_layer": grad_max,
+           "key_conv_grads_finite_nonzero": grads_ok,
+           "key_conv_moved_per_layer": moved,
+           "xla_losses": xla_losses, "xla_step_ms": [t * 1e3 for t in xla_s],
+           "flash_vs_xla_max_loss_gap": loss_gap,
+           "flash_vs_xla_loss_tol": TRAIN_LOSS_TOL,
+           "conv_alone": _time_key_conv()}
+    emit(rec)
+    if not all(np.isfinite(losses + xla_losses)):
+        raise SystemExit(f"train_key_conv: a loss is not finite: {losses} / "
+                         f"{xla_losses}")
+    for k, per_step in want.items():
+        if launches[k] != per_step * steps:
+            raise SystemExit(f"train_key_conv: {k} launched {launches[k]} "
+                             f"times in {steps} steps, expected {per_step} "
+                             f"per step")
+    if not grads_ok or not moved or not all(
+            min(v) > 0 for v in moved.values()):
+        raise SystemExit("train_key_conv: a key_conv gradient is not finite "
+                         "or is zero, or the conv weights did not move")
+    if loss_gap > TRAIN_LOSS_TOL:
+        raise SystemExit(f"train_key_conv: flash and xla losses differ by "
+                         f"{loss_gap} > {TRAIN_LOSS_TOL}: {losses} / "
+                         f"{xla_losses}")
+    return launches
+
+
+def _time_key_conv() -> dict:
+    """The conv alone at its main-path shapes, as ``call_cost``s: one
+    MoBA layer's training forward and backward (k 1 x 16 x 8192 x 64
+    bf16, weights fp32; a step runs the forward twice under remat and
+    the backward once) and one decode layer's conv and ring write (k 8 x
+    16 x 1 x 64, the ring 8 x 16 x 2 x 64 bf16: ``apply_key_conv_decode``
+    then the ``where``/``copy_`` of ``_paged_attend``)."""
+    import torch
+    from repro_torch.core import key_conv as KC
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    w = KC.init_key_conv(gen, KEY_CONV_WIDTH, 16, 64).requires_grad_()
+    k = torch.randn((1, 16, TRAIN_SEQ, 64), generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    dk = torch.randn_like(k)
+    ring = torch.randn((8, 16, KEY_CONV_WIDTH - 1, 64), generator=gen,
+                       device="cuda", dtype=torch.bfloat16)
+    k_new = torch.randn((8, 16, 1, 64), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+    active = torch.ones(8, dtype=torch.bool, device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            KC.apply_key_conv(w, k)
+
+    def forward_backward():
+        torch.autograd.grad(KC.apply_key_conv(w, k), (k, w), dk)
+
+    def decode():
+        with torch.no_grad():
+            _, stepped = KC.apply_key_conv_decode(w, k_new, ring)
+            ring.copy_(torch.where(active[:, None, None, None], stepped,
+                                   ring))
+
+    return {"train_forward": call_cost(forward, flush),
+            "train_forward_backward": call_cost(forward_backward, flush),
+            "decode_layer": call_cost(decode, flush)}
+
+
 # ------------------------------------------------------------------ phase 7
-def phase_train_grads(block_size: int = 128, top_k: int = 8):
+def phase_train_grads(block_size: int = 128, top_k: int = 8,
+                      key_conv_width: int = 0):
     """flash against xla through the whole model in fp32.  The xla run
     replays the flash run's block selections layer by layer, so both
     sides compute the same function; each replayed selection is held to
@@ -1531,8 +1931,9 @@ def phase_train_grads(block_size: int = 128, top_k: int = 8):
     from repro_torch.optim import adamw
 
     seq = 2048
-    cfg = dataclasses.replace(get_config("moba-340m", block_size=block_size,
-                                         top_k=top_k), dtype="float32")
+    cfg = dataclasses.replace(get_config(
+        "moba-340m", block_size=block_size, top_k=top_k,
+        key_conv_width=key_conv_width), dtype="float32")
     params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
     tokens = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                     global_batch=1, seed=1)).batch_at(0)
@@ -1579,11 +1980,14 @@ def phase_train_grads(block_size: int = 128, top_k: int = 8):
     loss_rel = abs(out["flash"][0] - out["xla"][0]) / abs(out["xla"][0])
     routing_ok = len(audit) == MOBA_LAYERS and all(ok for _, _, ok in audit)
     ok = loss_rel <= 2e-4 and rels[worst] <= 5e-3 and routing_ok
-    emit({"phase": "train_grads", "dtype": "float32", "seq": seq,
-          "block_size": block_size, "top_k": top_k,
+    emit({"phase": "train_grads", "arch": cfg.name, "dtype": "float32",
+          "seq": seq, "block_size": block_size, "top_k": top_k,
+          "key_conv_width": key_conv_width,
           "loss_flash": out["flash"][0], "loss_xla": out["xla"][0],
           "loss_rel_err": loss_rel, "loss_tol": 2e-4,
           "worst_leaf": worst, "worst_leaf_rel_err": rels[worst],
+          "key_conv_leaf_rel_err": {n: r for n, r in rels.items()
+                                    if n.endswith("key_conv")},
           "grad_tol": 5e-3, "leaves": len(rels),
           "routing_rows_differing_per_layer": [r for r, _, _ in audit],
           "routing_max_gap": max((g for _, g, _ in audit), default=0.0),
@@ -1911,21 +2315,53 @@ def main() -> int:
     sys.path.insert(0, SRC)
     if args.ab:
         return ab(args.ab)
-    smi = phase_env()
-    timing = phase_kernel()
+    t_start, seconds = time.perf_counter(), {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    smi = timed("env", phase_env)
+    timing = timed("kernel", phase_kernel)
     launches, kernel_launches = {}, {}
-    launches["fp32"], kernel_launches["fp32"], bf16_bytes = phase_serve()
+    launches["fp32"], kernel_launches["fp32"], bf16_bytes, _ = timed(
+        "serve", phase_serve)
     for kv_dtype in KV_DTYPES[1:]:
-        launches[kv_dtype], kernel_launches[kv_dtype], _ = phase_serve(
-            kv_dtype, QUANT_NEW_TOKENS, bf16_bytes)
+        launches[kv_dtype], kernel_launches[kv_dtype], _, _ = timed(
+            "serve_quantized", phase_serve, kv_dtype, QUANT_NEW_TOKENS,
+            bf16_bytes)
+    # key conv and qwen3-0.6b: the decode calls of each path (counts
+    # zeroed inside phase_serve just before its run, read just after)
+    decode_also = {}
+    for kv_dtype, key in (("fp32", "serve_key_conv"),
+                          ("int8", "serve_key_conv_int8")):
+        decode_also[key] = timed(
+            "serve_key_conv", phase_serve, kv_dtype, QUANT_NEW_TOKENS,
+            key_conv_width=KEY_CONV_WIDTH, prefill_chunk=1000,
+            phase="serve_key_conv")[:2]
     for kv_dtype in KV_DTYPES:
-        phase_logits(kv_dtype)
-    train_timing, train_err = phase_train_kernels()
-    train_launches = phase_train()
-    small_blocks = phase_train_small_blocks()
-    phase_train_grads()
-    phase_train_grads(block_size=32, top_k=32)
-    swa_launches, swa_timing = phase_swa()
+        timed("logits", phase_logits, kv_dtype)
+    timed("key_conv_logits", phase_key_conv_logits)
+    decode_also["serve_qwen3"] = timed(
+        "serve_qwen3", phase_serve, arch="qwen3-0.6b", prompts=4,
+        new_tokens=16, phase="serve_qwen3")[:2]
+    timed("serve_qwen3", phase_logits, arch="qwen3-0.6b",
+          phase="serve_qwen3_logits")
+    train_timing, train_err = timed("train_kernels", phase_train_kernels)
+    train_launches, train_rec = timed("train", phase_train)
+    small_blocks = timed("train_small_blocks", phase_train_small_blocks)
+    train_also = {"train_small_blocks": small_blocks["launches"],
+                  "train_key_conv": timed("train_key_conv",
+                                          phase_train_key_conv, train_rec)}
+    timed("train_grads", phase_train_grads)
+    timed("train_grads", phase_train_grads, block_size=32, top_k=32)
+    timed("train_key_conv", phase_train_grads,
+          key_conv_width=KEY_CONV_WIDTH)
+    swa_launches, swa_timing = timed("swa", phase_swa)
+    emit({"phase_seconds": seconds,
+          "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     kernels = []
     for kv_dtype in KV_DTYPES:
@@ -1939,6 +2375,11 @@ def main() -> int:
             "launches_are": "decode calls, each launching the route, "
                             "attention and merge kernels",
             "kernel_launches": kernel_launches[kv_dtype],
+            **({"launches_also": {
+                k: {"calls": c, "kernel_launches": n}
+                for k, (c, n) in decode_also.items()
+                if (k == "serve_key_conv_int8") == (kv_dtype == "int8")}}
+               if kv_dtype in ("fp32", "int8") else {}),
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "device_ms": t["device_ms"],
             "loop_us": t["loop_us"], "kernel_only_ms": t["kernel_only_ms"],
@@ -1951,6 +2392,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": train_launches[name],
+            "launches_also": {k: v[name] for k, v in train_also.items()},
             "max_abs_err": train_err[name], "ms": t["ms"],
             "device_ms": t["device_ms"], "kernel_only_ms": t["kernel_only_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -1963,7 +2405,6 @@ def main() -> int:
                     for k in ("ms", "kernel_only_ms", "plain_ms",
                               "bound_ms", "bound_by", "topk_yardstick_ms",
                               "shape")},
-                "small_blocks_launches": small_blocks["launches"][name],
                 "alone_at": {
                     g: {k: r[k] for k in ("kernel_only_ms", "bound_ms",
                                           "bound_by", "shape")}

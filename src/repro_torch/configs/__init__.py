@@ -1,7 +1,9 @@
 """Architecture registry: ``--arch <id>`` ids → config modules.
 
-The port serves the paper's own model; the other architectures of
-``repro.configs`` join as their layer kinds are ported (ROADMAP.md).
+The port runs the paper's own models (moba-340m, moba-1b) and the
+dense-family architectures; the other families of ``repro.configs``
+(MoE, SSM, encoder-decoder, vision) join as their layer kinds are
+ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -13,7 +15,12 @@ from repro_torch.configs.base import (  # noqa: F401  (public re-exports)
     TrainConfig, with_moba)
 
 ARCHS = {
+    "qwen3-0.6b": "qwen3_0_6b",
+    "qwen3-14b": "qwen3_14b",
+    "codeqwen1.5-7b": "codeqwen1_5_7b",
+    "internlm2-1.8b": "internlm2_1_8b",
     "moba-340m": "moba_340m",
+    "moba-1b": "moba_1b",
 }
 
 

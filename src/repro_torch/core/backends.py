@@ -53,6 +53,12 @@ class Capabilities:
     cache-free (training) path and 'paged' for the serving engine's
     block-table pools.
 
+    ``key_conv`` lists the cache protocols under which the backend can
+    consume key-conv'd keys.  The conv itself runs in
+    ``models/layers.py`` before keys reach any backend; paged caches
+    also need the pool's per-slot raw-key ring, so a backend declares
+    the protocols whose conv-state plumbing it is validated against.
+
     ``kv_dtypes`` lists the paged-pool storage dtypes the backend's
     paged paths are validated against (``core/quantization.py``):
     ``int8``/``fp8`` pools carry per-page scale leaves the backend must
@@ -62,12 +68,15 @@ class Capabilities:
     kinds: Tuple[str, ...] = KINDS
     phases: Tuple[str, ...] = PHASES
     caches: Tuple[str, ...] = CACHES
+    key_conv: Tuple[str, ...] = CACHES
     kv_dtypes: Tuple[str, ...] = ("fp32",)
 
     def supports(self, kind: str, phase: str, cache: str = "dense",
-                 kv_dtype: str = "fp32") -> bool:
+                 key_conv: bool = False, kv_dtype: str = "fp32") -> bool:
         return (kind in self.kinds and phase in self.phases
-                and cache in self.caches and kv_dtype in self.kv_dtypes)
+                and cache in self.caches
+                and (not key_conv or cache in self.key_conv)
+                and kv_dtype in self.kv_dtypes)
 
 
 class AttentionBackend:
@@ -294,18 +303,21 @@ def resolve_backend_spec(spec, *, default: str = "reference") -> str:
 
 
 def resolve(name: str, *, kind: str, phase: str, cache: str = "dense",
-            kv_dtype: str = "fp32") -> AttentionBackend:
+            key_conv: bool = False, kv_dtype: str = "fp32"
+            ) -> AttentionBackend:
     """Name + capability query: the single entry point call sites use.
+    ``key_conv=True`` demands key-conv support under ``cache``;
     ``kv_dtype`` of ``int8``/``fp8`` demands quantized-pool support
     (per-page scale dequantization in every paged path)."""
     be = get(name)
-    if not be.capabilities.supports(kind, phase, cache, kv_dtype):
+    if not be.capabilities.supports(kind, phase, cache, key_conv, kv_dtype):
         able = [b.name for b in _REGISTRY.values()
-                if b.capabilities.supports(kind, phase, cache, kv_dtype)]
+                if b.capabilities.supports(kind, phase, cache, key_conv,
+                                           kv_dtype)]
         raise BackendCapabilityError(
             f"backend {be.name!r} does not support kind={kind!r} "
-            f"phase={phase!r} cache={cache!r} kv_dtype={kv_dtype!r}; "
-            f"backends that do: {able}")
+            f"phase={phase!r} cache={cache!r} key_conv={key_conv} "
+            f"kv_dtype={kv_dtype!r}; backends that do: {able}")
     return be
 
 

@@ -9,14 +9,21 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch moba-340m \
       --seq 4096 --batch 1 --attn-backend flash
 
-The reference's checkpoint/auto-resume (``--ckpt-dir``, ``--resume``),
-gradient accumulation (``--microbatch``) and key-convolution training
-(``--key-conv``) are not ported yet: they raise
+  # the paper's key convolution (kconv3) on the MoBA layers:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch moba-340m \
+      --seq 4096 --batch 1 --attn-backend flash --key-conv 3
+
+``--key-conv W`` also applies to ``--smoke`` configs with MoBA layers
+(the JAX package's ``launch/train.py`` drops it there), so a CPU smoke
+run trains the conv weights.  The reference's checkpoint/auto-resume
+(``--ckpt-dir``, ``--resume``) and gradient accumulation
+(``--microbatch``) are not ported yet: they raise
 ``UnsupportedFeatureError`` (ROADMAP.md §A).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -35,8 +42,7 @@ from repro_torch.serving.scheduler import (ServingError,
                                            UnsupportedFeatureError)
 
 
-def _check_scope(ckpt_dir: str, resume: str, microbatch: int,
-                 key_conv_width: int) -> None:
+def _check_scope(ckpt_dir: str, resume: str, microbatch: int) -> None:
     if ckpt_dir or resume != "none":
         raise UnsupportedFeatureError(
             "ckpt_dir/resume", "checkpointing (the reference's "
@@ -46,10 +52,22 @@ def _check_scope(ckpt_dir: str, resume: str, microbatch: int,
         raise UnsupportedFeatureError(
             "microbatch", "gradient accumulation is not ported yet; see "
                           "ROADMAP.md §A")
-    if key_conv_width:
+
+
+def _smoke_config(arch: str, key_conv_width: int):
+    """``arch``'s smoke config, with key conv of ``key_conv_width`` on its
+    MoBA layers when nonzero."""
+    cfg = configs.get_smoke_config(arch)
+    if not key_conv_width:
+        return cfg
+    a = cfg.attention
+    if a.moba is None:
         raise UnsupportedFeatureError(
-            "key_conv_width", "key-convolution training is not ported yet; "
-                              "see ROADMAP.md §A")
+            "key_conv_width", f"{arch}'s smoke config has no MoBA layers "
+                              f"to convolve keys for")
+    moba = dataclasses.replace(a.moba, key_conv_width=key_conv_width)
+    return dataclasses.replace(cfg, attention=dataclasses.replace(
+        a, moba=moba))
 
 
 def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 512,
@@ -63,14 +81,16 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 512,
     """Train ``arch`` on synthetic data for ``steps`` steps; returns
     (params, losses).  ``device`` defaults to the card and raises without
     one; pass "cpu" for the plain PyTorch paths."""
-    _check_scope(ckpt_dir, resume, microbatch, key_conv_width)
+    _check_scope(ckpt_dir, resume, microbatch)
     dev = resolve_device(device)
     kw = {}
     if block_size:
         kw["block_size"] = block_size
     if top_k:
         kw["top_k"] = top_k
-    cfg = (configs.get_smoke_config(arch) if smoke
+    if key_conv_width:
+        kw["key_conv_width"] = key_conv_width
+    cfg = (_smoke_config(arch, key_conv_width) if smoke
            else configs.get_config(arch, **kw))
     horizon = total_steps_override or steps
     tcfg = TrainConfig(global_batch_size=batch, seq_len=seq,
@@ -135,7 +155,8 @@ def main(argv=None):
     ap.add_argument("--block-size", type=int, default=0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--key-conv", type=int, default=0,
-                    help="not ported yet: a nonzero width raises")
+                    help="key-conv width on the MoBA layers (0 = off; the "
+                         "paper's kconv3/kconv5)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)

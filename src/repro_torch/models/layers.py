@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import attention_dispatch
+from repro_torch.core.key_conv import apply_key_conv, init_key_conv
 
 
 def wcast(w: torch.Tensor, dt) -> torch.Tensor:
@@ -87,8 +88,16 @@ def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------- attention
-def attention_shapes(cfg: ModelConfig) -> dict:
-    """Leaf shapes of one attention layer's params (``init_attention``)."""
+def _key_conv_width(cfg: ModelConfig, kind: str) -> int:
+    """Key-conv width of a ``kind`` slot: MoBA slots of kconv configs
+    only."""
+    m = cfg.attention.moba
+    return m.key_conv_width if kind == "moba" and m is not None else 0
+
+
+def attention_shapes(cfg: ModelConfig, kind: str) -> dict:
+    """Leaf shapes of one ``kind`` attention layer's params
+    (``init_attention``)."""
     d, h, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     dh = cfg.resolved_head_dim
     shapes = {"wq": (d, h * dh), "wk": (d, hkv * dh), "wv": (d, hkv * dh),
@@ -96,12 +105,20 @@ def attention_shapes(cfg: ModelConfig) -> dict:
     if cfg.attention.qk_norm:
         shapes["q_norm_scale"] = (dh,)
         shapes["k_norm_scale"] = (dh,)
+    width = _key_conv_width(cfg, kind)
+    if width:
+        shapes["key_conv"] = (width, hkv, dh)
     return shapes
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig,
+def init_attention(gen: torch.Generator, cfg: ModelConfig, kind: str,
                    lead: Tuple[int, ...] = ()) -> dict:
-    return _init_leaves(gen, attention_shapes(cfg), lead)
+    shapes = attention_shapes(cfg, kind)
+    conv = shapes.pop("key_conv", None)
+    p = _init_leaves(gen, shapes, lead)
+    if conv is not None:
+        p["key_conv"] = init_key_conv(gen, *conv, lead=lead)
+    return p
 
 
 def _split_heads(x, n_heads, dh):
@@ -151,13 +168,16 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         q = apply_rope(q, positions, a.rope_theta)
         k = apply_rope(k, positions, a.rope_theta)
 
+    conv_w = p.get("key_conv") if kind == "moba" else None
     if cache is not None:
         if "pages_k" not in cache:
             raise ValueError("only paged caches are ported; the dense "
                              "per-sequence cache comes later (ROADMAP.md)")
         o, cache = _paged_attend(q, k, v, cache, page_state, cfg, kind,
-                                 positions, backend)
+                                 positions, backend, conv_w)
     else:
+        if conv_w is not None:     # routing and attention see conv'd keys
+            k = apply_key_conv(conv_w, k)
         o = attention_dispatch(a, kind, q, k, v, q_positions=positions,
                                backend=backend)
     o = o.permute(0, 2, 1, 3).reshape(b, n, h * dh)
@@ -165,15 +185,25 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
 
 
 def _paged_attend(q, k, v, cache, page_state, cfg: ModelConfig, kind: str,
-                  positions, backend: str):
+                  positions, backend: str, conv_w=None):
     """Paged-cache attention: append new K/V through the block table, then
     attend via the backend resolved for (kind, phase, paged).  MoBA decode
     routes on the per-page centroid cache and reads only the selected
     pages; swa decode gathers only the window's pages.  Prefill is ragged
     (right-padded rows of ``q_len`` valid tokens) and backend-shared;
     ``page_state['chunked']`` selects the chunk-aware prefill that
-    attends through the block table to earlier chunks."""
+    attends through the block table to earlier chunks.
+
+    Key conv (``conv_w``): keys are convolved before the page write, so
+    centroids and attention see convolved keys.  The raw-key left
+    context lives in the pool's per-slot ring ``key_conv_state``:
+    decode rows are the slots, prefill rows address it through
+    ``page_state['slots']``.  Fresh rows (``kv_len`` 0) and padding rows
+    read a zero state, which makes a recycled slot's old ring harmless.
+    The ring is updated in place: inactive decode slots keep theirs, and
+    prefill writes only active rows with a slot, with no host sync."""
     from repro_torch.core import backends as B
+    from repro_torch.core import key_conv as KC
     from repro_torch.serving import paged_cache as PC
 
     if page_state is None:
@@ -183,15 +213,41 @@ def _paged_attend(q, k, v, cache, page_state, cfg: ModelConfig, kind: str,
     bt = page_state["block_table"]
     kvl = page_state["kv_len"]
     q_len = page_state["q_len"]
+    active = page_state["active"]
     post_len = kvl + q_len                     # lengths after this step
+    needs_conv = conv_w is not None
+    if needs_conv and "key_conv_state" not in cache:
+        from repro_torch.serving.scheduler import UnsupportedFeatureError
+        raise UnsupportedFeatureError(
+            "key_conv", "paged pool lacks the per-slot raw-key ring; "
+                        "build caches with init_paged_caches(..., "
+                        "max_seqs > 0) for key-conv configs")
     if n == 1:                                 # decode: one token per seq
-        be = B.resolve(backend, kind=kind, phase="decode", cache="paged")
-        PC.paged_append_decode(cache, bt, kvl, page_state["active"], k, v)
+        be = B.resolve(backend, kind=kind, phase="decode", cache="paged",
+                       key_conv=needs_conv)
+        if needs_conv:
+            ring = cache["key_conv_state"]     # decode rows ARE the slots
+            k, stepped = KC.apply_key_conv_decode(conv_w, k, ring)
+            ring.copy_(torch.where(active[:, None, None, None], stepped,
+                                   ring))
+        PC.paged_append_decode(cache, bt, kvl, active, k, v)
         o = be.paged_decode(a, kind, q, cache, bt, post_len,
                             positions=positions)
         return o, cache
     # ragged prefill (fresh one-shot, or one chunk of a chunked prompt)
-    be = B.resolve(backend, kind=kind, phase="prefill", cache="paged")
+    be = B.resolve(backend, kind=kind, phase="prefill", cache="paged",
+                   key_conv=needs_conv)
+    if needs_conv:
+        ring = cache["key_conv_state"]
+        slots = page_state["slots"]            # (B,) row -> sequence slot
+        state = ring[slots.clamp(min=0).long()]
+        fresh = (kvl == 0) | (slots < 0)
+        state = torch.where(fresh[:, None, None, None],
+                            torch.zeros_like(state), state)
+        k_raw = k
+        k = KC.apply_key_conv_with_state(conv_w, k, state)
+        PC.write_ring_rows(cache, slots, active & (slots >= 0),
+                           KC.key_conv_state_update(state, k_raw, q_len))
     PC.paged_append_prefill(cache, bt, q_len, k, v, kv_len=kvl)
     if page_state.get("chunked"):
         o = be.paged_chunk_prefill(a, kind, q, cache, bt, kvl, q_len)

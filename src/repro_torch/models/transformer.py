@@ -46,15 +46,15 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
                             "final_norm": (d,), "blocks": {}}
     if not cfg.tie_embeddings:
         tree["lm_head"] = (d, cfg.vocab_size)
-    block = {"norm1": (d,), "attn": L.attention_shapes(cfg), "norm2": (d,),
-             "mlp": L.mlp_shapes(d, cfg.d_ff)}
 
     def stack(t):
         return ({k: stack(v) for k, v in t.items()} if isinstance(t, dict)
                 else (n_groups,) + t)
 
-    for i, _ in enumerate(pattern):
-        tree["blocks"][f"slot_{i}"] = stack(block)
+    for i, kind in enumerate(pattern):
+        tree["blocks"][f"slot_{i}"] = stack({
+            "norm1": (d,), "attn": L.attention_shapes(cfg, kind),
+            "norm2": (d,), "mlp": L.mlp_shapes(d, cfg.d_ff)})
     return tree
 
 
@@ -75,10 +75,10 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
         params["lm_head"] = torch.randn((d, cfg.vocab_size), generator=gen,
                                         device=dev) * d ** -0.5
     lead = (n_groups,)
-    for i, _ in enumerate(pattern):
+    for i, kind in enumerate(pattern):
         params["blocks"][f"slot_{i}"] = {
             "norm1": torch.ones(lead + (d,), device=dev),
-            "attn": L.init_attention(gen, cfg, lead),
+            "attn": L.init_attention(gen, cfg, kind, lead),
             "norm2": torch.ones(lead + (d,), device=dev),
             "mlp": L.init_mlp(gen, d, cfg.d_ff, lead),
         }
@@ -169,16 +169,18 @@ def lm_loss(params, batch: dict, cfg: ModelConfig,
 # -------------------------------------------------------------------- cache
 def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
                       dtype=torch.bfloat16, device="cuda",
-                      kv_dtype: str = "fp32") -> dict:
+                      kv_dtype: str = "fp32", max_seqs: int = 0) -> dict:
     """Stacked paged caches ``{"slot_i": pool}``, each pool leaf with the
-    leading layer-group axis of the params."""
+    leading layer-group axis of the params.  ``max_seqs`` sizes the
+    per-slot key-conv rings of MoBA slots of key-conv models (0 skips
+    them)."""
     from repro_torch.serving import paged_cache as PC
 
     pattern, n_groups = _block_kinds(cfg)
     return {f"slot_{i}": PC.init_page_pool(
                 cfg, num_pages, page_size, with_centroids=(kind == "moba"),
                 dtype=dtype, device=device, kv_dtype=kv_dtype,
-                groups=n_groups)
+                groups=n_groups, max_seqs=max_seqs)
             for i, kind in enumerate(pattern)}
 
 

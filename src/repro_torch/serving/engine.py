@@ -26,12 +26,12 @@ eagerly and write the pools in place.  Host arrays reach the card
 through pinned buffers with ``non_blocking`` copies, so uploading a
 step's tables does not wait for the steps already enqueued.
 
-Supported: attention-only dense-family layer patterns, whole-prompt and
-chunked prefill, preemption by recompute and by host swap,
-dispatch-ahead, unquantized and int8/fp8 pools, and static routing.
-The reference's prefix cache, adaptive routing, key-conv and sharded
-engine raise :class:`UnsupportedFeatureError` at construction until
-their slices land (ROADMAP.md).
+Supported: attention-only dense-family layer patterns, key convolution
+(per-slot raw-key rings), whole-prompt and chunked prefill, preemption
+by recompute and by host swap, dispatch-ahead, unquantized and int8/fp8
+pools, and static routing.  The reference's prefix cache, adaptive
+routing and sharded engine raise :class:`UnsupportedFeatureError` at
+construction until their slices land (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -76,15 +76,25 @@ def resolve_engine_backend(spec: str, default: str) -> str:
         raise UnsupportedFeatureError("attn_backend", str(e)) from e
 
 
+def needs_key_conv(cfg: ModelConfig) -> bool:
+    """Whether serving ``cfg`` exercises the key-conv rings."""
+    a = cfg.attention
+    return bool(a.moba is not None and a.moba.key_conv_width
+                and any(k == "moba" for k in cfg.layer_pattern))
+
+
 def admission_capability_check(cfg: ModelConfig, backend: str,
                                kv_dtype: str = "fp32") -> None:
     """Every layer kind must resolve for both paged phases (with
-    quantized-pool support when ``kv_dtype`` is int8/fp8), or the
-    request stream would die inside a step."""
+    key-conv where the config carries it, quantized-pool support when
+    ``kv_dtype`` is int8/fp8), or the request stream would die inside a
+    step."""
+    conv = needs_key_conv(cfg)
     for kind in sorted(set(cfg.layer_pattern)):
         for phase in ("prefill", "decode"):
             try:
                 B.resolve(backend, kind=kind, phase=phase, cache="paged",
+                          key_conv=conv and kind == "moba",
                           kv_dtype=kv_dtype)
             except B.BackendCapabilityError as e:
                 raise UnsupportedFeatureError("attn_backend",
@@ -159,12 +169,14 @@ def record_prefill(reqs: List[Request], takes: List[int], tok: np.ndarray,
 class HostSwapStore:
     """Host-memory backing store for preempted sequences.
 
-    ``save`` snapshots a victim's written pages (K/V, centroids) into
-    ``req.swap_data`` *before* the scheduler frees them; total residency
-    is capped at ``capacity_bytes`` — an over-cap save returns False and
-    the scheduler falls back to recompute preemption.  On re-admission
+    ``save`` snapshots a victim's written pages (K/V, centroids, scales)
+    plus its key-conv ring row into ``req.swap_data`` *before* the
+    scheduler frees them; total residency is capped at
+    ``capacity_bytes`` — an over-cap save returns False and the
+    scheduler falls back to recompute preemption.  On re-admission
     :func:`drain_cache_ops` scatters the snapshot into the newly reserved
-    pages, restores ``cache_len``, and frees the store bytes."""
+    pages and the request's new slot, restores ``cache_len``, and frees
+    the store bytes."""
 
     def __init__(self, engine, capacity_bytes: int):
         self._engine = engine
@@ -173,12 +185,13 @@ class HostSwapStore:
 
     def save(self, req: Request, pages: List[int], slot: int) -> bool:
         data = PC.gather_pages_host(self._engine.caches, pages)
-        nbytes = sum(v.nbytes for v in data.values())
+        ring = PC.gather_ring_rows(self._engine.caches, slot)
+        nbytes = sum(v.nbytes for v in (*data.values(), *ring.values()))
         if self.used + nbytes > self.capacity:
             return False
         self.drop(req)
-        req.swap_data = {"pages": data, "n_tokens": req.cache_len,
-                         "nbytes": nbytes}
+        req.swap_data = {"pages": data, "ring": ring,
+                         "n_tokens": req.cache_len, "nbytes": nbytes}
         self.used += nbytes
         return True
 
@@ -189,20 +202,24 @@ class HostSwapStore:
 
 
 def drain_cache_ops(caches, sched: Scheduler, swap_store, page_size: int):
-    """Apply the scheduler's planned device cache ops: swap restores
-    (the port's scheduler plans no COW copies or key-conv ring loads —
-    those belong to the prefix cache and key-conv, not ported yet).
+    """Apply the scheduler's planned device cache ops: swap restores,
+    which write a victim's pages into its newly reserved pages and its
+    key-conv ring row into its new slot (the port's scheduler plans no
+    COW copies or ring loads from page tails: both come only from the
+    prefix cache, not ported yet).
     Restores also set the request's ``cache_len`` so the takes computed
     at prefill see the restored prefix."""
     ops = sched.take_cache_ops()
     if ops["copies"] or ops["ring_loads"]:
         raise ServingError("page copies / ring loads planned without the "
-                           "prefix cache or key-conv")
+                           "prefix cache")
     for req in ops["restores"]:
         sd = req.swap_data
         pages = sched._seq_pages[req.slot][
             :math.ceil(sd["n_tokens"] / page_size)]
         caches = PC.scatter_pages_device(caches, pages, sd["pages"])
+        if sd["ring"]:
+            caches = PC.scatter_ring_rows(caches, req.slot, sd["ring"])
         req.cache_len = sd["n_tokens"]
         swap_store.drop(req)
         sched.stats["swap_restores"] += 1
@@ -218,11 +235,6 @@ def unsupported_reason(cfg: ModelConfig) -> Optional[Tuple[str, str]]:
                 f"{T.ATTN_KINDS} layers)")
     if cfg.family != "dense":
         return ("family", f"family {cfg.family!r} is {_LATER}")
-    a = cfg.attention
-    if a.moba is not None and a.moba.key_conv_width:
-        return ("key_conv_width",
-                f"key convolution (width {a.moba.key_conv_width}) is "
-                f"{_LATER}")
     return None
 
 
@@ -312,14 +324,15 @@ class Engine:
         self.caches = T.init_paged_caches(
             cfg, self.num_pages, self.page_size,
             dtype=getattr(torch, cfg.dtype), device=self.device,
-            kv_dtype=ecfg.kv_dtype)
+            kv_dtype=ecfg.kv_dtype, max_seqs=ecfg.max_seqs)
         self.swap_store = (HostSwapStore(self, ecfg.swap_bytes)
                            if ecfg.swap_bytes > 0 else None)
         self.sched = Scheduler(
             num_pages=self.num_pages, page_size=self.page_size,
             max_seqs=ecfg.max_seqs, max_pages_per_seq=self.pages_per_seq,
             max_prefill_batch=ecfg.max_prefill_batch,
-            chunk_tokens=ecfg.prefill_chunk, swap=self.swap_store)
+            chunk_tokens=ecfg.prefill_chunk, key_conv=needs_key_conv(cfg),
+            swap=self.swap_store)
         # swap restores resume mid-context, so their suffix prefills need
         # the chunk-aware (kv_len-offset) path even when chunked prefill
         # itself is off

@@ -26,6 +26,12 @@ Centroid semantics match the dense cache exactly:
 Quantized pools (``kv_dtype`` int8/fp8, ``core/quantization.py``) carry
 per-(page, kv head) fp32 ``scales_k``/``scales_v`` leaves; the appends
 requantize every page they touch and the gathers dequantize.
+
+MoBA pools of key-conv models carry a per-sequence-slot ring
+``key_conv_state`` of the last ``key_conv_width - 1`` raw keys (the
+conv's left context, ``models/layers.py::_paged_attend``).  It is indexed
+by slot, not page, so it is not in :data:`PAGE_LEAVES`; swap moves it
+with :func:`gather_ring_rows` / :func:`scatter_ring_rows`.
 """
 from __future__ import annotations
 
@@ -54,14 +60,19 @@ def resolve_page_size(cfg: ModelConfig) -> int:
 def init_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
                    with_centroids: bool, dtype=torch.bfloat16,
                    device="cuda", kv_dtype: str = "fp32",
-                   groups: Optional[int] = None) -> Dict:
+                   groups: Optional[int] = None, max_seqs: int = 0) -> Dict:
     """One layer slot's pool; ``groups`` adds the leading layer-group
     axis the model's group loop indexes (``transformer.init_paged_caches``).
 
     ``kv_dtype`` of ``"int8"``/``"fp8"`` stores the K/V payload quantized
     with per-(page, kv head) fp32 ``scales_k``/``scales_v`` leaves (1.0 at
     init, so dequantizing a fresh page is a no-op); centroids stay fp32.
-    ``"fp32"`` stores pages at ``dtype`` with no scale leaves."""
+    ``"fp32"`` stores pages at ``dtype`` with no scale leaves.
+
+    MoBA pools (``with_centroids``) of key-conv models with ``max_seqs``
+    > 0 also get the ring ``key_conv_state`` (max_seqs, hkv, W-1, dh) at
+    ``dtype``, never quantized: it feeds the conv that feeds the
+    router."""
     hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     if kv_dtype not in Q.KV_DTYPES:
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}; "
@@ -79,6 +90,12 @@ def init_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
     if with_centroids:
         pool["centroids"] = torch.zeros(lead + (num_pages, hkv, dh),
                                         dtype=torch.float32, device=device)
+        a = cfg.attention
+        width = a.moba.key_conv_width if a.moba is not None else 0
+        if width and max_seqs:
+            pool["key_conv_state"] = torch.zeros(
+                lead + (max_seqs, hkv, width - 1, dh), dtype=dtype,
+                device=device)
     return pool
 
 
@@ -99,6 +116,13 @@ def _scatter_rows(dst: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor,
     if dst.dtype == torch.float8_e4m3fn:
         dst, v = dst.view(torch.uint8), v.view(torch.uint8)
     dst.index_copy_(0, tgt, v)
+
+
+def write_ring_rows(cache: Dict, slots: torch.Tensor, ok: torch.Tensor,
+                    rows: torch.Tensor) -> None:
+    """``key_conv_state[slots[i]] = rows[i]`` for every prefill row with
+    ``ok[i]``, in place (one layer group's pool)."""
+    _scatter_rows(cache["key_conv_state"], slots, ok, rows)
 
 
 def paged_append_decode(cache: Dict, block_table: torch.Tensor,
@@ -332,4 +356,21 @@ def scatter_pages_device(caches, pages: List[int], data: Dict):
             if name in pool:
                 x = pool[name]
                 x[:, idx] = data[(sname, name)].to(x.device, x.dtype)
+    return caches
+
+
+def gather_ring_rows(caches, slot: int) -> Dict:
+    """Host snapshot of one sequence slot's key-conv ring row in every
+    group, keyed (slot_name, leaf); empty for pools without a ring."""
+    return {(sname, "key_conv_state"): pool["key_conv_state"][:, slot].cpu()
+            for sname, pool in caches.items() if "key_conv_state" in pool}
+
+
+def scatter_ring_rows(caches, slot: int, data: Dict):
+    """Write a :func:`gather_ring_rows` snapshot into sequence slot
+    ``slot``'s ring row, in place."""
+    for sname, pool in caches.items():
+        if "key_conv_state" in pool:
+            x = pool["key_conv_state"]
+            x[:, slot] = data[(sname, "key_conv_state")].to(x.device, x.dtype)
     return caches

@@ -30,6 +30,7 @@ from repro_torch.convert import from_jax
 from repro_torch.core import backends as B
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import _make_engine, serve
+from repro_torch.models import transformer as T
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.scheduler import (ServingError,
                                            UnsupportedFeatureError)
@@ -162,10 +163,15 @@ def test_out_of_scope_engine_config_raises(model, field, ecfg):
 
 def test_out_of_scope_model_and_fleet_raise(model):
     _, _, cfg, params = model
+    kconv = get_smoke_config("moba-340m", key_conv_width=3)
+    kparams = T.init_lm(torch.Generator().manual_seed(0), kconv)
+    eng = Engine(kconv, kparams, EngineConfig(attn_backend="flash"),
+                 device="cpu")
+    assert "key_conv_state" in eng.caches["slot_1"]
     with pytest.raises(UnsupportedFeatureError) as ei:
-        Engine(get_smoke_config("moba-340m", key_conv_width=3), params,
-               EngineConfig(), device="cpu")
-    assert ei.value.feature == "key_conv_width"
+        Engine(kconv, kparams, EngineConfig(attn_backend="nope"),
+               device="cpu")
+    assert ei.value.feature == "attn_backend"
     with pytest.raises(UnsupportedFeatureError) as ei:
         _make_engine(cfg, params, EngineConfig(), shards=2, device="cpu")
     assert ei.value.feature == "shards"
@@ -233,6 +239,10 @@ def test_port_imports_neither_jax_nor_reference_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20                  # the scan sees the package
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"src/repro_torch/core/key_conv.py",
+            "src/repro_torch/data/niah.py",
+            "src/repro_torch/configs/qwen3_0_6b.py"} <= names
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, (str(path), hits)

@@ -230,7 +230,6 @@ OUT_OF_SCOPE = {
     "ckpt_dir": dict(ckpt_dir="/nonexistent/ckpt"),
     "resume": dict(resume="auto"),
     "microbatch": dict(microbatch=2),
-    "key_conv": dict(key_conv_width=3),
 }
 
 
