@@ -47,6 +47,21 @@ Phases, one JSON line each; any failure exits non-zero:
                launches (exactly 3, device µs each) and any other
                operator that ran device work (none allowed); a trace
                with no device event at all is retaken, up to 3 times.
+               Then the route kernel with per-head budgets (adaptive
+               routing's ``head_top_k``, 1..top_k dealt unequally over a
+               GQA group) from bf16 and int8 pools at moba-340m's shape
+               (G 1, d 64), G 2 at d 128, G 8 at d 128 with top_k 200
+               and G 8 over 100-page tables (npg < top_k) with a kv_len 0
+               row: selections against ``moba_paged_route`` with the same
+               budgets (near-ties only), tables equal to
+               ``route_tables_plain``'s (or ``decode_tables``' on the
+               kernel's own selections where a near-tie flipped one), no
+               head past its budget, the attention against the plain
+               attention on those selections (3e-2), and a union smaller
+               than the static call's; and at the main shape the call with
+               and without budgets (``call_cost``, the launches alone,
+               the bytes bound from the union each read, mean
+               ``n_uniq``).
   3. serve   — moba-340m at full width (bf16, random weights from a
                seeded torch.Generator) through ``Engine`` on the ``flash``
                backend: 8 prompts of 1024..4095 tokens, 64 new tokens
@@ -90,7 +105,22 @@ Phases, one JSON line each; any failure exits non-zero:
                bf16, 4 of the prompts, 16 new tokens: every request
                finishes, 28 decode calls and 84 kernel launches a step,
                decode tokens/s, step ms, peak memory and a profiled
-               window; then phase 4's check on this model in fp32.
+               window; then phase 4's check on this model in fp32.  Then
+               ``serve_adaptive``: moba-340m (bf16) on ``flash`` with
+               phase 3's prompts and 32 new tokens under static routing,
+               (a) ``route_policy="snr:pfail=0.01"`` (calibrated at engine
+               build: the profile's summary and the calibration's
+               seconds) and (b) a non-uniform profile (every other head at
+               budget 1, the rest cycling through 2..top_k) saved to a
+               temporary file and loaded with ``profile:PATH``; (b) again
+               on ``xla`` and from an int8 pool; then phase 4's fp32 check
+               under (b).  Under (b): every request finishes, 12 decode
+               calls and 36 kernels a step, the stream differs from
+               static's, flash and xla streams part only where either
+               run's top-2 bf16 logit gap is at most 0.0625, and a
+               profiled step's launch calls equal static's; static and
+               (b) each print the profiled step ms, device busy ms, idle
+               share and mean ``n_uniq`` a (sequence, kv head).
   5. train_kernels — the four FlashMoBA training kernels (centroids, Flash
                TopK, forward, backward) against their plain PyTorch
                versions at the moba-340m training shapes (B=1, H=Hkv=16,
@@ -190,8 +220,9 @@ and power limit, the kernel line (the six kernels,
 the decode kernels once per pool dtype; Flash TopK also with its
 small-block times and its times alone at top_k 16, 64 and 1024;
 ``swa_attention`` also at d 128 and in fp32; ``launches_also``: each
-kernel's launches on the other paths, ``serve_key_conv`` and
-``serve_qwen3`` for the decode kernels, ``train_small_blocks`` and
+kernel's launches on the other paths, ``serve_key_conv``,
+``serve_qwen3`` and ``serve_adaptive`` (its (b) run) for the decode
+kernels, whose bf16 entry also holds ``with_budgets``, ``train_small_blocks`` and
 ``train_key_conv`` for the training kernels), and as the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -453,17 +484,133 @@ def _kernel_selection(rt, q, centroids):
     return sel.clamp(min=0), sel >= 0
 
 
-def _decode_launch(q, pool, table, kv, cfg):
+def _decode_launch(q, pool, table, kv, cfg, head_top_k=None):
     """One decode call through the wrapper's own checks and launch:
     the output and the route tables that call attended with."""
     from repro_torch.kernels import moba_decode as MD
     sc = _scales(pool)
     MD.check_contract(q, pool["pages_k"], pool["pages_v"], **sc,
                       centroids=pool["centroids"], block_table=table,
-                      kv_len=kv, top_k=cfg.top_k)
+                      kv_len=kv, top_k=cfg.top_k, head_top_k=head_top_k)
     return MD.launch(q, pool["pages_k"], pool["pages_v"], pool["centroids"],
                      table, kv, cfg.top_k, q.shape[-1] ** -0.5,
-                     sc.get("scales_k"), sc.get("scales_v"))
+                     sc.get("scales_k"), sc.get("scales_v"), head_top_k)
+
+
+def budget_table(hkv: int, g: int, top_k: int):
+    """Per-head budgets for the kernel checks: 1 to top_k spread evenly
+    over the H = hkv·G heads, dealt so that the heads of a GQA group get
+    unequal budgets; (Hkv, G) int32 on the card."""
+    import torch
+    vals = np.linspace(1, top_k, hkv * g).round().astype(np.int32)
+    return torch.as_tensor(vals.reshape(g, hkv).T.copy(), device="cuda")
+
+
+def _mean_n_uniq(n_uniq, kv_len) -> float:
+    """Mean union size over the (sequence, kv head) rows of sequences
+    with ``kv_len`` > 0 (a kv_len 0 row still routes to its page 0)."""
+    live = n_uniq[kv_len.repeat_interleave(n_uniq.numel() // kv_len.numel())
+                  > 0]
+    return float(live.float().mean()) if live.numel() else 0.0
+
+
+def _check_budgets(name, geom, cfg, kv_dtype):
+    """The route kernel with per-head budgets (bf16 q, a bf16 or int8
+    pool): its selections against the plain route truncated to the same
+    budgets (``moba_paged_route``; near-ties only), its tables equal to
+    ``route_tables_plain``'s where the selections are equal (else to
+    ``decode_tables`` on its own selections), no head past its budget,
+    the attention against the plain attention on those selections, the
+    public wrapper's output equal to the launch's, and no row's union
+    larger than the static call's on the same inputs (``union_shrank``:
+    smaller somewhere; a union that takes every page may not shrink)."""
+    import torch
+    from repro_torch.core.moba import moba_paged_attend, moba_paged_route
+    from repro_torch.kernels import moba_decode as MD
+    q, pool, table, kv = _paged_case(dtype=torch.bfloat16, seed=7,
+                                     kv_dtype=kv_dtype, **geom)
+    sc = _scales(pool)
+    cents, ps = pool["centroids"], pool["pages_k"].shape[1]
+    htk = budget_table(geom["hkv"], geom["h"] // geom["hkv"], cfg.top_k)
+    out, rt = _decode_launch(q, pool, table, kv, cfg, htk)
+    _, rt0 = _decode_launch(q, pool, table, kv, cfg)
+    call_equal = bool(torch.equal(out, MD.moba_paged_decode(
+        q, pool["pages_k"], pool["pages_v"], cents, table, kv, cfg, **sc,
+        head_top_k=htk)))
+    plain = MD.route_tables_plain(q, cents, table, kv, cfg.top_k, ps,
+                                  head_top_k=htk)
+    idx, sel_valid = moba_paged_route(q, cents, table, kv, cfg,
+                                      page_size=ps, head_top_k=htk)
+    rows, gap, ties_ok = _route_near_ties(q, cents, table, kv, ps, rt.sel,
+                                          idx, sel_valid)
+    k_idx, k_valid = _kernel_selection(rt, q, cents)
+    sel_equal = bool(torch.equal(rt.sel, plain.sel))
+    want = ((plain.phys, plain.base, plain.n_uniq) if sel_equal else
+            MD.decode_tables(q, pool["pages_k"], table, k_idx, k_valid))
+    tables_equal = all(bool(torch.equal(a, b)) for a, b in
+                       zip((rt.phys, rt.base, rt.n_uniq), want))
+    b = q.shape[0]
+    within = bool(((rt.sel >= 0).sum(-1)
+                   <= htk.repeat(b, 1)).all())               # (B·Hkv, G)
+    ref = moba_paged_attend(q, pool["pages_k"], pool["pages_v"], table, kv,
+                            k_idx, k_valid, **sc)
+    torch.cuda.synchronize()
+    act = kv > 0
+    err = float((out[act].float() - ref[act].float()).abs().max())
+    close = bool(torch.allclose(out[act].float(), ref[act].float(),
+                                atol=3e-2, rtol=3e-2))
+    zeros = bool((out[~act] == 0).all())
+    not_grown = bool((rt.n_uniq <= rt0.n_uniq).all())
+    ok = (ties_ok and tables_equal and call_equal and within and close
+          and zeros and not_grown)
+    return {"geometry": name, "kv_dtype": kv_dtype, "dtype": "bf16",
+            "top_k": cfg.top_k, "npg": geom["npg"],
+            "budgets": sorted(set(htk.flatten().tolist())),
+            "route_rows_differing": rows, "route_max_gap": gap,
+            "route_near_ties_ok": ties_ok,
+            "selections_equal_plain": sel_equal,
+            "tables_equal": tables_equal, "within_budgets": within,
+            "call_equals_launch": call_equal, "max_abs_err": err,
+            "tol": 3e-2, "inactive_rows_zero": zeros,
+            "mean_n_uniq": _mean_n_uniq(rt.n_uniq, kv),
+            "mean_n_uniq_static": _mean_n_uniq(rt0.n_uniq, kv),
+            "union_not_grown": not_grown,
+            "union_shrank": int(rt.n_uniq.sum()) < int(rt0.n_uniq.sum()),
+            "ok": ok}
+
+
+def _time_budgets(geom, cfg, flush) -> dict:
+    """The decode call with and without per-head budgets on the phase-2
+    moba-340m case (bf16 q and pool), each as a call's cost, the
+    launches alone, and the bytes bound from the union that call
+    read."""
+    import torch
+    from repro_torch.kernels import moba_decode as MD
+    q, pool, table, kv = _paged_case(dtype=torch.bfloat16, seed=7, **geom)
+    htk = budget_table(geom["hkv"], geom["h"] // geom["hkv"], cfg.top_k)
+    args = (q, pool["pages_k"], pool["pages_v"], pool["centroids"], table,
+            kv)
+    res = {}
+    for label, h in (("static", None), ("budgets", htk)):
+        _, rt = MD.launch(*args, cfg.top_k, q.shape[-1] ** -0.5,
+                          head_top_k=h)
+        nbytes, flops = _decode_bytes_and_flops(
+            q, pool, table, kv, None, None, (rt.phys, rt.base, rt.n_uniq))
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / FP32_FLOPS * 1e3
+        res[label] = {
+            **call_cost(lambda h=h: MD.moba_paged_decode(*args, cfg,
+                                                         head_top_k=h),
+                        flush),
+            "kernel_only_ms": cuda_events_ms(
+                lambda h=h: MD.launch(*args, cfg.top_k,
+                                      q.shape[-1] ** -0.5, head_top_k=h),
+                flush=flush),
+            "mean_n_uniq": _mean_n_uniq(rt.n_uniq, kv),
+            "union_pages": int(rt.n_uniq.sum()), "bytes": nbytes,
+            "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    return res
 
 
 def phase_kernel():
@@ -569,10 +716,34 @@ def phase_kernel():
                 if name == "moba-340m" and dtype == torch.bfloat16:
                     timing[kv_dtype] = _time_decode(q, pool, table, kv, cfg,
                                                     args, err, flush)
-    emit({"phase": "kernel", "checks": checks, "timing": timing})
+    # per-head budgets (adaptive routing): G 1 at d 64 (moba-340m), G 2
+    # at d 128 (qwen3-0.6b), G 8 at d 128 with budgets 1..200, and G 8
+    # over tables shorter than top_k (npg 100 < 200) with a kv_len 0 row
+    g8_short = dict(b=3, h=16, hkv=2, d=128, ps=16, npg=100,
+                    num_pages=250, kv_lens=[1600, 0, 700])
+    budget_checks = []
+    for name, geom, cfg in (
+            ("moba-340m", main, main_cfg), ("g2-d128", g2, main_cfg),
+            ("g8-k200-d128", g8, MoBAConfig(block_size=16, top_k=200)),
+            ("g8-short-table", g8_short,
+             MoBAConfig(block_size=16, top_k=200))):
+        for kv_dtype in ("fp32", "int8"):
+            budget_checks.append(_check_budgets(name, geom, cfg, kv_dtype))
+            if not budget_checks[-1]["ok"]:
+                emit({"phase": "kernel", "budget_checks": budget_checks})
+                raise SystemExit(f"the route kernel with per-head budgets "
+                                 f"disagrees with its plain version: "
+                                 f"{budget_checks[-1]}")
+    if not all(c["union_shrank"] for c in budget_checks
+               if c["geometry"] == "moba-340m"):
+        raise SystemExit("per-head budgets did not shrink the union at "
+                         "moba-340m's decode shape")
+    timing["budgets"] = _time_budgets(main, main_cfg, flush)
+    emit({"phase": "kernel", "checks": checks,
+          "budget_checks": budget_checks, "timing": timing})
     bad = {k: t["profile"] for k, t in timing.items()
-           if t["profile"]["port_kernels"] != 3
-           or t["profile"]["other_device_ops"]}
+           if k in KV_DTYPES and (t["profile"]["port_kernels"] != 3
+                                  or t["profile"]["other_device_ops"])}
     if bad:
         raise SystemExit(f"a decode call did not run exactly the 3 port "
                          f"kernels and no other device work: {bad}")
@@ -686,15 +857,63 @@ def _moba_layers(cfg) -> int:
         cfg.layer_pattern.count("moba")
 
 
+def _recording(eng, gaps: list, n_uniq: list):
+    """Patches for a measured run: every decode step's top-2 logit gap
+    and pre-step length per slot with the slot's request id
+    (``gaps``), and every decode call's union sizes with its lengths
+    (``n_uniq``: views of the call's own tables and inputs, no copy, no
+    launch).  Returns the undo."""
+    from repro_torch.kernels import moba_decode as MD
+    from repro_torch.models import transformer as T
+    decode, launch = T.decode_step, MD._launch
+
+    def decode_rec(params, token, cfg, caches, **kw):
+        logits, caches = decode(params, token, cfg, caches, **kw)
+        top2 = logits[:, -1].float().topk(2, dim=-1).values
+        gaps.append(({r.slot: r.rid for r in eng.sched.running
+                      if r.slot >= 0}, kw["page_state"]["kv_len"].clone(),
+                     top2[:, 0] - top2[:, 1]))
+        return logits, caches
+
+    def launch_rec(*a, **kw):
+        out, scratch, p = launch(*a, **kw)
+        n_uniq.append((scratch[-p.rows:], a[5]))         # a[5]: kv_len
+        return out, scratch, p
+
+    T.decode_step, MD._launch = decode_rec, launch_rec
+
+    def undo():
+        T.decode_step, MD._launch = decode, launch
+    return undo
+
+
+def _gaps_by_token(gaps: list, reqs) -> dict:
+    """rid -> {token index j: the top-2 logit gap of the decode step that
+    produced token j} (token 0 comes from prefill; the step that produces
+    token j starts at length prompt + j - 1)."""
+    plen = {r.rid: len(r.prompt) for r in reqs}
+    out = {r.rid: {} for r in reqs}
+    for slots, kv, gap in gaps:
+        kv, gap = kv.cpu().numpy(), gap.cpu().numpy()
+        for s, rid in slots.items():
+            out[rid][int(kv[s]) - plen[rid] + 1] = float(gap[s])
+    return out
+
+
 def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
                 bf16_pool_bytes: int = 0, *, arch: str = "moba-340m",
                 key_conv_width: int = 0, prefill_chunk: int = 0,
-                prompts: int = 8, phase: str = ""):
-    """The serve cell on ``flash`` from ``kv_dtype`` pools: ``arch`` (with
-    key conv of ``key_conv_width``) at full width and depth, ``prompts``
-    requests of 1024..4095 tokens.  Returns the decode calls and the
-    decode kernels' launches in the measured run, the pools' bytes and
-    the record."""
+                prompts: int = 8, phase: str = "",
+                route_policy: str = "static", backend: str = "flash",
+                record: bool = False, profile: bool = True):
+    """The serve cell on ``backend`` (``flash``: the decode kernels) from
+    ``kv_dtype`` pools: ``arch`` (with key conv of ``key_conv_width``) at
+    full width and depth, ``prompts`` requests of 1024..4095 tokens,
+    routed by ``route_policy``.  ``record`` keeps each decode step's
+    top-2 logit gaps and each decode call's union sizes; ``profile``
+    adds the profiled window.  Returns the decode calls and the decode
+    kernels' launches in the measured run, the pools' bytes and the
+    record (with the streams and, if recorded, the gaps by token)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import moba_decode as MD
@@ -708,8 +927,9 @@ def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
     params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
     eng = Engine(cfg, params, EngineConfig(
         max_seqs=8, max_prefill_batch=2, max_seq_len=4224,
-        attn_backend="flash", kv_dtype=kv_dtype,
-        prefill_chunk=prefill_chunk), device="cuda")
+        attn_backend=backend, kv_dtype=kv_dtype,
+        prefill_chunk=prefill_chunk, route_policy=route_policy),
+        device="cuda")
     pool_bytes = sum(t.numel() * t.element_size()
                      for pool in eng.caches.values() for t in pool.values())
     rng = np.random.default_rng(0)
@@ -719,10 +939,16 @@ def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
             for n in lens]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    gaps, n_uniq = [], []
+    undo = _recording(eng, gaps, n_uniq) if record else None
     MD.LAUNCHES = MD.KERNEL_LAUNCHES = 0
     t0 = time.perf_counter()
-    eng.run()
-    torch.cuda.synchronize()
+    try:
+        eng.run()
+        torch.cuda.synchronize()
+    finally:
+        if undo is not None:
+            undo()
     wall = time.perf_counter() - t0
     launches, kernel_launches = MD.LAUNCHES, MD.KERNEL_LAUNCHES
     st = dict(eng.stats)           # the profile window below adds steps
@@ -731,6 +957,7 @@ def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
     in_vocab = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
     rec = {"phase": phase,
            "arch": cfg.name, "dtype": cfg.dtype, "kv_dtype": kv_dtype,
+           "backend": backend, "route_policy": route_policy,
            "prefill_chunk": prefill_chunk,
            "prompt_lens": [int(n) for n in lens], "new_tokens": new_tokens,
            "requests_done": sum(r.done for r in reqs),
@@ -759,19 +986,30 @@ def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
         rec["ring"] = {"shape": list(ring.shape), "dtype": str(ring.dtype),
                        "expected_shape": list(want)}
         ring_ok = tuple(ring.shape) == want and ring.dtype == torch.bfloat16
-    rec["profile"] = _profile_decode(eng, cfg, rng)
+    if eng.route_profile is not None:
+        rec["route_profile"] = eng.route_profile.summary()
+    if n_uniq:
+        rec["mean_n_uniq"] = _mean_n_uniq(*(torch.cat(x) for x in
+                                            zip(*n_uniq)))
+    if profile:
+        rec["profile"] = _profile_decode(eng, cfg, rng)
     emit(rec)
+    rec["streams"] = [list(r.out) for r in reqs]
+    if record:
+        rec["gaps"] = _gaps_by_token(gaps, reqs)
     # the engine sits in a reference cycle (its scheduler's preemption
     # hook), so only the collector frees its pools before the next phase
     # resets the peak-memory counter
     del eng, params, ring
     gc.collect()
     torch.cuda.empty_cache()
-    what = f"{phase} ({cfg.name}, {kv_dtype})"
+    what = f"{phase} ({cfg.name}, {kv_dtype}, {backend}, {route_policy})"
     if not outs_ok or not in_vocab:
         raise SystemExit(f"{what}: a request did not finish with "
                          f"{new_tokens} tokens in the vocabulary")
-    if launches == 0 or launches != moba_layers * st["decode_steps"]:
+    # the plain backends launch no decode kernel
+    if backend == "flash" and (
+            launches == 0 or launches != moba_layers * st["decode_steps"]):
         raise SystemExit(f"{what}: {launches} decode calls for "
                          f"{st['decode_steps']} decode steps, expected "
                          f"{moba_layers} per step")
@@ -878,13 +1116,15 @@ def _logits_case(cfg, kv_dtype: str = "fp32", seed: int = 1):
     return params, t, tokens, caches
 
 
-def _decode_flash_vs_xla(cfg, params, caches, t, first) -> dict:
+def _decode_flash_vs_xla(cfg, params, caches, t, first,
+                         route_map=None) -> dict:
     """One decode step under ``flash`` and one under ``xla`` from clones
-    of the prefilled ``caches``.  The flash run records the route
-    kernel's selections in every MoBA layer; the xla run replays them,
-    each held to xla's own routing by the near-tie rule (the kernel sums
-    its fp32 dot products in another order than the plain einsum, so a
-    near-tie can flip a page).  Returns the record's fields and ``ok``."""
+    of the prefilled ``caches`` (per-head budgets from ``route_map``, if
+    given).  The flash run records the route kernel's selections in every
+    MoBA layer; the xla run replays them, each held to xla's own routing
+    by the near-tie rule (the kernel sums its fp32 dot products in
+    another order than the plain einsum, so a near-tie can flip a page).
+    Returns the record's fields and ``ok``."""
     import torch
     from repro_torch.core import moba as CM
     from repro_torch.kernels import moba_decode as MD
@@ -899,21 +1139,24 @@ def _decode_flash_vs_xla(cfg, params, caches, t, first) -> dict:
     recorded, audit = [], []
 
     def record(q, pages_k, pages_v, centroids, table, kv, mcfg, scale=None,
-               grid="grouped", scales_k=None, scales_v=None):
+               grid="grouped", scales_k=None, scales_v=None,
+               head_top_k=None):
         """The decode call itself, keeping the route tables it wrote."""
         MD.check_contract(q, pages_k, pages_v, scales_k, scales_v,
                           centroids=centroids, block_table=table, kv_len=kv,
-                          top_k=mcfg.top_k)
+                          top_k=mcfg.top_k, head_top_k=head_top_k)
         out, rt = MD.launch(q, pages_k, pages_v, centroids, table, kv,
                             mcfg.top_k,
                             q.shape[-1] ** -0.5 if scale is None else scale,
-                            scales_k, scales_v)
+                            scales_k, scales_v, head_top_k)
         recorded.append(rt)
         return out
 
-    def replay(q, centroids, table, kv, mcfg, page_size=None):
+    def replay(q, centroids, table, kv, mcfg, page_size=None,
+               head_top_k=None):
         idx, sel_valid = plain_route(q, centroids, table, kv, mcfg,
-                                     page_size=page_size)
+                                     page_size=page_size,
+                                     head_top_k=head_top_k)
         rt = recorded[len(audit)]
         audit.append(_route_near_ties(q, centroids, table, kv, page_size,
                                       rt.sel, idx, sel_valid))
@@ -930,8 +1173,10 @@ def _decode_flash_vs_xla(cfg, params, caches, t, first) -> dict:
                 (record, plain_route) if backend == "flash"
                 else (decode, replay))
             lg, _ = T.decode_step(params, first[:, None], cfg, clone(),
-                                  backend=backend, page_state=page_state)
-            step_tok, _ = S.make_paged_decode_step(cfg, backend)(
+                                  backend=backend, page_state=page_state,
+                                  route_map=route_map)
+            step_tok, _ = S.make_paged_decode_step(
+                cfg, backend, route_map=route_map)(
                 params, first, clone(), t["table"], t["lens"], t["active"])
             logits[backend] = lg[:, -1]
             toks[backend] = step_tok
@@ -956,9 +1201,10 @@ def _decode_flash_vs_xla(cfg, params, caches, t, first) -> dict:
 
 
 def phase_logits(kv_dtype: str = "fp32", arch: str = "moba-340m",
-                 phase: str = "logits"):
+                 phase: str = "logits", nonuniform: bool = False):
     """flash against xla for one decode step in fp32 after one shared
-    paged prefill (:func:`_decode_flash_vs_xla`)."""
+    paged prefill (:func:`_decode_flash_vs_xla`); ``nonuniform`` routes
+    both (and the prefill) by :func:`nonuniform_profile`'s budgets."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import steps as S
@@ -966,20 +1212,150 @@ def phase_logits(kv_dtype: str = "fp32", arch: str = "moba-340m",
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    rmap = (S.as_route_map(nonuniform_profile(cfg).route_map(), "cuda")
+            if nonuniform else None)
     params, t, _, new_caches = _logits_case(cfg, kv_dtype)
-    first, caches = S.make_paged_prefill_step(cfg, "xla", chunked=True)(
+    first, caches = S.make_paged_prefill_step(
+        cfg, "xla", chunked=True, route_map=rmap)(
         params, t["tokens"], new_caches(), t["table"], t["kv0"], t["lens"],
         t["slots"], t["active"])
-    rec = _decode_flash_vs_xla(cfg, params, caches, t, first)
+    rec = _decode_flash_vs_xla(cfg, params, caches, t, first, rmap)
     emit({"phase": phase, "arch": cfg.name, "dtype": "float32",
           "kv_dtype": kv_dtype, "batch": len(LOGITS_LENS),
-          "kv_lens": list(LOGITS_LENS), **rec})
+          "kv_lens": list(LOGITS_LENS), "nonuniform_profile": nonuniform,
+          **rec})
     del params, caches
     torch.cuda.empty_cache()
     if not rec["ok"]:
         raise SystemExit(f"{phase} ({kv_dtype}): flash and xla decode steps "
                          f"disagree, or a routing difference is no "
                          f"near-tie")
+
+
+# ------------------------------------------------------- adaptive routing
+# a top-2 gap of the bf16 decode logits at or below which two backends'
+# greedy streams may part: 4 bf16 steps at logits in [2, 4)
+BF16_GAP_TOL = 0.0625
+
+
+def nonuniform_profile(cfg):
+    """The routing profile the card serves to make truncation bite:
+    ``RoutingProfile.uniform(cfg)`` with every other head at budget 1
+    (its own page only) and the rest cycling through 2..top_k."""
+    from repro_torch.core import adaptive as AD
+    prof = AD.RoutingProfile.uniform(cfg)
+    k = prof.k_max
+    for arr in prof.top_k.values():
+        flat = arr.reshape(-1)
+        for i in range(flat.size):
+            flat[i] = 1 if i % 2 == 0 else min(2 + (i // 2) % max(k - 1, 1),
+                                               k)
+    return prof
+
+
+def _streams_vs(a: dict, b: dict) -> dict:
+    """Greedy streams of two serve records: where each request first
+    parts, and whether every parting is at a near-tie (the top-2 gap of
+    either run's logits at that token at most :data:`BF16_GAP_TOL`)."""
+    parted, explained = [], True
+    for rid, (sa, sb) in enumerate(zip(a["streams"], b["streams"])):
+        j = next((j for j, (x, y) in enumerate(zip(sa, sb)) if x != y),
+                 None)
+        if j is None:
+            continue
+        gap = min(a["gaps"][rid].get(j, np.inf),
+                  b["gaps"][rid].get(j, np.inf))
+        parted.append({"request": rid, "token": j, "gap": gap})
+        explained &= gap <= BF16_GAP_TOL
+    return {"streams_equal": len(a["streams"]) - len(parted),
+            "parted": parted, "gap_tol": BF16_GAP_TOL,
+            "near_ties_ok": explained}
+
+
+def phase_serve_adaptive():
+    """moba-340m at full width (bf16) with SNR-guided adaptive routing on
+    ``flash``: phase 3's prompts, 32 new tokens, under static routing,
+    (a) ``snr:pfail=0.01`` calibrated at engine build, and (b) the
+    non-uniform :func:`nonuniform_profile` loaded from a file, then (b)
+    on ``xla`` and (b) from an int8 pool; then phase 4's fp32 flash vs
+    xla decode check under (b).  Gates under (b): every request
+    finishes, 12 decode calls and 36 kernels a step, the launch calls of
+    a profiled step equal static's, the stream differs from static's,
+    flash and xla streams part only at near-ties.  Returns the decode
+    calls and kernel launches of (b)'s flash run and the record."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import adaptive as AD
+
+    cfg = get_config("moba-340m")
+    n = QUANT_NEW_TOKENS
+    runs = {"static": phase_serve("fp32", n, phase="serve_adaptive",
+                                  record=True)[3]}
+    calibrate, calib = AD.calibrate_profile, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof = calibrate(*a, **kw)
+        torch.cuda.synchronize()
+        calib.append(time.perf_counter() - t0)
+        return prof
+
+    AD.calibrate_profile = timed
+    try:
+        runs["snr"] = phase_serve("fp32", n, phase="serve_adaptive",
+                                  route_policy="snr:pfail=0.01",
+                                  record=True, profile=False)[3]
+    finally:
+        AD.calibrate_profile = calibrate
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "routing_profile.json")
+        nonuniform_profile(cfg).save(path)
+        policy = f"profile:{path}"
+        calls, kernels, _, runs["b"] = phase_serve(
+            "fp32", n, phase="serve_adaptive", route_policy=policy,
+            record=True)
+        runs["b_xla"] = phase_serve("fp32", n, phase="serve_adaptive",
+                                    route_policy=policy, backend="xla",
+                                    record=True, profile=False)[3]
+        int8 = phase_serve("int8", n, phase="serve_adaptive",
+                           route_policy=policy, profile=False)
+    phase_logits(phase="serve_adaptive_logits", nonuniform=True)
+    st, b = runs["static"], runs["b"]
+    vs_xla = _streams_vs(b, runs["b_xla"])
+    differs = b["streams"] != st["streams"]
+    same_launch_calls = (b["profile"]["launch_calls_per_step"]
+                         == st["profile"]["launch_calls_per_step"])
+    rec = {"phase": "serve_adaptive", "arch": cfg.name,
+           "new_tokens": n, "calibration_s": calib,
+           "snr_profile": runs["snr"]["route_profile"],
+           "snr_streams_equal_static": runs["snr"]["streams"]
+           == st["streams"],
+           "b_profile": b["route_profile"],
+           "b_int8_decode_calls_per_step": int8[3]["decode_calls_per_step"],
+           "b_differs_from_static": differs,
+           "b_flash_vs_xla": vs_xla,
+           "launch_calls_per_step_equal_static": same_launch_calls,
+           "compare": {name: {
+               "decode_step_ms": r["profile"]["step_ms"],
+               "device_busy_ms": r["profile"]["device_busy_ms_per_step"],
+               "device_idle_share": r["profile"]["device_idle_share"],
+               "launch_calls_per_step":
+                   r["profile"]["launch_calls_per_step"],
+               "run_decode_step_ms": r["decode_step_ms"],
+               "mean_n_uniq": r["mean_n_uniq"]}
+               for name, r in (("static", st), ("b", b))},
+           "snr_mean_n_uniq": runs["snr"]["mean_n_uniq"]}
+    emit(rec)
+    if not (differs and vs_xla["near_ties_ok"] and same_launch_calls
+            and len(calib) == 1):
+        raise SystemExit("serve_adaptive: the non-uniform profile did not "
+                         "change the stream, flash and xla parted off a "
+                         "near-tie, a step's launch calls differ from "
+                         "static's, or calibration did not run once")
+    return calls, kernels, rec
 
 
 # ------------------------------------------------------- key-conv logits
@@ -2349,6 +2725,8 @@ def main() -> int:
         new_tokens=16, phase="serve_qwen3")[:2]
     timed("serve_qwen3", phase_logits, arch="qwen3-0.6b",
           phase="serve_qwen3_logits")
+    decode_also["serve_adaptive"] = timed("serve_adaptive",
+                                          phase_serve_adaptive)[:2]
     train_timing, train_err = timed("train_kernels", phase_train_kernels)
     train_launches, train_rec = timed("train", phase_train)
     small_blocks = timed("train_small_blocks", phase_train_small_blocks)
@@ -2366,6 +2744,12 @@ def main() -> int:
     kernels = []
     for kv_dtype in KV_DTYPES:
         t = timing[kv_dtype]
+        budgets = ({"with_budgets": {
+            k: {f: v[f] for f in ("ms", "device_ms", "loop_us",
+                                  "kernel_only_ms", "mean_n_uniq",
+                                  "bytes", "bound_ms", "bound_by")}
+            for k, v in timing["budgets"].items()}}
+            if kv_dtype == "fp32" else {})
         kernels.append({
             "name": "moba_paged_decode" + ("" if kv_dtype == "fp32"
                                            else f":{kv_dtype}"),
@@ -2386,7 +2770,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            "library_device_ms": t["library_device_ms"], "checked": True})
+            "library_device_ms": t["library_device_ms"], **budgets,
+            "checked": True})
     for name, (_, source, replaces) in TRAIN_KERNELS.items():
         t = train_timing[name]
         kernels.append({

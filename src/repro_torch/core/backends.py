@@ -63,20 +63,28 @@ class Capabilities:
     paged paths are validated against (``core/quantization.py``):
     ``int8``/``fp8`` pools carry per-page scale leaves the backend must
     dequantize with.  Default is fp32-only, so an unvalidated backend
-    fails at admission, not with wrong attention output."""
+    fails at admission, not with wrong attention output.
+
+    ``adaptive_topk`` declares that the backend's paged MoBA paths honor
+    per-(layer, head) ``head_top_k`` budgets (SNR-guided adaptive
+    routing, ``core/adaptive.py``).  Every backend of the port does; the
+    reference's context-parallel ``sp`` backends do not."""
 
     kinds: Tuple[str, ...] = KINDS
     phases: Tuple[str, ...] = PHASES
     caches: Tuple[str, ...] = CACHES
     key_conv: Tuple[str, ...] = CACHES
     kv_dtypes: Tuple[str, ...] = ("fp32",)
+    adaptive_topk: bool = True
 
     def supports(self, kind: str, phase: str, cache: str = "dense",
-                 key_conv: bool = False, kv_dtype: str = "fp32") -> bool:
+                 key_conv: bool = False, kv_dtype: str = "fp32",
+                 adaptive: bool = False) -> bool:
         return (kind in self.kinds and phase in self.phases
                 and cache in self.caches
                 and (not key_conv or cache in self.key_conv)
-                and kv_dtype in self.kv_dtypes)
+                and kv_dtype in self.kv_dtypes
+                and (not adaptive or self.adaptive_topk))
 
 
 class AttentionBackend:
@@ -103,21 +111,26 @@ class AttentionBackend:
                                scale=cfg.scale)
 
     # --------------------------------------------------------- paged KV
+    # ``head_top_k`` of the paged paths: (Hkv, G) int32 per-head MoBA
+    # budgets of an adaptive routing profile, or None (static top_k);
+    # the dense and swa kinds ignore it.
     def paged_prefill(self, cfg: AttentionConfig, kind: str, q, k, v, *,
-                      post_len, positions) -> torch.Tensor:
+                      post_len, positions, head_top_k=None) -> torch.Tensor:
         """Ragged fresh prefill (right-padded rows; ``post_len`` is the
         per-sequence valid length after this step)."""
         if kind == "moba":
             return moba_attention_reference(
                 q, k, v, cfg.moba, q_positions=positions,
-                kv_len=post_len[:, None, None, None], scale=cfg.scale)
+                kv_len=post_len[:, None, None, None], scale=cfg.scale,
+                head_top_k=head_top_k)
         return dense_attention(q, k, v, causal=True, q_positions=positions,
                                kv_len=post_len,
                                window=self._window(cfg, kind),
                                scale=cfg.scale)
 
     def paged_chunk_prefill(self, cfg: AttentionConfig, kind: str, q, cache,
-                            block_table, kv_len, q_len) -> torch.Tensor:
+                            block_table, kv_len, q_len, *,
+                            head_top_k=None) -> torch.Tensor:
         """Chunked prefill: multi-token attention for a ragged chunk whose
         K/V (and every earlier chunk's) are already appended to ``cache``;
         query i,j sits at position ``kv_len[i] + j``."""
@@ -127,7 +140,7 @@ class AttentionBackend:
                 q, cache["pages_k"], cache["pages_v"], cache["centroids"],
                 block_table, kv_len, q_len, cfg.moba, scale=cfg.scale,
                 scales_k=cache.get("scales_k"),
-                scales_v=cache.get("scales_v"))
+                scales_v=cache.get("scales_v"), head_top_k=head_top_k)
         kf, vf = PC.paged_gather_kv(cache, block_table)
         positions = kv_len[:, None] + torch.arange(q.shape[2],
                                                    device=q.device)
@@ -138,14 +151,14 @@ class AttentionBackend:
                                scale=cfg.scale)
 
     def paged_decode(self, cfg: AttentionConfig, kind: str, q, cache,
-                     block_table, kv_len, *, positions=None
-                     ) -> torch.Tensor:
+                     block_table, kv_len, *, positions=None,
+                     head_top_k=None) -> torch.Tensor:
         """Single-token attention against a paged pool through the block
         table.  ``kv_len`` is the post-append per-sequence length."""
         from repro_torch.serving import paged_cache as PC
         if kind == "moba":
             return self.moba_paged_decode(cfg, q, cache, block_table,
-                                          kv_len)
+                                          kv_len, head_top_k=head_top_k)
         if kind == "swa":
             return PC.swa_windowed_decode_attention(
                 q, cache, block_table, kv_len, cfg.window, scale=cfg.scale)
@@ -160,11 +173,12 @@ class AttentionBackend:
         raise NotImplementedError(f"{self.name}: moba prefill")
 
     def moba_paged_decode(self, cfg: AttentionConfig, q, cache, block_table,
-                          kv_len) -> torch.Tensor:
+                          kv_len, head_top_k=None) -> torch.Tensor:
         return moba_paged_decode_attention(
             q, cache["pages_k"], cache["pages_v"], cache["centroids"],
             block_table, kv_len, cfg.moba, scale=cfg.scale,
-            scales_k=cache.get("scales_k"), scales_v=cache.get("scales_v"))
+            scales_k=cache.get("scales_k"), scales_v=cache.get("scales_v"),
+            head_top_k=head_top_k)
 
 
 class ReferenceBackend(AttentionBackend):
@@ -213,13 +227,14 @@ class FlashBackend(AttentionBackend):
                               scale=cfg.scale, kb_tile=self.kb_tile,
                               grid=self.train_grid)
 
-    def moba_paged_decode(self, cfg, q, cache, block_table, kv_len):
+    def moba_paged_decode(self, cfg, q, cache, block_table, kv_len,
+                          head_top_k=None):
         from repro_torch.kernels import moba_decode
         return moba_decode.moba_paged_decode(
             q, cache["pages_k"], cache["pages_v"], cache["centroids"],
             block_table, kv_len, cfg.moba, scale=cfg.scale,
             grid=self.decode_grid, scales_k=cache.get("scales_k"),
-            scales_v=cache.get("scales_v"))
+            scales_v=cache.get("scales_v"), head_top_k=head_top_k)
 
 
 # ---------------------------------------------------------------- registry
@@ -303,21 +318,24 @@ def resolve_backend_spec(spec, *, default: str = "reference") -> str:
 
 
 def resolve(name: str, *, kind: str, phase: str, cache: str = "dense",
-            key_conv: bool = False, kv_dtype: str = "fp32"
-            ) -> AttentionBackend:
+            key_conv: bool = False, kv_dtype: str = "fp32",
+            adaptive: bool = False) -> AttentionBackend:
     """Name + capability query: the single entry point call sites use.
     ``key_conv=True`` demands key-conv support under ``cache``;
     ``kv_dtype`` of ``int8``/``fp8`` demands quantized-pool support
-    (per-page scale dequantization in every paged path)."""
+    (per-page scale dequantization in every paged path);
+    ``adaptive=True`` demands per-head ``head_top_k`` routing support."""
     be = get(name)
-    if not be.capabilities.supports(kind, phase, cache, key_conv, kv_dtype):
+    if not be.capabilities.supports(kind, phase, cache, key_conv, kv_dtype,
+                                    adaptive):
         able = [b.name for b in _REGISTRY.values()
                 if b.capabilities.supports(kind, phase, cache, key_conv,
-                                           kv_dtype)]
+                                           kv_dtype, adaptive)]
         raise BackendCapabilityError(
             f"backend {be.name!r} does not support kind={kind!r} "
             f"phase={phase!r} cache={cache!r} key_conv={key_conv} "
-            f"kv_dtype={kv_dtype!r}; backends that do: {able}")
+            f"kv_dtype={kv_dtype!r} adaptive={adaptive}; backends that "
+            f"do: {able}")
     return be
 
 

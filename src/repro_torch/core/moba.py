@@ -19,6 +19,10 @@ from repro_torch.core import routing
 
 NEG_INF = routing.NEG_INF
 
+# Calibration hook (``core.adaptive.capture_routing_scores``): when set to
+# a callable, moba_selection feeds it (scores, q_positions) per call.
+_score_sink = None
+
 
 def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, device=like.device)
@@ -30,10 +34,28 @@ def _group_queries(q: torch.Tensor, num_kv_heads: int) -> torch.Tensor:
     return q.reshape(b, num_kv_heads, g, n, d)
 
 
+def _truncate_head_topk(idx: torch.Tensor, sel_valid: torch.Tensor,
+                        head_top_k: Optional[torch.Tensor]):
+    """Truncate a score-sorted (B, Hkv, G, L, k) page selection to
+    per-head budgets.  ``head_top_k``: (Hkv, G) int32 in [1, k]; slots
+    ranked >= the head's budget become invalid.  Rank 0 is the forced
+    own page (POS_INF), so budgets >= 1 always keep it."""
+    if head_top_k is None:
+        return idx, sel_valid
+    keep = (torch.arange(idx.shape[-1], device=idx.device)
+            < head_top_k[..., None, None])
+    sel_valid = sel_valid & keep                  # (Hkv,G,1,k) broadcast
+    return torch.where(sel_valid, idx, 0), sel_valid
+
+
 def moba_selection(q: torch.Tensor, k: torch.Tensor, cfg: MoBAConfig,
-                   q_positions: Optional[torch.Tensor] = None
+                   q_positions: Optional[torch.Tensor] = None,
+                   head_top_k: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
-    """Routing only: returns selected block ids (B, H, Nq, top_k)."""
+    """Routing only: returns selected block ids (B, H, Nq, top_k).
+
+    ``head_top_k``: optional (Hkv, G) int32 per-head budgets in
+    [1, top_k]; truncated slots carry the sentinel block id."""
     b, hkv, n, d = k.shape
     nq = q.shape[2]
     if q_positions is None:
@@ -41,8 +63,11 @@ def moba_selection(q: torch.Tensor, k: torch.Tensor, cfg: MoBAConfig,
     cents = routing.block_centroids(k, cfg.block_size)      # (B,Hkv,nb,d)
     qg = _group_queries(q, hkv)                              # (B,Hkv,G,Nq,d)
     scores = torch.einsum("bhgqd,bhnd->bhgqn", qg.float(), cents.float())
+    if _score_sink is not None:
+        _score_sink((scores, q_positions))
     sel = routing.select_blocks(scores, cfg.top_k, cfg.block_size,
-                                q_positions, causal=cfg.causal)
+                                q_positions, causal=cfg.causal,
+                                head_top_k=head_top_k)
     return sel.reshape(b, -1, nq, cfg.top_k)
 
 
@@ -50,7 +75,9 @@ def moba_attention_reference(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, cfg: MoBAConfig,
                              q_positions: Optional[torch.Tensor] = None,
                              kv_len: Optional[torch.Tensor] = None,
-                             scale: Optional[float] = None) -> torch.Tensor:
+                             scale: Optional[float] = None,
+                             head_top_k: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """Oracle implementation: O(N^2) masked softmax attention where the
     mask is derived from MoBA block selection.
 
@@ -65,7 +92,8 @@ def moba_attention_reference(q: torch.Tensor, k: torch.Tensor,
     if scale is None:
         scale = 1.0 / (d ** 0.5)
 
-    sel = moba_selection(q, k, cfg, q_positions)            # (B,H,Nq,k)
+    sel = moba_selection(q, k, cfg, q_positions,
+                         head_top_k=head_top_k)              # (B,H,Nq,k)
     sel_mask = routing.selection_mask(sel, nb)               # (B,H,Nq,nb)
     key_block = _arange(n, q) // cfg.block_size              # (N,)
     mask = sel_mask[..., key_block]                          # (B,H,Nq,N)
@@ -111,7 +139,8 @@ def _topk_pages(masked: torch.Tensor, top_k: int):
 
 def moba_paged_route(q: torch.Tensor, centroids: torch.Tensor,
                      block_table: torch.Tensor, kv_len: torch.Tensor,
-                     cfg: MoBAConfig, page_size: Optional[int] = None):
+                     cfg: MoBAConfig, page_size: Optional[int] = None,
+                     head_top_k: Optional[torch.Tensor] = None):
     """Decode-time page routing on the per-page centroid cache.
 
     Shared by the plain gather path and the Hopper decode kernel's
@@ -125,11 +154,14 @@ def moba_paged_route(q: torch.Tensor, centroids: torch.Tensor,
     kv_len:      (B,) int32 post-append valid lengths
 
     Returns (idx, sel_valid): logical page ids (B, Hkv, G, 1, top_k)
-    int64 (invalid slots 0) and their validity mask.
+    int64 (invalid slots 0) and their validity mask.  ``head_top_k``
+    ((Hkv, G) int32 in [1, top_k]) truncates each head's score-sorted
+    selection to its budget.
     """
     ps = page_size or cfg.block_size  # one page == one routable block
-    return _topk_pages(paged_route_scores(q, centroids, block_table, kv_len,
-                                          ps), cfg.top_k)
+    idx, sel_valid = _topk_pages(paged_route_scores(
+        q, centroids, block_table, kv_len, ps), cfg.top_k)
+    return _truncate_head_topk(idx, sel_valid, head_top_k)
 
 
 def paged_route_scores(q: torch.Tensor, centroids: torch.Tensor,
@@ -161,7 +193,8 @@ def moba_paged_decode_attention(q: torch.Tensor, pages_k: torch.Tensor,
                                 kv_len: torch.Tensor, cfg: MoBAConfig,
                                 scale: Optional[float] = None,
                                 scales_k: Optional[torch.Tensor] = None,
-                                scales_v: Optional[torch.Tensor] = None
+                                scales_v: Optional[torch.Tensor] = None,
+                                head_top_k: Optional[torch.Tensor] = None
                                 ) -> torch.Tensor:
     """Single-step decode against a paged cache: route on the per-page
     centroid cache, then gather only the ``top_k`` selected pages through
@@ -176,10 +209,13 @@ def moba_paged_decode_attention(q: torch.Tensor, pages_k: torch.Tensor,
                  this step (call after the cache append)
     scales_k/v:  (P, Hkv) fp32 per-page dequant scales of a quantized
                  pool (None = unquantized).  Routing never sees them.
+    head_top_k:  (Hkv, G) int32 per-head budgets in [1, top_k] (adaptive
+                 routing), or None for the static top_k.
     """
     ps = pages_k.shape[1]
     idx, sel_valid = moba_paged_route(q, centroids, block_table, kv_len,
-                                      cfg, page_size=ps)
+                                      cfg, page_size=ps,
+                                      head_top_k=head_top_k)
     return moba_paged_attend(q, pages_k, pages_v, block_table, kv_len, idx,
                              sel_valid, scale=scale, scales_k=scales_k,
                              scales_v=scales_v)
@@ -229,7 +265,8 @@ def moba_paged_prefill_route(q: torch.Tensor, centroids: torch.Tensor,
                              block_table: torch.Tensor,
                              kv_len: torch.Tensor, q_len: torch.Tensor,
                              cfg: MoBAConfig,
-                             page_size: Optional[int] = None):
+                             page_size: Optional[int] = None,
+                             head_top_k: Optional[torch.Tensor] = None):
     """Chunked-prefill page routing on the per-page centroid cache.
 
     Multi-token sibling of :func:`moba_paged_route`: query j of row i sits
@@ -244,7 +281,8 @@ def moba_paged_prefill_route(q: torch.Tensor, centroids: torch.Tensor,
     valid chunk tokens per row.
 
     Returns (idx, sel_valid): logical page ids (B, Hkv, G, L, top_k)
-    (invalid slots 0) and their validity mask.
+    (invalid slots 0) and their validity mask; ``head_top_k`` as in
+    :func:`moba_paged_route`, applied before the row mask.
     """
     nq = q.shape[2]
     hkv = centroids.shape[1]
@@ -265,6 +303,7 @@ def moba_paged_prefill_route(q: torch.Tensor, centroids: torch.Tensor,
                          scores)
     masked = torch.where(is_own[:, None, None], routing.POS_INF, masked)
     idx, sel_valid = _topk_pages(masked, cfg.top_k)
+    idx, sel_valid = _truncate_head_topk(idx, sel_valid, head_top_k)
     # padded query rows (beyond q_len) select nothing
     row_valid = _arange(nq, q)[None, :] < q_len[:, None]     # (B,L)
     sel_valid = sel_valid & row_valid[:, None, None, :, None]
@@ -279,7 +318,8 @@ def moba_paged_prefill_attention(q: torch.Tensor, pages_k: torch.Tensor,
                                  cfg: MoBAConfig,
                                  scale: Optional[float] = None,
                                  scales_k: Optional[torch.Tensor] = None,
-                                 scales_v: Optional[torch.Tensor] = None
+                                 scales_v: Optional[torch.Tensor] = None,
+                                 head_top_k: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """Chunked-prefill MoBA attention against a paged cache.
 
@@ -294,7 +334,8 @@ def moba_paged_prefill_attention(q: torch.Tensor, pages_k: torch.Tensor,
     its centroid updates must already be appended); q_len: (B,);
     scales_k/v: (P, Hkv) fp32 per-page dequant scales of a quantized
     pool (None = unquantized), applied on the densified view, never to
-    the routing centroids.
+    the routing centroids; head_top_k: (Hkv, G) per-head budgets or
+    None.
     """
     b, h, nq, d = q.shape
     _, ps, hkv, _ = pages_k.shape
@@ -304,7 +345,8 @@ def moba_paged_prefill_attention(q: torch.Tensor, pages_k: torch.Tensor,
 
     idx, sel_valid = moba_paged_prefill_route(q, centroids, block_table,
                                               kv_len, q_len, cfg,
-                                              page_size=ps)
+                                              page_size=ps,
+                                              head_top_k=head_top_k)
     sel_mask = routing.selection_mask(
         torch.where(sel_valid, idx, npg), npg)               # (B,Hkv,G,L,npg)
     pos = kv_len[:, None] + _arange(nq, q)                   # (B,L) abs pos

@@ -74,14 +74,21 @@ def routing_scores(q: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
 
 
 def select_blocks(scores: torch.Tensor, top_k: int, block_size: int,
-                  q_positions: torch.Tensor,
-                  causal: bool = True) -> torch.Tensor:
+                  q_positions: torch.Tensor, causal: bool = True,
+                  head_top_k: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """Top-k block selection with causal masking + forced current block.
 
     scores: (..., Nq, nb); q_positions: (Nq,) absolute token positions.
     Returns int32 (..., Nq, k) of selected block ids, sentinel ``nb`` for
     empty slots.  The current block (if causal) is forced via +inf so it
     always occupies a slot — faithful to MoBA's accounting.
+
+    ``head_top_k`` (optional int32, broadcastable against the leading
+    dims of ``scores``, values in [1, top_k]) truncates each head's
+    selection to its own budget: slots ranked >= head_top_k become
+    sentinels.  The slots are score-sorted with the own block first, so
+    keeping the first ``head_top_k`` is per-head top-k at static shapes.
     """
     nb = scores.shape[-1]
     own = q_positions // block_size                          # (Nq,)
@@ -101,6 +108,10 @@ def select_blocks(scores: torch.Tensor, top_k: int, block_size: int,
         pad = torch.full(top_idx.shape[:-1] + (top_k - kk,), nb,
                          dtype=top_idx.dtype, device=top_idx.device)
         top_idx = torch.cat([top_idx, pad], dim=-1)
+    if head_top_k is not None:
+        keep = (torch.arange(top_k, device=top_idx.device)
+                < head_top_k[..., None, None])
+        top_idx = torch.where(keep, top_idx, nb)
     return top_idx.to(torch.int32)
 
 

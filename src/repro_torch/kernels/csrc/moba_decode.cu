@@ -29,12 +29,19 @@
 //     slot: 112 KB at G 8, top_k 512), which sets top_k <= kMaxTopK.
 //     Each chunk is merged by rank: an entry's new position is the number
 //     of entries that beat it (higher score, or equal score and lower page),
-//     which keeps lax.top_k's tie order.  Then the group's union is sorted
-//     and compacted by the same rank arithmetic, and the kernel writes
+//     which keeps lax.top_k's tie order.  Per-head budgets (adaptive
+//     routing, the JAX package's head_top_k: an optional (Hkv, G) int32
+//     table) cut each head's sorted list: slot j of head (h, g) is kept
+//     only if j < budget[h][g], so rank 0, the forced own page, always
+//     stays, and a truncated slot is written -1 like an invalid one and
+//     never enters the union.  Then the group's union is sorted and
+//     compacted by the same rank arithmetic, and the kernel writes
 //     exactly what moba_paged_route + decode_tables compute: the selections
 //     (-1 = invalid slot), the physical page of each union slot, the
 //     per-(head, slot) token base (npg*ps for a head that did not pick the
-//     page) and n_uniq.
+//     page) and n_uniq.  A smaller budget thus shrinks n_uniq, and with it
+//     the attention grid's live CTAs and the K/V bytes read; the tables'
+//     widths (plan()'s slot counts) stay the static top_k's.
 //  2. moba_decode_attend_kernel, flash-decoding: one CTA per (sequence, kv
 //     head, union slot, token chunk), so the card gets ~B*Hkv*n_uniq CTAs
 //     instead of B*Hkv.  A CTA past n_uniq exits at once.  It copies its
@@ -56,10 +63,6 @@
 // No tensor cores: with moba-340m's G = 1 (H = Hkv) Q.K is a matrix-vector
 // product of one query against ps keys, and a wgmma needs 64 rows; at
 // G <= 8 the products stay on the CUDA cores, in fp32.
-//
-// Later work: adaptive routing (the JAX package's head_top_k, a per-head k
-// that truncates each head's selection inside the route) belongs in the
-// route kernel, as a per-head bound on the slots it keeps.
 //
 // Quantized pools (int8, or fp8 e4m3 "fn": torch.float8_e4m3fn) carry one
 // fp32 scale per (page, kv head), as the TPU kernel's ksc_ref/vsc_ref
@@ -208,6 +211,7 @@ struct RouteArgs {
   const int32_t* table;  // (B, npg)
   const void* kv_len;    // (B,) int32 or int64
   int kvl64;
+  const int32_t* budget; // (Hkv, G) per-head top_k, or null (static)
   int32_t* sel;          // (B*Hkv, G, top_k), -1 = invalid slot
   int32_t* phys;         // (B*Hkv, U)
   int32_t* base;         // (B*Hkv, G, U)
@@ -328,14 +332,17 @@ moba_decode_route_kernel(RouteArgs a) {
     filled = keep;
   }
 
-  // selections: slots past the table or scoring <= -5e29 are invalid
+  // selections: slots past the table, past the head's budget or scoring
+  // <= -5e29 are invalid
   const int nsel = G * K;
   int32_t* sel = a.sel + static_cast<size_t>(row) * nsel;
+  const int32_t* budget = a.budget ? a.budget + h * G : nullptr;
   for (int e = tid; e < nsel; e += kThreads) {
     const int gg = e / K;
     const int j = e - gg * K;
     const int x = cur * NE + gg * KE + j;
-    const int id = (j < filled && ts[x] > kNegInf / 2) ? ti[x] : -1;
+    const int kept = budget ? min(filled, budget[gg]) : filled;
+    const int id = (j < kept && ts[x] > kNegInf / 2) ? ti[x] : -1;
     if (j < KE) ids[gg * KE + j] = id;
     sel[e] = id;
   }
@@ -682,17 +689,20 @@ bool shapes_ok(int rows, int hkv, int g, int top_k, int npg, int ps, int d,
 // dtype: q and out, 0 = float32, 1 = bfloat16; q_sb / q_sh are q's element
 // strides over batch and heads (its last dim is contiguous).
 // payload: the pools, 0 or 1 as dtype (and equal to it, with null scales),
-// 2 = int8, 3 = fp8 e4m3 (both with non-null scales).  chunk, n_chunks and
+// 2 = int8, 3 = fp8 e4m3 (both with non-null scales).  head_top_k: null
+// (static top_k) or a contiguous (Hkv, G) int32 table of per-head budgets
+// on the card, read by the route kernel only.  chunk, n_chunks and
 // slots (= min(G*top_k, npg) * n_chunks) come from the wrapper's plan; out
 // is a contiguous (B, H, 1, d) tensor of q's dtype.
 extern "C" int moba_paged_decode(
     const void* q, long long q_sb, long long q_sh, const void* pages_k,
     const void* pages_v, const void* scales_k, const void* scales_v,
     const void* centroids, const void* block_table, const void* kv_len,
-    int kvl64, void* sel, void* phys, void* base, void* n_uniq, void* o_part,
-    void* ml_part, void* out, int rows, int hkv, int g, int top_k, int npg,
-    int ps, int d, int num_pages, int chunk, int n_chunks, int slots,
-    float scale, int dtype, int payload, void* stream) {
+    int kvl64, const void* head_top_k, void* sel, void* phys, void* base,
+    void* n_uniq, void* o_part, void* ml_part, void* out, int rows, int hkv,
+    int g, int top_k, int npg, int ps, int d, int num_pages, int chunk,
+    int n_chunks, int slots, float scale, int dtype, int payload,
+    void* stream) {
   const bool quant = payload == 2 || payload == 3;
   const bool has_scales = scales_k != nullptr && scales_v != nullptr;
   const bool no_scales = scales_k == nullptr && scales_v == nullptr;
@@ -711,6 +721,7 @@ extern "C" int moba_paged_decode(
                      static_cast<const float*>(centroids),
                      static_cast<const int32_t*>(block_table),
                      kv_len, kvl64,
+                     static_cast<const int32_t*>(head_top_k),
                      static_cast<int32_t*>(sel), static_cast<int32_t*>(phys),
                      static_cast<int32_t*>(base),
                      static_cast<int32_t*>(n_uniq),

@@ -24,7 +24,12 @@ fp32 (any layout whose last dim is contiguous) and pools either in q's
 dtype or quantized (int8 or fp8 e4m3 "fn" payloads with fp32 (P, Hkv)
 ``scales_k``/``scales_v``); head_dim 64 or 128; page_size a multiple of
 16 up to 256; GQA group G <= 8; top_k up to :data:`MAX_TOP_K`; any
-number of pages per sequence; ``kv_len`` int32 or int64.
+number of pages per sequence; ``kv_len`` int32 or int64; optional
+per-head budgets ``head_top_k`` (adaptive routing), a contiguous
+(Hkv, G) int32 tensor on q's card that the route kernel applies to each
+head's score-sorted list (its values, in [1, top_k], are checked once
+where the routing profile is validated, not per call: that would need
+a host sync).
 
 The plain pieces beside the kernels: :func:`union_pages` and
 :func:`decode_tables` (the route tables from ``moba_paged_route``);
@@ -110,7 +115,8 @@ def check_contract(q: torch.Tensor, pages_k: torch.Tensor,
                    centroids: Optional[torch.Tensor] = None,
                    block_table: Optional[torch.Tensor] = None,
                    kv_len: Optional[torch.Tensor] = None,
-                   top_k: Optional[int] = None) -> None:
+                   top_k: Optional[int] = None,
+                   head_top_k: Optional[torch.Tensor] = None) -> None:
     """Raise a shaped error for inputs the CUDA kernels do not take (the
     routing inputs are checked when given)."""
     b, h, one, d = q.shape
@@ -173,6 +179,15 @@ def check_contract(q: torch.Tensor, pages_k: torch.Tensor,
             or tuple(kv_len.shape) != (b,) or not kv_len.is_contiguous()):
         problems.append(f"kv_len as contiguous int32 or int64 ({b},) (got "
                         f"{tuple(kv_len.shape)}, {kv_len.dtype})")
+    if head_top_k is not None and (
+            head_top_k.dtype != torch.int32
+            or tuple(head_top_k.shape) != (hkv, h // hkv)
+            or not head_top_k.is_contiguous()
+            or head_top_k.device != q.device):
+        problems.append(f"head_top_k as contiguous int32 (Hkv, G) = "
+                        f"{(hkv, h // hkv)} on {q.device} (got "
+                        f"{tuple(head_top_k.shape)}, {head_top_k.dtype}, "
+                        f"{head_top_k.device})")
     if top_k is not None and not 1 <= top_k <= MAX_TOP_K:
         problems.append(f"top_k in 1..{MAX_TOP_K}, the limit the route "
                         f"kernel's shared memory sets at G <= {_MAX_GROUP} "
@@ -271,13 +286,16 @@ def plan(b: int, h: int, hkv: int, top_k: int, npg: int, ps: int, d: int,
 
 def route_tables_plain(q: torch.Tensor, centroids: torch.Tensor,
                        block_table: torch.Tensor, kv_len: torch.Tensor,
-                       top_k: int, page_size: int) -> RouteTables:
+                       top_k: int, page_size: int,
+                       head_top_k: Optional[torch.Tensor] = None
+                       ) -> RouteTables:
     """The route kernel's arithmetic in PyTorch, returning exactly its
     outputs: the masked scores of ``moba_paged_route``
     (``paged_route_scores``); a running top-k over
     chunks of :data:`ROUTE_CHUNK` pages where each candidate's new place
     is the number of candidates that beat it (higher score, or equal
-    score and lower page); selections scoring <= -5e29 invalid; the
+    score and lower page); selections scoring <= -5e29, or ranked at or
+    past the head's budget (``head_top_k``, (Hkv, G)), invalid; the
     union by rank (a page's slot is the number of distinct selected
     pages below it); ``phys``/``base``/``n_uniq`` as
     :func:`decode_tables`."""
@@ -305,7 +323,11 @@ def route_tables_plain(q: torch.Tensor, centroids: torch.Tensor,
         order = torch.argsort(rank, dim=-1)[..., :keep]
         top_s, top_i = cs.gather(-1, order), ci.gather(-1, order)
     filled = top_s.shape[-1]
-    sel = torch.where(top_s > NEG_INF / 2, top_i, -1)
+    keep = top_s > NEG_INF / 2
+    if head_top_k is not None:
+        keep = keep & (torch.arange(filled, device=dev)
+                       < head_top_k.to(dev)[..., None])
+    sel = torch.where(keep, top_i, -1)
     ids = torch.cat([sel, sel.new_full((b, hkv, g, top_k - filled), -1)],
                     -1).reshape(b * hkv, g * top_k)          # head-major
     u_cap = g * top_k
@@ -406,7 +428,7 @@ def merge_partials_plain(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
 
 _DECODE_ARGTYPES = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
                     + [ctypes.c_void_p] * 7 + [ctypes.c_int]
-                    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+                    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p])
 
@@ -415,13 +437,15 @@ def launch(q: torch.Tensor, pages_k: torch.Tensor, pages_v: torch.Tensor,
            centroids: torch.Tensor, block_table: torch.Tensor,
            kv_len: torch.Tensor, top_k: int, scale: float,
            scales_k: Optional[torch.Tensor] = None,
-           scales_v: Optional[torch.Tensor] = None
+           scales_v: Optional[torch.Tensor] = None,
+           head_top_k: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, RouteTables]:
     """The three launches (route, attend, merge) in one C call on checked
     CUDA inputs.  Returns the output and the route tables this call
     wrote (views of its scratch): the selections it attended to."""
     out, scratch, p = _launch(q, pages_k, pages_v, centroids, block_table,
-                              kv_len, top_k, scale, scales_k, scales_v)
+                              kv_len, top_k, scale, scales_k, scales_v,
+                              head_top_k)
     n_floats = sum(p.float_sizes)
     sel, phys, base, n_uniq = torch.split(scratch[n_floats:], p.int_sizes)
     return out, RouteTables(sel.view(p.rows, p.g, top_k),
@@ -430,7 +454,7 @@ def launch(q: torch.Tensor, pages_k: torch.Tensor, pages_v: torch.Tensor,
 
 
 def _launch(q, pages_k, pages_v, centroids, block_table, kv_len, top_k,
-            scale, scales_k, scales_v):
+            scale, scales_k, scales_v, head_top_k=None):
     """:func:`launch` without the tables' views (host time a call)."""
     global LAUNCHES, KERNEL_LAUNCHES
     if q.stride(-1) != 1:
@@ -456,7 +480,7 @@ def _launch(q, pages_k, pages_v, centroids, block_table, kv_len, top_k,
             None if scales_k is None else ptr(scales_k),
             None if scales_v is None else ptr(scales_v), ptr(centroids),
             ptr(block_table), ptr(kv_len), int(kv_len.dtype == torch.int64),
-            *ints, at, at + 4 * n_o, ptr(out), p.rows, hkv, p.g, top_k, npg,
+            None if head_top_k is None else ptr(head_top_k), *ints, at, at + 4 * n_o, ptr(out), p.rows, hkv, p.g, top_k, npg,
             ps, d, num_pages, p.chunk, p.n_chunks, p.slots, float(scale),
             runtime.DTYPE_CODES[q.dtype],
             runtime.PAYLOAD_CODES[pages_k.dtype], runtime.stream_of(q))
@@ -474,7 +498,8 @@ def moba_paged_decode(q: torch.Tensor, pages_k: torch.Tensor,
                       cfg: MoBAConfig, scale: Optional[float] = None,
                       grid: str = "grouped",
                       scales_k: Optional[torch.Tensor] = None,
-                      scales_v: Optional[torch.Tensor] = None
+                      scales_v: Optional[torch.Tensor] = None,
+                      head_top_k: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """Drop-in for ``core.moba.moba_paged_decode_attention`` (same
     contract): q (B, H, 1, d); pages_k/v (P, page_size, Hkv, d);
@@ -482,6 +507,15 @@ def moba_paged_decode(q: torch.Tensor, pages_k: torch.Tensor,
     unassigned; kv_len (B,) post-append lengths; scales_k/v (P, Hkv)
     fp32 for a quantized pool, else None.  Rows with ``kv_len`` 0
     return zeros on the card.
+
+    ``head_top_k``: per-head budgets of an adaptive routing profile,
+    (Hkv, G) int32 in [1, top_k] with query head h = hkv·G + g, or None
+    for the static top_k.  Head h keeps the first ``head_top_k[hkv, g]``
+    pages of its score-sorted selection (rank 0 is its own page), so the
+    group's union, and the pages the attention reads, shrink with it.
+    On the card the route kernel applies the budgets; the contiguous
+    int32 (Hkv, G) layout and the device are checked per call, the
+    values are not.
 
     ``grid`` keeps the reference's API ("grouped" | "flat"); on Hopper
     both reach the same kernels.
@@ -493,14 +527,15 @@ def moba_paged_decode(q: torch.Tensor, pages_k: torch.Tensor,
         return moba_paged_decode_attention(q, pages_k, pages_v, centroids,
                                            block_table, kv_len, cfg,
                                            scale=scale, scales_k=scales_k,
-                                           scales_v=scales_v)
+                                           scales_v=scales_v,
+                                           head_top_k=head_top_k)
     if q.device.type != "cuda":
         raise ValueError(f"moba_paged_decode: tensors on {q.device}; "
                          f"expected cpu (plain version) or cuda (kernel)")
     check_contract(q, pages_k, pages_v, scales_k, scales_v,
                    centroids=centroids, block_table=block_table,
-                   kv_len=kv_len, top_k=cfg.top_k)
+                   kv_len=kv_len, top_k=cfg.top_k, head_top_k=head_top_k)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     return _launch(q, pages_k, pages_v, centroids, block_table, kv_len,
-                   cfg.top_k, scale, scales_k, scales_v)[0]
+                   cfg.top_k, scale, scales_k, scales_v, head_top_k)[0]

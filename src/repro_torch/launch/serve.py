@@ -9,6 +9,11 @@ engine (the reference's ``--mode batch``).
   # CUDA kernel, from int8 page pools:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch moba-340m \
       --mode batch --attn-backend flash --kv-dtype int8
+
+  # SNR-guided adaptive routing: per-head top_k calibrated at engine
+  # build (or --route-policy profile:PATH to load a saved profile):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch moba-340m \
+      --mode batch --attn-backend flash --route-policy snr:pfail=0.01
 """
 from __future__ import annotations
 
@@ -44,7 +49,8 @@ def _make_engine(cfg, params, ecfg: EngineConfig, shards: int,
 def serve(arch: str, batch: int = 4, prompt_len: int = 64, gen: int = 32,
           smoke: bool = True, attn_backend: str = "reference",
           seed: int = 0, device="cuda", shards: int = 0,
-          kv_dtype: str = "fp32") -> np.ndarray:
+          kv_dtype: str = "fp32", route_policy: str = "static"
+          ) -> np.ndarray:
     """Decode ``gen`` greedy tokens for ``batch`` random prompts through
     the paged engine.  Returns int32 tokens of shape (batch, gen)."""
     dev = resolve_device(device)
@@ -56,8 +62,10 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 64, gen: int = 32,
     eng = _make_engine(cfg, params, EngineConfig(
         max_seqs=batch, max_seq_len=_round_up(prompt_len + gen, 16),
         max_prefill_batch=min(batch, 4), attn_backend=attn_backend,
-        kv_dtype=kv_dtype),
+        kv_dtype=kv_dtype, route_policy=route_policy),
         shards, device=dev)
+    if eng.route_profile is not None:
+        print(eng.route_profile.summary())
     reqs = [eng.submit(prompts[i], max_new_tokens=gen)
             for i in range(batch)]
     eng.run()
@@ -93,6 +101,13 @@ def main(argv=None):
                          "per-kv-head fp32 scales; centroids and routing "
                          "stay fp32.  Backends must declare the dtype in "
                          "Capabilities.kv_dtypes (reference is fp32-only)")
+    ap.add_argument("--route-policy", default="static",
+                    help="MoBA routing policy: 'static' (uniform top_k), "
+                         "'snr:pfail=P' (SNR-calibrated per-layer/per-"
+                         "head top_k targeting retrieval-failure budget "
+                         "P, e.g. snr:pfail=0.01), or 'profile:PATH' "
+                         "(load a saved routing-profile artifact); "
+                         "core/adaptive.py")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
@@ -101,7 +116,8 @@ def main(argv=None):
         serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
               gen=args.gen, smoke=args.smoke,
               attn_backend=args.attn_backend or "reference",
-              seed=args.seed, device=args.device, kv_dtype=args.kv_dtype)
+              seed=args.seed, device=args.device, kv_dtype=args.kv_dtype,
+              route_policy=args.route_policy)
     except ServingError as e:  # unsupported config / impossible sizing
         print(f"error: {e}", file=sys.stderr)
         raise SystemExit(2)

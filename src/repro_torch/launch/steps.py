@@ -7,6 +7,8 @@ and pools in place, so the returned trees are the ones passed in.
 """
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
@@ -53,8 +55,22 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     return train_step
 
 
+def as_route_map(route_map, device=None
+                 ) -> Optional[Dict[str, torch.Tensor]]:
+    """A routing profile's ``{"slot_i": (n_groups, H)}`` head budgets as
+    contiguous int32 tensors (on ``device``; None keeps a tensor's own
+    device).  The engine converts once, at build: a step then reads a
+    budget row as a view, so it uploads, casts and launches nothing for
+    it."""
+    if route_map is None:
+        return None
+    return {k: torch.as_tensor(v, dtype=torch.int32,
+                               device=device).contiguous()
+            for k, v in route_map.items()}
+
+
 def make_paged_prefill_step(cfg: ModelConfig, backend: str = "reference",
-                            chunked: bool = False):
+                            chunked: bool = False, route_map=None):
     """Ragged prefill into a paged cache: tokens (B, L) right-padded with
     per-row valid length ``q_len``; rows with q_len == 0 are padding.
     ``kv_len`` gives each row's pre-step cache length (all zeros for
@@ -62,9 +78,11 @@ def make_paged_prefill_step(cfg: ModelConfig, backend: str = "reference",
     maps prefill rows to scheduler sequence slots (kept for the
     reference's signature; only its key-conv ring buffers read it).
     ``chunked=True`` selects the chunk-aware attention path that sees
-    earlier chunks through the block table.  Returns (sampled next token
-    (B,) — meaningful only for rows whose prompt is now fully cached,
-    caches)."""
+    earlier chunks through the block table.  ``route_map`` carries an
+    adaptive routing profile's per-head top_k budgets (None = static; see
+    :func:`as_route_map`).  Returns (sampled next token (B,) — meaningful
+    only for rows whose prompt is now fully cached, caches)."""
+    rmap = as_route_map(route_map)
 
     @torch.no_grad()
     def prefill_step(params, tokens, caches, block_table, kv_len, q_len,
@@ -77,7 +95,7 @@ def make_paged_prefill_step(cfg: ModelConfig, backend: str = "reference",
                      if chunked else None)
         logits, caches = T.prefill(params, tokens, cfg, caches,
                                    backend=backend, page_state=page_state,
-                                   positions=positions)
+                                   positions=positions, route_map=rmap)
         last = torch.clamp(q_len - 1, min=0).long()          # (B,)
         lg = logits[torch.arange(tokens.shape[0],
                                  device=tokens.device), last]  # (B,V)
@@ -86,10 +104,13 @@ def make_paged_prefill_step(cfg: ModelConfig, backend: str = "reference",
     return prefill_step
 
 
-def make_paged_decode_step(cfg: ModelConfig, backend: str = "reference"):
+def make_paged_decode_step(cfg: ModelConfig, backend: str = "reference",
+                           route_map=None):
     """One continuous-batching decode step over all sequence slots:
     token (B,), per-slot pre-step lengths kv_len (B,), active mask (B,).
-    Returns (next token (B,), caches)."""
+    ``route_map`` as in :func:`make_paged_prefill_step`.  Returns (next
+    token (B,), caches)."""
+    rmap = as_route_map(route_map)
 
     @torch.no_grad()
     def decode_step(params, token, caches, block_table, kv_len, active):
@@ -97,7 +118,8 @@ def make_paged_decode_step(cfg: ModelConfig, backend: str = "reference"):
                       "q_len": active.to(torch.int32), "active": active}
         logits, caches = T.decode_step(params, token[:, None], cfg,
                                        caches, backend=backend,
-                                       page_state=page_state)
+                                       page_state=page_state,
+                                       route_map=rmap)
         return (torch.argmax(logits[:, -1], dim=-1).to(torch.int32),
                 caches)
 

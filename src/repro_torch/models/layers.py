@@ -139,7 +139,8 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                     *, positions: Optional[torch.Tensor] = None,
                     cache: Optional[dict] = None,
                     backend: str = "reference",
-                    page_state: Optional[dict] = None
+                    page_state: Optional[dict] = None,
+                    head_top_k: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self attention layer.  Returns (out, cache).
 
@@ -149,6 +150,10 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     then needs ``page_state`` = {block_table (B,npg), kv_len (B,)
     pre-step lengths, q_len (B,) new tokens this step, active (B,) bool}
     from the scheduler.  The pool is updated in place.
+
+    ``head_top_k``: optional (H,) int32 per-query-head routing budgets
+    in [1, moba.top_k] from an adaptive routing profile.  Only the paged
+    MoBA paths read it; dense and swa layers ignore it.
     """
     dt = x.dtype
     a = cfg.attention
@@ -174,7 +179,7 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
             raise ValueError("only paged caches are ported; the dense "
                              "per-sequence cache comes later (ROADMAP.md)")
         o, cache = _paged_attend(q, k, v, cache, page_state, cfg, kind,
-                                 positions, backend, conv_w)
+                                 positions, backend, conv_w, head_top_k)
     else:
         if conv_w is not None:     # routing and attention see conv'd keys
             k = apply_key_conv(conv_w, k)
@@ -185,7 +190,7 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
 
 
 def _paged_attend(q, k, v, cache, page_state, cfg: ModelConfig, kind: str,
-                  positions, backend: str, conv_w=None):
+                  positions, backend: str, conv_w=None, head_top_k=None):
     """Paged-cache attention: append new K/V through the block table, then
     attend via the backend resolved for (kind, phase, paged).  MoBA decode
     routes on the per-page centroid cache and reads only the selected
@@ -201,7 +206,11 @@ def _paged_attend(q, k, v, cache, page_state, cfg: ModelConfig, kind: str,
     ``page_state['slots']``.  Fresh rows (``kv_len`` 0) and padding rows
     read a zero state, which makes a recycled slot's old ring harmless.
     The ring is updated in place: inactive decode slots keep theirs, and
-    prefill writes only active rows with a slot, with no host sync."""
+    prefill writes only active rows with a slot, with no host sync.
+
+    ``head_top_k`` (H,) reaches MoBA layers as the (Hkv, G) budgets every
+    paged routing path takes (h = hkv·G + g): a view of an int32 tensor
+    already on the card, so an adaptive step launches nothing more."""
     from repro_torch.core import backends as B
     from repro_torch.core import key_conv as KC
     from repro_torch.serving import paged_cache as PC
@@ -216,6 +225,13 @@ def _paged_attend(q, k, v, cache, page_state, cfg: ModelConfig, kind: str,
     active = page_state["active"]
     post_len = kvl + q_len                     # lengths after this step
     needs_conv = conv_w is not None
+    htk = None
+    adaptive = head_top_k is not None and kind == "moba"
+    if adaptive:
+        hkv = cfg.num_kv_heads
+        htk = torch.as_tensor(head_top_k, dtype=torch.int32,
+                              device=q.device).reshape(
+                                  hkv, cfg.num_heads // hkv)
     if needs_conv and "key_conv_state" not in cache:
         from repro_torch.serving.scheduler import UnsupportedFeatureError
         raise UnsupportedFeatureError(
@@ -224,7 +240,7 @@ def _paged_attend(q, k, v, cache, page_state, cfg: ModelConfig, kind: str,
                         "max_seqs > 0) for key-conv configs")
     if n == 1:                                 # decode: one token per seq
         be = B.resolve(backend, kind=kind, phase="decode", cache="paged",
-                       key_conv=needs_conv)
+                       key_conv=needs_conv, adaptive=adaptive)
         if needs_conv:
             ring = cache["key_conv_state"]     # decode rows ARE the slots
             k, stepped = KC.apply_key_conv_decode(conv_w, k, ring)
@@ -232,11 +248,11 @@ def _paged_attend(q, k, v, cache, page_state, cfg: ModelConfig, kind: str,
                                    ring))
         PC.paged_append_decode(cache, bt, kvl, active, k, v)
         o = be.paged_decode(a, kind, q, cache, bt, post_len,
-                            positions=positions)
+                            positions=positions, head_top_k=htk)
         return o, cache
     # ragged prefill (fresh one-shot, or one chunk of a chunked prompt)
     be = B.resolve(backend, kind=kind, phase="prefill", cache="paged",
-                   key_conv=needs_conv)
+                   key_conv=needs_conv, adaptive=adaptive)
     if needs_conv:
         ring = cache["key_conv_state"]
         slots = page_state["slots"]            # (B,) row -> sequence slot
@@ -250,8 +266,10 @@ def _paged_attend(q, k, v, cache, page_state, cfg: ModelConfig, kind: str,
                            KC.key_conv_state_update(state, k_raw, q_len))
     PC.paged_append_prefill(cache, bt, q_len, k, v, kv_len=kvl)
     if page_state.get("chunked"):
-        o = be.paged_chunk_prefill(a, kind, q, cache, bt, kvl, q_len)
+        o = be.paged_chunk_prefill(a, kind, q, cache, bt, kvl, q_len,
+                                   head_top_k=htk)
     else:
         o = be.paged_prefill(a, kind, q, k, v, post_len=post_len,
-                             positions=torch.arange(n, device=q.device))
+                             positions=torch.arange(n, device=q.device),
+                             head_top_k=htk)
     return o, cache

@@ -94,13 +94,15 @@ def _group(tree, gi: int):
 # ------------------------------------------------------------------ blocks
 def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 positions=None, cache=None, backend="reference",
-                page_state=None):
+                page_state=None, head_top_k=None):
     """Pre-LN block.  Returns (x, cache); the reference's auxiliary loss
-    belongs to MoE blocks, which the port does not have yet."""
+    belongs to MoE blocks, which the port does not have yet.
+    ``head_top_k``: optional (H,) int32 per-head routing budgets for this
+    layer's MoBA attention (an adaptive routing profile)."""
     h, cache = L.apply_attention(
         p["attn"], L.rms_norm(x, p["norm1"], cfg.rms_norm_eps), cfg, kind,
         positions=positions, cache=cache, backend=backend,
-        page_state=page_state)
+        page_state=page_state, head_top_k=head_top_k)
     x = x + h
     h = L.apply_mlp(p["mlp"], L.rms_norm(x, p["norm2"], cfg.rms_norm_eps))
     return x + h, cache
@@ -109,10 +111,16 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
 def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
              caches: Optional[dict] = None, backend: str = "reference",
              positions: Optional[torch.Tensor] = None,
-             page_state: Optional[dict] = None, remat: bool = False):
+             page_state: Optional[dict] = None, remat: bool = False,
+             route_map: Optional[dict] = None):
     """tokens (B, S) -> (logits (B, S, V), aux, caches).  Paged caches are
     updated in place and returned; ``aux`` (the reference's MoE loss) is
     zero for the dense family.
+
+    ``route_map``: optional ``{"slot_i": (n_groups, H) int32}`` per-head
+    MoBA routing budgets from a routing profile; group ``g``'s layer of
+    slot i reads row g.  Slots absent from the map run the static
+    ``top_k``.
 
     ``remat=True`` checkpoints each layer group (the reference's
     ``jax.checkpoint(group_body)``): its activations are recomputed in the
@@ -129,9 +137,11 @@ def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             name = f"slot_{i}"
             p_i = _group(params["blocks"][name], gi)
             cache_i = None if caches is None else _group(caches[name], gi)
+            rt = None if route_map is None else route_map.get(name)
             x, _ = apply_block(p_i, x, cfg, kind, positions=positions,
                                cache=cache_i, backend=backend,
-                               page_state=page_state)
+                               page_state=page_state,
+                               head_top_k=None if rt is None else rt[gi])
         return x
 
     for gi in range(n_groups):
@@ -185,23 +195,26 @@ def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, caches,
-            backend="reference", page_state=None, positions=None):
+            backend="reference", page_state=None, positions=None,
+            route_map=None):
     """``positions`` defaults to [0, S) (fresh prompts); chunked paged
-    prefill passes per-row (B, S) offsets instead."""
+    prefill passes per-row (B, S) offsets instead.  ``route_map`` as in
+    :func:`lm_apply`."""
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     logits, _, caches = lm_apply(params, tokens, cfg, caches=caches,
                                  backend=backend, page_state=page_state,
-                                 positions=positions)
+                                 positions=positions, route_map=route_map)
     return logits, caches
 
 
 def decode_step(params, token: torch.Tensor, cfg: ModelConfig, caches,
-                backend="reference", page_state=None):
+                backend="reference", page_state=None, route_map=None):
     """token (B, 1) against paged caches; the per-sequence position is
-    the scheduler's pre-step length.  Returns (logits (B,1,V), caches)."""
+    the scheduler's pre-step length.  ``route_map`` as in
+    :func:`lm_apply`.  Returns (logits (B,1,V), caches)."""
     pos = page_state["kv_len"][:, None]                      # (B,1) ragged
     logits, _, caches = lm_apply(params, token, cfg, caches=caches,
                                  backend=backend, positions=pos,
-                                 page_state=page_state)
+                                 page_state=page_state, route_map=route_map)
     return logits, caches

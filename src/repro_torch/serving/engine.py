@@ -29,8 +29,10 @@ step's tables does not wait for the steps already enqueued.
 Supported: attention-only dense-family layer patterns, key convolution
 (per-slot raw-key rings), whole-prompt and chunked prefill, preemption
 by recompute and by host swap, dispatch-ahead, unquantized and int8/fp8
-pools, and static routing.  The reference's prefix cache, adaptive
-routing and sharded engine raise :class:`UnsupportedFeatureError` at
+pools, and static or SNR-guided adaptive routing (``route_policy``: a
+per-(layer, head) top_k profile calibrated or loaded once at
+construction, :func:`build_route_profile`).  The reference's prefix
+cache and sharded engine raise :class:`UnsupportedFeatureError` at
 construction until their slices land (ROADMAP.md).
 """
 from __future__ import annotations
@@ -45,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import adaptive as AD
 from repro_torch.core import backends as B
 from repro_torch.core import quantization as Q
 from repro_torch.device import resolve_device
@@ -84,10 +87,12 @@ def needs_key_conv(cfg: ModelConfig) -> bool:
 
 
 def admission_capability_check(cfg: ModelConfig, backend: str,
-                               kv_dtype: str = "fp32") -> None:
+                               kv_dtype: str = "fp32",
+                               adaptive: bool = False) -> None:
     """Every layer kind must resolve for both paged phases (with
     key-conv where the config carries it, quantized-pool support when
-    ``kv_dtype`` is int8/fp8), or the request stream would die inside a
+    ``kv_dtype`` is int8/fp8, per-head ``head_top_k`` routing on MoBA
+    layers when ``adaptive``), or the request stream would die inside a
     step."""
     conv = needs_key_conv(cfg)
     for kind in sorted(set(cfg.layer_pattern)):
@@ -95,10 +100,74 @@ def admission_capability_check(cfg: ModelConfig, backend: str,
             try:
                 B.resolve(backend, kind=kind, phase=phase, cache="paged",
                           key_conv=conv and kind == "moba",
-                          kv_dtype=kv_dtype)
+                          kv_dtype=kv_dtype,
+                          adaptive=adaptive and kind == "moba")
             except B.BackendCapabilityError as e:
                 raise UnsupportedFeatureError("attn_backend",
                                               str(e)) from e
+
+
+def parse_engine_route_policy(policy: str) -> Tuple[str, Optional[object]]:
+    """``core.adaptive.parse_route_policy`` with admission-style errors:
+    a malformed policy fails engine construction as
+    ``UnsupportedFeatureError("route_policy")``."""
+    try:
+        return AD.parse_route_policy(policy)
+    except ValueError as e:
+        raise UnsupportedFeatureError("route_policy", str(e)) from e
+
+
+def build_route_profile(cfg: ModelConfig, params, route_policy: str,
+                        pages_per_seq: int):
+    """Resolve ``EngineConfig.route_policy`` into ``(profile,
+    route_map)``: ``(None, None)`` for static routing.
+
+    ``snr:pfail=P`` runs the calibration pass (``core/adaptive.py``) on
+    the params' device against this engine's routing universe
+    (``pages_per_seq``); ``profile:PATH`` loads a saved artifact.  Either
+    is validated against the model's layer pattern, static ``top_k`` and
+    block size.  Every budget lies in [1, top_k]: ``choose_top_k`` clips
+    to it and ``RoutingProfile.load`` checks it against the file's
+    ``k_max``, which must equal the model's ``top_k``.  That is the one
+    place the decode kernel's budgets are checked by value."""
+    mode, arg = parse_engine_route_policy(route_policy)
+    if mode == "static":
+        return None, None
+    a = cfg.attention
+    if a.moba is None or not any(k == "moba" for k in cfg.layer_pattern):
+        raise UnsupportedFeatureError(
+            "route_policy",
+            f"adaptive routing needs a moba slot in the layer pattern; "
+            f"got {cfg.layer_pattern}")
+    if mode == "snr":
+        profile = AD.calibrate_profile(cfg, params, arg,
+                                       num_blocks=pages_per_seq)
+    else:
+        try:
+            profile = AD.RoutingProfile.load(arg)
+        except (OSError, ValueError, KeyError) as e:
+            raise UnsupportedFeatureError(
+                "route_policy", f"cannot load routing profile {arg!r}: "
+                f"{e}") from e
+    pattern = cfg.layer_pattern
+    n_groups = cfg.num_layers // len(pattern)
+    if profile.k_max != a.moba.top_k \
+            or profile.block_size != a.moba.block_size:
+        raise UnsupportedFeatureError(
+            "route_policy",
+            f"routing profile was calibrated for top_k={profile.k_max} "
+            f"block_size={profile.block_size}, model has "
+            f"top_k={a.moba.top_k} block_size={a.moba.block_size}")
+    for slot, arr in profile.top_k.items():
+        i = int(slot.rsplit("_", 1)[1])
+        if i >= len(pattern) or pattern[i] != "moba" \
+                or arr.shape != (n_groups, cfg.num_heads):
+            raise UnsupportedFeatureError(
+                "route_policy",
+                f"routing profile slot {slot!r} (shape {arr.shape}) does "
+                f"not match layer pattern {pattern} x {n_groups} groups "
+                f"x {cfg.num_heads} heads")
+    return profile, profile.route_map()
 
 
 def resolve_pool_sizes(cfg: ModelConfig, ecfg: "EngineConfig"
@@ -257,8 +326,11 @@ class EngineConfig:
     #                                    (compute dtype, no scales), or
     #                                    "int8" / "fp8" payloads with
     #                                    per-(page, kv head) fp32 scales
-    route_policy: str = "static"       # MoBA routing policy: "static";
-    #                                    adaptive policies raise
+    route_policy: str = "static"       # MoBA routing policy: "static"
+    #                                    (uniform top_k), "snr:pfail=P"
+    #                                    (calibrated per-head budgets) or
+    #                                    "profile:PATH" (a saved profile);
+    #                                    core/adaptive.py
     attn_backend: str = ""             # registered backend (core.backends);
     #                                    "" → "reference".  A
     #                                    "name:option" spec (e.g.
@@ -277,9 +349,6 @@ def out_of_scope(ecfg: EngineConfig) -> Optional[Tuple[str, str]]:
     if ecfg.prefix_cache:
         return ("prefix_cache", f"the radix-tree prefix cache (COW page "
                                 f"copies, tree publishing) is {_LATER}")
-    if ecfg.route_policy != "static":
-        return ("route_policy", f"adaptive routing "
-                                f"{ecfg.route_policy!r} is {_LATER}")
     return None
 
 
@@ -317,10 +386,18 @@ class Engine:
         self.params = params
         self.attn_backend = resolve_engine_backend(ecfg.attn_backend,
                                                    "reference")
+        route_mode, _ = parse_engine_route_policy(ecfg.route_policy)
         admission_capability_check(cfg, self.attn_backend,
-                                   kv_dtype=ecfg.kv_dtype)
+                                   kv_dtype=ecfg.kv_dtype,
+                                   adaptive=route_mode != "static")
         self.page_size, self.pages_per_seq, self.num_pages = \
             resolve_pool_sizes(cfg, ecfg)
+        # adaptive routing: calibrate (or load) the per-(layer, head)
+        # top_k profile once; its budgets go to the card once, as int32
+        # tensors every prefill and decode step (replays included) reads
+        self.route_profile, route_map = build_route_profile(
+            cfg, params, ecfg.route_policy, self.pages_per_seq)
+        route_map = S.as_route_map(route_map, self.device)
         self.caches = T.init_paged_caches(
             cfg, self.num_pages, self.page_size,
             dtype=getattr(torch, cfg.dtype), device=self.device,
@@ -338,9 +415,10 @@ class Engine:
         # itself is off
         self._chunk_aware = bool(ecfg.prefill_chunk or ecfg.swap_bytes > 0)
         self._prefill = S.make_paged_prefill_step(
-            cfg, backend=self.attn_backend, chunked=self._chunk_aware)
-        self._decode = S.make_paged_decode_step(cfg,
-                                                backend=self.attn_backend)
+            cfg, backend=self.attn_backend, chunked=self._chunk_aware,
+            route_map=route_map)
+        self._decode = S.make_paged_decode_step(
+            cfg, backend=self.attn_backend, route_map=route_map)
         self._cur_tok = np.zeros((ecfg.max_seqs,), np.int32)
         self._next_rid = 0
         self._t0 = None

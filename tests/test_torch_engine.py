@@ -151,14 +151,18 @@ def test_staged_matches_legacy(model, kw):
 # ------------------------------------------------------- out-of-scope gates
 @pytest.mark.parametrize("field,ecfg", [
     ("prefix_cache", dict(prefix_cache=True)),
-    ("route_policy", dict(route_policy="snr:pfail=0.01")),
+    ("route_policy", dict(route_policy="snr:pfail=0.9")),
 ])
 def test_out_of_scope_engine_config_raises(model, field, ecfg):
+    """The prefix cache is not ported yet (its error points at
+    ROADMAP.md); adaptive routing is, and a malformed policy still fails
+    construction under its own field."""
     _, _, cfg, params = model
     with pytest.raises(UnsupportedFeatureError) as ei:
         Engine(cfg, params, EngineConfig(**ecfg), device="cpu")
     assert ei.value.feature == field
-    assert "ROADMAP.md" in str(ei.value)
+    want = "ROADMAP.md" if field == "prefix_cache" else "pfail must be in"
+    assert want in str(ei.value)
 
 
 def test_out_of_scope_model_and_fleet_raise(model):
