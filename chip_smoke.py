@@ -61,7 +61,15 @@ Phases, one JSON line each; any failure exits non-zero:
                than the static call's; and at the main shape the call with
                and without budgets (``call_cost``, the launches alone,
                the bytes bound from the union each read, mean
-               ``n_uniq``).
+               ``n_uniq``).  Then ``zero_ties``: queries with every
+               component negative against centroids whose every other
+               row is zero (scores tie at exactly 0.0; the rest exact
+               and far apart), through Flash TopK (block 128 / top_k 8,
+               bf16 and fp32; block 16 / top_k 64, bf16) and the decode
+               route at moba-340m's decode shape: selections equal the
+               plain versions' exactly (``lax.top_k``'s order: the
+               float's total order, then the lower index), and some rows
+               are cut inside a tie.
   3. serve   — moba-340m at full width (bf16, random weights from a
                seeded torch.Generator) through ``Engine`` on the ``flash``
                backend: 8 prompts of 1024..4095 tokens, 64 new tokens
@@ -120,7 +128,24 @@ Phases, one JSON line each; any failure exits non-zero:
                run's top-2 bf16 logit gap is at most 0.0625, and a
                profiled step's launch calls equal static's; static and
                (b) each print the profiled step ms, device busy ms, idle
-               share and mean ``n_uniq`` a (sequence, kv head).
+               share and mean ``n_uniq`` a (sequence, kv head).  Then
+               ``serve_prefix``: the radix-tree prefix cache on
+               ``flash``, moba-340m (bf16): 8 prompts sharing a
+               2,048-token prefix, each with a distinct suffix of
+               64..1,024 tokens, 32 new tokens, 2 admitted a step; then
+               a 2,085-token shared prefix (a hit copies the partial
+               page); that traffic from int8 pools (whole pages only);
+               kconv3 on the first traffic; each against the same engine
+               with the cache off.  Gates: the hit, hit-token and COW
+               counts ``expected_prefix_stats`` implies, streams equal
+               up to the first teacher-forced top-2 gap <= 1e-2, 12
+               decode calls and 36 kernels a step, a profiled decode
+               step's launch calls equal the no-cache engine's (bf16);
+               kconv3: every hit row's ring, as its conv read it, equal
+               bit for bit to the raw keys the tree's page holder
+               computed before the match; a second turn (turn 1's
+               prompt, its output and 64 tokens) hits turn 1's cache and
+               holds against a fresh engine.
   5. train_kernels — the four FlashMoBA training kernels (centroids, Flash
                TopK, forward, backward) against their plain PyTorch
                versions at the moba-340m training shapes (B=1, H=Hkv=16,
@@ -187,7 +212,18 @@ Phases, one JSON line each; any failure exits non-zero:
                every MoBA layer's ``key_conv`` gradient finite and
                nonzero in every step, the conv weights moved; step ms,
                tokens/s and peak memory beside phase 6's; then the same
-               steps on ``xla``, each loss within 2e-2 of flash's.
+               steps on ``xla``, each loss within 2e-2 of flash's.  Then
+               ``train_accum``: one step at batch 2 x 8192 with 2
+               microbatches, then with ``accum_in_loss``, then at once,
+               from the same weights and batch, in bf16 (step ms, peak
+               memory) and in fp32: losses within 2e-4 relative of the
+               one-shot step's, in fp32 every gradient leaf within 5e-3
+               of its max, exact launch counts.  Then ``train_resume``:
+               4 steps through ``launch/train.py::train`` uninterrupted,
+               then 2 that save and stop and ``resume="auto"`` for the
+               rest (a temporary directory, 1 checkpoint kept): losses
+               and params within rtol 1e-5 (bit-equality reported); the
+               snapshot, the write, the bytes and the restore timed.
   7. train_grads — the same weights in fp32 (TF32 off), batch 1, seq
                2048: ``lm_loss`` and every gradient leaf under ``flash``
                against ``xla`` (loss 2e-4 relative, each leaf max |Δ| /
@@ -221,10 +257,11 @@ the decode kernels once per pool dtype; Flash TopK also with its
 small-block times and its times alone at top_k 16, 64 and 1024;
 ``swa_attention`` also at d 128 and in fp32; ``launches_also``: each
 kernel's launches on the other paths, ``serve_key_conv``,
-``serve_qwen3`` and ``serve_adaptive`` (its (b) run) for the decode
-kernels, whose bf16 entry also holds ``with_budgets``, ``train_small_blocks`` and
-``train_key_conv`` for the training kernels), and as the last line
-``{"ok": true, "device": {...}}``.
+``serve_qwen3``, ``serve_adaptive`` (its (b) run) and ``serve_prefix``
+(each case with the cache on) for the decode kernels, whose bf16 entry
+also holds ``with_budgets``; ``train_small_blocks``, ``train_key_conv``
+and ``train_accum``'s two accumulating bf16 steps for the training
+kernels), and as the last line ``{"ok": true, "device": {...}}``.
 
   python3 chip_smoke.py --ab DIR
 
@@ -238,9 +275,11 @@ the CUDA-event reading without the spin kernel); the Flash TopK launch
 (through its wrapper, whose only device work it is), ``moba_fwd.launch``
 and ``moba_bwd.launch`` alone on the phase-5 moba-340m bf16 case (dO in
 the dtype that tree's backward wrapper takes, read from its
-``check_contract``); ``swa_attention`` through its public wrapper at
-moba-340m's SWA shape (bf16 and fp32 at d 64, bf16 at d 128); and the
-phase-6 median training step (steps 2–4).
+``check_contract``), and the Flash TopK launch again at block 32 /
+top_k 32, at phase 5's ``top_k-64`` shape (its shared-memory lists) and
+in fp32; ``swa_attention`` through
+its public wrapper at moba-340m's SWA shape (bf16 and fp32 at d 64, bf16
+at d 128); and the phase-6 median training step (steps 2–4).
 The last line holds each tree's medians and the ratio DIR / this.
 
 Without a usable card, or run from a directory that lacks the
@@ -849,6 +888,106 @@ def _time_decode(q, pool, table, kv, cfg, args, err, flush):
             "bound_us": max(bytes_ms, ops_ms) * 1e3,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "max_abs_err": err, "profile": _profile_call(call)}
+
+
+def _tie_values(rows: int):
+    """Row values for the signed-zero tie check: every other row 0.0 (its
+    score is exactly 0.0, a tie), the rest ±(1..13)/4 (exact scores, far
+    apart), so queries with negative components rank a quarter of the
+    rows above the zeros and a quarter below."""
+    import torch
+    j = torch.arange(rows, device="cuda")
+    return torch.where(j % 2 == 0, 0.0, torch.where(j % 4 == 1, 1.0, -1.0)
+                       * (((j * 7) % 13) + 1).float() * 0.25)
+
+
+def _ties_cut(masked, sel) -> int:
+    """Rows whose selection ``sel`` (indices into ``masked``'s last axis)
+    takes some but not all of the row's candidates scoring exactly 0.0:
+    there the tie order decided which."""
+    zero_sel = (masked.gather(-1, sel) == 0).sum(-1)
+    zero_all = (masked == 0).sum(-1)
+    return int(((zero_sel > 0) & (zero_all > zero_sel)).sum())
+
+
+def phase_zero_ties():
+    """Top-k ties at exactly 0.0 on the card: queries with every component
+    negative (bf16-representable, so every product is exact) against
+    centroids whose every other row is zero (:func:`_tie_values`),
+    through Flash TopK (block 128 / top_k 8, the register list, bf16 and
+    fp32; block 16 / top_k 64, the shared-memory list, bf16) and the
+    decode route (moba-340m's decode shape, bf16 q).  Selections must
+    equal the plain versions' (``flash_topk_ref``,
+    ``route_tables_plain``) exactly, ties included: both order on the
+    float's total order, then the lower index.  The rows whose selection
+    a tie at 0.0 cut (:func:`_ties_cut`) are counted; there must be
+    some."""
+    import torch
+    from repro_torch.configs.base import MoBAConfig
+    from repro_torch.core import moba as CM
+    from repro_torch.kernels import flash_topk as KT
+    from repro_torch.kernels import moba_decode as MD
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def negative(shape, dtype):
+        x = -(torch.rand(shape, generator=gen, device="cuda") + 0.05)
+        return x.to(torch.bfloat16).to(dtype)
+
+    recs, ok = [], True
+    for bs, top_k, dtype in ((128, 8, torch.bfloat16),
+                             (128, 8, torch.float32),
+                             (16, 64, torch.bfloat16)):
+        h, hkv, n, d = 4, 2, 2048, 64
+        nb = n // bs
+        q = negative((h, n, d), dtype)
+        cents = torch.zeros((hkv, nb, d), device="cuda", dtype=dtype)
+        cents[:, :, 0] = _tie_values(nb).to(dtype)
+        got = KT.flash_topk(q, cents, top_k, bs, group=h // hkv,
+                            num_q_heads=h)
+        want = ref.flash_topk_ref(q, cents, top_k, bs, group=h // hkv,
+                                  num_q_heads=h)
+        masked = _masked_scores(q, cents[ref.kv_rows(h, h, h // hkv,
+                                                     q.device)], n, bs)
+        cut = _ties_cut(masked, want.long())
+        equal = bool(torch.equal(got, want))
+        recs.append({"kernel": "flash_topk", "block_size": bs,
+                     "top_k": top_k, "dtype": str(dtype), "n": n,
+                     "equal": equal, "rows_cut_in_a_zero_tie": cut,
+                     "rows": int(want.shape[0] * want.shape[1])})
+        ok &= equal and cut > 0
+    # the decode route at moba-340m's decode shape, bf16 q
+    cfg = MoBAConfig(block_size=128, top_k=8)
+    q, pool, table, kv = _paged_case(
+        b=8, h=16, hkv=16, d=64, ps=128, npg=33, num_pages=320,
+        kv_lens=[0, 1, 128, 100, 1500, 3000, 4224, 2777],
+        dtype=torch.bfloat16, seed=7)
+    q = negative(q.shape, torch.bfloat16)
+    pool["centroids"].zero_()
+    pool["centroids"][:, :, 0] = _tie_values(
+        pool["centroids"].shape[0])[:, None]
+    _, rt = _decode_launch(q, pool, table, kv, cfg)
+    plain = MD.route_tables_plain(q, pool["centroids"], table, kv, cfg.top_k,
+                                  128)
+    masked = CM.paged_route_scores(q, pool["centroids"], table, kv,
+                                   128)[..., 0, :].reshape(rt.sel.shape[0],
+                                                           -1, table.shape[1])
+    masked = torch.cat([masked, torch.full_like(masked[..., :1],
+                                                CM.NEG_INF)], -1)
+    sel = plain.sel.long()
+    cut = _ties_cut(masked, torch.where(sel >= 0, sel, table.shape[1]))
+    equal = bool(torch.equal(rt.sel, plain.sel))
+    recs.append({"kernel": "moba_paged_decode (route)", "block_size": 128,
+                 "top_k": 8, "dtype": "torch.bfloat16", "equal": equal,
+                 "rows_cut_in_a_zero_tie": cut,
+                 "rows": int(sel.shape[0] * sel.shape[1])})
+    ok &= equal and cut > 0
+    emit({"phase": "zero_ties", "checks": recs, "ok": ok})
+    if not ok:
+        raise SystemExit("zero_ties: a kernel's selections differ from its "
+                         "plain version's on ties at 0.0, or no tie was "
+                         "selected")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1527,6 +1666,327 @@ def _key_conv_swap(layers: int = 4, new_tokens: int = 32) -> dict:
                                                        outs["tight"])),
             "streams_diverged": diverged, "near_tie_steps": ties,
             "first_near_tie_step": first_tie, "gap_tol": GAP_TOL, "ok": ok}
+
+
+# ------------------------------------------------------------ prefix cache
+PREFIX_SHARED = 2048            # the shared system prompt: 16 whole pages
+PREFIX_COW_EXTRA = 37           # the variant's prefix ends 37 tokens into
+#                                 page 17, so a hit copies that page (COW)
+PREFIX_GAP_TOL = 1e-2           # a teacher-forced top-2 logit gap at or
+#                                 below which a bf16 stream may part
+
+
+def prefix_prompts(vocab: int, shared: int, n: int = 8, seed: int = 0):
+    """``n`` prompts sharing one prefix of ``shared`` tokens, each then a
+    distinct suffix of 64..1024 tokens (``default_rng(seed)``)."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, shared, dtype=np.int32)
+    lens = rng.integers(64, 1025, n)
+    return [np.concatenate([prefix, rng.integers(0, vocab, int(s),
+                                                 dtype=np.int32)])
+            for s in lens]
+
+
+def expected_prefix_stats(prompts, page_size: int, batch: int,
+                          full_only: bool) -> dict:
+    """The prefix-cache counts the scheduler's plan implies for
+    ``prompts`` submitted at once to an empty engine with room for all
+    and ``max_prefill_batch`` = ``batch``: request i is admitted in step
+    i // batch, so the first step's requests miss; a later request
+    matches its longest common prefix with a request admitted in an
+    earlier step, up to that request's whole pages cached by then (its
+    prompt at its prefill, then one token a step), capped at its own
+    length - 1 and, with ``full_only`` (quantized or key-conv pools),
+    rounded down to whole pages; a match that ends mid-page costs one
+    COW copy."""
+    hits = tokens = cow = 0
+    for i, p in enumerate(prompts):
+        wave, best = i // batch, 0
+        for j in range(wave * batch):
+            q = prompts[j]
+            n = min(len(p), len(q))
+            diff = np.flatnonzero(p[:n] != q[:n])
+            lcp = int(diff[0]) if diff.size else n
+            cached = len(q) + wave - j // batch
+            best = max(best, min(lcp, cached - cached % page_size))
+        best = min(best, len(p) - 1)
+        if full_only:
+            best -= best % page_size
+        hits += best > 0
+        tokens += best
+        cow += best % page_size != 0
+    return {"prefix_hits": hits, "prefix_hit_tokens": tokens,
+            "cow_copies": cow}
+
+
+PREFIX_STATS = ("prefix_hits", "prefix_hit_tokens", "prefix_prompt_tokens",
+                "cow_copies", "tree_evictions", "preemptions")
+
+
+def _prefix_serve(cfg, params, prompts, new_tokens: int, *,
+                  device="cuda", record_conv: bool = False, **ekw):
+    """One engine on ``flash`` (max_seqs 8, max_prefill_batch 2) serving
+    ``prompts``, all submitted at once, ``new_tokens`` each; the decode
+    kernels' counts are zeroed just before ``run()`` and read just after.
+    ``record_conv`` keeps each prefill step's rows (request id, cached
+    length before it) and, for each of its MoBA layers in order, the raw
+    keys and the ring state that layer's conv read.  Returns the record
+    (streams included), the engine, the steps and the conv records."""
+    import torch
+    from repro_torch.core import key_conv as KC
+    from repro_torch.kernels import moba_decode as MD
+    from repro_torch.serving.engine import Engine, EngineConfig
+    eng = Engine(cfg, params, EngineConfig(
+        max_seqs=8, max_prefill_batch=2, max_seq_len=4224,
+        attn_backend="flash", **ekw), device=device)
+    reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    steps, convs = [], []
+    run_prefill, conv = eng._run_prefill, KC.apply_key_conv_with_state
+
+    def prefill_rec(rs, now):
+        steps.append([(r.rid, r.cache_len) for r in rs])
+        return run_prefill(rs, now)
+
+    def conv_rec(weights, k, state):
+        convs.append((k.clone(), state.clone()))
+        return conv(weights, k, state)
+
+    if record_conv:
+        eng._run_prefill, KC.apply_key_conv_with_state = prefill_rec, conv_rec
+    if device == "cuda":
+        torch.cuda.synchronize()
+    MD.LAUNCHES = MD.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        eng.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        eng._run_prefill, KC.apply_key_conv_with_state = run_prefill, conv
+    wall = time.perf_counter() - t0
+    st = dict(eng.stats)
+    rec = {"prefix_cache": eng.ecfg.prefix_cache,
+           "kv_dtype": eng.ecfg.kv_dtype,
+           "requests_done": sum(r.done and len(r.out) == new_tokens
+                                for r in reqs),
+           "prefill_tokens": st["prefill_tokens"],
+           "prefill_s": st["prefill_s"],
+           "decode_steps": st["decode_steps"],
+           "decode_step_ms": st["decode_s"] / max(st["decode_steps"], 1)
+           * 1e3,
+           "wall_s": wall, "decode_calls": MD.LAUNCHES,
+           "kernel_launches": MD.KERNEL_LAUNCHES,
+           **{k: st[k] for k in PREFIX_STATS},
+           "streams": [list(r.out) for r in reqs]}
+    return rec, eng, steps, convs
+
+
+def _teacher_gaps(cfg, params, prompts, streams, device="cuda"):
+    """Top-2 logit gaps at each token of ``streams``, teacher-forced:
+    one ``lm_apply`` on ``flash`` over each prompt and its stream (the
+    gap at token j is that of the logits that chose it)."""
+    import torch
+    from repro_torch.models import transformer as T
+    out = []
+    for p, s in zip(prompts, streams):
+        seq = torch.as_tensor(np.concatenate([p, np.asarray(s[:-1],
+                                                            np.int32)]),
+                              device=device)[None]
+        with torch.no_grad():
+            logits, _, _ = T.lm_apply(params, seq, cfg, backend="flash")
+        top2 = logits[0, len(p) - 1:].float().topk(2, dim=-1).values
+        out.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+    return out
+
+
+def _parted(cfg, params, prompts, want, got,
+            tol: float = PREFIX_GAP_TOL) -> dict:
+    """Where each ``got`` stream first parts from ``want``; a parting is
+    explained when ``want``'s teacher-forced top-2 gaps
+    (:func:`_teacher_gaps`, computed for parted requests only) reach
+    ``tol`` at or before it."""
+    parted, ok = [], True
+    for i, (a, b) in enumerate(zip(want, got)):
+        d = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if d is None:
+            continue
+        g = _teacher_gaps(cfg, params, [prompts[i]], [a])[0]
+        tie = next((j for j, v in enumerate(g) if v <= tol), None)
+        parted.append({"request": i, "token": d, "first_near_tie": tie,
+                       "gap_at_token": float(g[d])})
+        ok &= tie is not None and tie <= d
+    return {"streams_equal": len(want) - len(parted), "parted": parted,
+            "gap_tol": tol, "ok": ok}
+
+
+def _ring_loads_equal(steps, convs, groups: int, page_size: int) -> dict:
+    """For every prefix-hit prefill row (cached length > 0 before its
+    step), the ring state each MoBA layer's conv read must equal, bit for
+    bit, the raw keys that the first step's first row (the request whose
+    pages the tree holds) computed at the W-1 positions before the
+    match: the tail its pages recorded, loaded into the ring."""
+    import torch
+    hits, equal = 0, True
+    for s, rows in enumerate(steps):
+        for r, (_, cached) in enumerate(rows):
+            if cached == 0:
+                continue
+            hits += 1
+            equal &= cached % page_size == 0
+            for g in range(groups):
+                k0 = convs[g][0][0]                         # step 0, row 0
+                state = convs[s * groups + g][1][r]
+                w = state.shape[1]
+                equal &= bool(torch.equal(state,
+                                          k0[:, cached - w:cached]))
+    return {"hit_rows": hits, "rings_equal_publisher_raw_keys": equal,
+            "conv_calls": len(convs), "prefill_steps": len(steps)}
+
+
+def phase_serve_prefix():
+    """moba-340m at full width (bf16, seed-0 weights) with the radix-tree
+    prefix cache on ``flash``: 8 prompts sharing a 2,048-token prefix (16
+    whole pages) with distinct 64..1,024-token suffixes, 32 new tokens,
+    then the variant whose prefix is 2,085 tokens (a hit copies its
+    partial page), then that traffic from int8 pools (whole pages only),
+    then moba-340m-kconv3 on the first traffic (the suffix prefill's
+    rings from the page tails), then a second turn (turn 1's prompt, its
+    output and 64 new tokens).  Each against the same engine with
+    ``prefix_cache=False`` on the same traffic (a fresh engine for the
+    second turn): streams equal up to the first teacher-forced near-tie
+    (:data:`PREFIX_GAP_TOL`), the hit and COW counts those
+    :func:`expected_prefix_stats` implies, 12 decode calls and 36
+    kernels a step, and, in a profiled window, the launch calls of a
+    decode step equal to the no-cache engine's.  Returns the decode
+    counts of the bf16, int8 and kconv3 runs with the cache on, and the
+    record."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    n = QUANT_NEW_TOKENS
+    rec, counts, bad = {"phase": "serve_prefix", "new_tokens": n}, {}, []
+    vocab = get_config("moba-340m").vocab_size
+    traffic = {"aligned": prefix_prompts(vocab, PREFIX_SHARED),
+               "cow": prefix_prompts(vocab, PREFIX_SHARED + PREFIX_COW_EXTRA)}
+    cases = (("bf16", "moba-340m", "aligned", "fp32"),
+             ("bf16_cow", "moba-340m", "cow", "fp32"),
+             ("int8_cow", "moba-340m", "cow", "int8"),
+             ("kconv3", "moba-340m-kconv3", "aligned", "fp32"))
+    for name, arch, tname, kv_dtype in cases:
+        kconv = arch.endswith("kconv3")
+        cfg = get_config("moba-340m", **({"key_conv_width": KEY_CONV_WIDTH}
+                                          if kconv else {}))
+        params = T.init_lm(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+        prompts = traffic[tname]
+        runs = {}
+        for on in (False, True):
+            r, eng, steps, convs = _prefix_serve(
+                cfg, params, prompts, n, kv_dtype=kv_dtype,
+                prefix_cache=on, record_conv=kconv and on)
+            if name == "bf16":
+                r["profile"] = _profile_decode(eng, cfg,
+                                               np.random.default_rng(1))
+            if name == "bf16" and on:
+                r["second_turn"] = _second_turn(cfg, params, eng, prompts[0],
+                                                r["streams"][0], n)
+            if convs:
+                r["rings"] = _ring_loads_equal(steps, convs,
+                                               _moba_layers(cfg),
+                                               eng.page_size)
+            runs["on" if on else "off"] = r
+            del eng, steps, convs
+            gc.collect()
+            torch.cuda.empty_cache()
+        off, on = runs["off"], runs["on"]
+        want = expected_prefix_stats(prompts, 128, 2,
+                                     full_only=kv_dtype != "fp32" or kconv)
+        got = {k: on[k] for k in want}
+        case = {"arch": cfg.name, "kv_dtype": kv_dtype,
+                "shared_prefix": {"aligned": PREFIX_SHARED,
+                                  "cow": PREFIX_SHARED
+                                  + PREFIX_COW_EXTRA}[tname],
+                "prompt_lens": [len(p) for p in prompts],
+                "expected": want, "got": got,
+                "streams_vs_no_cache": _parted(cfg, params, prompts,
+                                               off["streams"],
+                                               on["streams"]),
+                **{f"{w}_{k}": runs[w][k] for w in ("off", "on") for k in (
+                    "prefill_tokens", "prefill_s", "decode_step_ms",
+                    "wall_s", "decode_calls", "kernel_launches",
+                    "decode_steps", "requests_done", "preemptions")},
+                **{k: on[k] for k in ("rings", "second_turn") if k in on}}
+        if name == "bf16":
+            case["profile"] = {w: {k: runs[w]["profile"][k] for k in (
+                "step_ms", "device_busy_ms_per_step", "device_idle_share",
+                "launch_calls_per_step", "kernels_per_step")}
+                for w in ("off", "on")}
+        rec[name] = case
+        counts[name] = (on["decode_calls"], on["kernel_launches"])
+        ml = _moba_layers(cfg)
+        for w, r in runs.items():
+            if r["requests_done"] != len(prompts):
+                bad.append(f"{name}/{w}: a request did not finish")
+            if r["decode_calls"] != ml * r["decode_steps"] \
+                    or r["kernel_launches"] != 3 * r["decode_calls"]:
+                bad.append(f"{name}/{w}: {r['decode_calls']} decode calls, "
+                           f"{r['kernel_launches']} kernels for "
+                           f"{r['decode_steps']} steps")
+        if got != want:
+            bad.append(f"{name}: prefix counts {got} != expected {want}")
+        if not case["streams_vs_no_cache"]["ok"]:
+            bad.append(f"{name}: a stream parted from the no-cache "
+                       f"engine's off a near-tie")
+        if kv_dtype != "fp32" and (on["cow_copies"]
+                                   or on["prefix_hit_tokens"] % 128):
+            bad.append(f"{name}: a quantized pool shared a partial page")
+        if "rings" in case and not (
+                case["rings"]["rings_equal_publisher_raw_keys"]
+                and case["rings"]["hit_rows"] == want["prefix_hits"]):
+            bad.append(f"{name}: a ring loaded from the tails is not the "
+                       f"publisher's raw keys")
+        if "second_turn" in case and not case["second_turn"]["ok"]:
+            bad.append(f"{name}: the second turn missed its hit or parted "
+                       f"from a fresh engine off a near-tie")
+        if name == "bf16" and (
+                case["profile"]["on"]["launch_calls_per_step"]
+                != case["profile"]["off"]["launch_calls_per_step"]):
+            bad.append("bf16: a decode step's launch calls differ with "
+                       "the prefix cache on")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["ok"] = not bad
+    rec["failures"] = bad
+    emit(rec)
+    if bad:
+        raise SystemExit("serve_prefix: " + "; ".join(bad))
+    return counts, rec
+
+
+def _second_turn(cfg, params, eng, prompt, out, n: int) -> dict:
+    """Turn 2 on ``eng`` (whose tree holds turn 1): turn 1's prompt, its
+    output and 64 new tokens.  Turn 1's cache (its prompt and all but its
+    last token, the partial tail page included at finish) must be the
+    hit; the stream is held against a fresh engine's, teacher-forced."""
+    rng = np.random.default_rng(2)
+    turn2 = np.concatenate([prompt, np.asarray(out, np.int32),
+                            rng.integers(0, cfg.vocab_size, 64,
+                                         dtype=np.int32)])
+    before = {k: eng.stats[k] for k in ("prefix_hit_tokens", "cow_copies")}
+    req = eng.submit(turn2, max_new_tokens=n)
+    eng.run()
+    hit = eng.stats["prefix_hit_tokens"] - before["prefix_hit_tokens"]
+    fresh, feng, _, _ = _prefix_serve(cfg, params, [turn2], n)
+    del feng
+    gc.collect()
+    vs = _parted(cfg, params, [turn2], fresh["streams"], [list(req.out)])
+    want_hit = len(prompt) + n - 1
+    return {"prompt_len": len(turn2), "hit_tokens": hit,
+            "expected_hit_tokens": want_hit,
+            "cow_copies": eng.stats["cow_copies"] - before["cow_copies"],
+            "vs_fresh": vs, "ok": hit == want_hit and vs["ok"]}
 
 
 # ------------------------------------------------------------------ phase 5
@@ -2288,6 +2748,218 @@ def _time_key_conv() -> dict:
             "decode_layer": call_cost(decode, flush)}
 
 
+# ------------------------------------------------- accumulation and resume
+ACCUM_MODES = ("microbatch", "accum_in_loss", "one_shot")
+ACCUM_LOSS_RTOL = 2e-4
+ACCUM_GRAD_TOL = 5e-3          # of each leaf's max, tests/test_kernels.py
+
+
+def _accum_step(mode: str, tokens, dtype: str) -> tuple:
+    """One ``make_train_step`` step of moba-340m (full width and depth,
+    computing in ``dtype``, seed-0 weights, remat, ``flash``) on
+    ``tokens`` (2 x 8193): in 2 microbatches (``microbatch``: a backward
+    each; ``accum_in_loss``: one loss over both, each under
+    ``torch.utils.checkpoint``) or at once.  The training kernels' counts
+    are zeroed just before the step and read just after.  Returns the
+    record and the first moment after the step (0.1 x the clipped
+    gradient)."""
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_config("moba-340m"), dtype=dtype)
+    tcfg = TrainConfig(global_batch_size=2, seq_len=TRAIN_SEQ,
+                       total_steps=TRAIN_STEPS + 1, warmup_steps=1,
+                       microbatch=0 if mode == "one_shot" else 2)
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = adamw.adamw_init(params)
+    step_fn = S.make_train_step(cfg, tcfg, backend="flash", remat=True,
+                                accum_in_loss=mode == "accum_in_loss")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    params, opt, m = step_fn(params, opt, {"tokens": tokens})
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    rec = {"mode": mode, "dtype": dtype, "loss": loss,
+           "grad_norm": float(m["grad_norm"]),
+           "step_ms": (time.perf_counter() - t0) * 1e3,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": _counts()}
+    mu = opt.mu
+    del params, opt, step_fn
+    return rec, mu
+
+
+def phase_train_accum():
+    """Gradient accumulation at full width: one step at global batch 2 x
+    8192 with ``microbatch=2``, then with ``accum_in_loss``, then at once,
+    each from the seed-0 weights and the same batch (TF32 off), first
+    computing in bf16 (the trained configuration: step ms, peak memory,
+    losses), then in fp32 (the gradients).  Gates: each loss within 2e-4
+    relative of the one-shot step's in the same dtype; in fp32 every
+    gradient leaf (through the first moment) within 5e-3 of its max, the
+    port's fp32 gradient tolerance (bf16's gap is reported: bf16 rounds
+    differently in GEMMs of another shape); finite; the training kernels
+    launched as the path implies: per chunk, the forward's three kernels
+    twice under remat (three times inside the loss's checkpoint) and the
+    backward once.  Returns the bf16 launches of the two accumulating
+    modes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    data = SyntheticLM(DataConfig(
+        vocab_size=get_config("moba-340m").vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=2, seed=0))
+    tokens = torch.as_tensor(data.batch_at(0)["tokens"], device="cuda")
+    forwards = {"microbatch": 2 * 2, "accum_in_loss": 2 * 3, "one_shot": 2}
+    backwards = {"microbatch": 2, "accum_in_loss": 2, "one_shot": 1}
+    rec, bad = {"phase": "train_accum", "arch": "moba-340m", "batch": 2,
+                "seq": TRAIN_SEQ, "remat": True, "backend": "flash",
+                "loss_rtol": ACCUM_LOSS_RTOL,
+                "grad_tol_fp32": ACCUM_GRAD_TOL}, []
+    for dtype in ("bfloat16", "float32"):
+        recs, mus = {}, {}
+        for mode in ACCUM_MODES:
+            recs[mode], mus[mode] = _accum_step(mode, tokens, dtype)
+        ref = dict(adamw.tree_leaves(mus["one_shot"]))
+        for mode in ACCUM_MODES:
+            r = recs[mode]
+            want = {k: forwards[mode] * MOBA_LAYERS for k in (
+                "block_centroids", "flash_topk", "moba_fwd")}
+            want["moba_bwd"] = backwards[mode] * MOBA_LAYERS
+            r["expected_launches"] = want
+            if r["launches"] != want:
+                bad.append(f"{dtype} {mode}: launches {r['launches']} != "
+                           f"{want}")
+            if not np.isfinite(r["loss"]):
+                bad.append(f"{dtype} {mode}: loss {r['loss']}")
+            if mode == "one_shot":
+                continue
+            errs = {p: float((x - ref[p]).abs().max()
+                             / ref[p].abs().max().clamp(min=1e-30))
+                    for p, x in adamw.tree_leaves(mus[mode])}
+            worst = max(errs, key=errs.get)
+            r["loss_rel_vs_one_shot"] = abs(
+                r["loss"] - recs["one_shot"]["loss"]) / abs(
+                recs["one_shot"]["loss"])
+            r["grad_worst_leaf_vs_one_shot"] = {
+                "leaf": worst, "err_over_max": errs[worst]}
+            r["grads_finite"] = all(bool(torch.isfinite(x).all())
+                                    for _, x in adamw.tree_leaves(mus[mode]))
+            if r["loss_rel_vs_one_shot"] > ACCUM_LOSS_RTOL:
+                bad.append(f"{dtype} {mode}: loss {r['loss']} vs one-shot "
+                           f"{recs['one_shot']['loss']}")
+            if not r["grads_finite"] or (dtype == "float32"
+                                         and errs[worst] > ACCUM_GRAD_TOL):
+                bad.append(f"{dtype} {mode}: gradient leaf {worst} off by "
+                           f"{errs[worst]} of its max")
+        rec[dtype] = recs
+        del mus, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["ok"], rec["failures"] = not bad, bad
+    emit(rec)
+    if bad:
+        raise SystemExit("train_accum: " + "; ".join(bad))
+    return {m: rec["bfloat16"][m]["launches"]
+            for m in ("microbatch", "accum_in_loss")}
+
+
+def phase_train_resume(steps: int = 4):
+    """Kill and resume at full width through ``launch/train.py::train``
+    (moba-340m, batch 1 x 8192, remat, ``flash``, seed 0): ``steps``
+    steps uninterrupted; then, in a fresh temporary directory, 2 steps
+    that save and stop (``stop_at_step``), and ``resume="auto"`` for the
+    rest.  Losses and final params must equal the uninterrupted run's
+    within rtol 1e-5 (bit-equality reported).  The manager keeps 1
+    checkpoint; its blocking snapshot, its write on the writer thread,
+    its bytes and the restore are timed.  The directory is deleted."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import manager as CM
+    from repro_torch.launch import train as TR
+    from repro_torch.optim import adamw
+
+    times = {"snapshot_ms": [], "write_s": [], "restore_s": [],
+             "bytes": []}
+
+    class Timed(CM.CheckpointManager):
+        def __init__(self, directory, keep=3, async_writes=True):
+            super().__init__(directory, keep=1, async_writes=async_writes)
+
+        def save(self, step, tree, extra=None, block=False):
+            t0 = time.perf_counter()
+            super().save(step, tree, extra, block)
+            times["snapshot_ms"].append((time.perf_counter() - t0) * 1e3)
+
+        def _write(self, payload):
+            t0 = time.perf_counter()
+            super()._write(payload)
+            times["write_s"].append(time.perf_counter() - t0)
+            times["bytes"].append(os.path.getsize(os.path.join(
+                self.dir, f"step_{payload[0]:08d}", "arrays.npz")))
+
+        def restore(self, template, step=None):
+            t0 = time.perf_counter()
+            out = super().restore(template, step)
+            torch.cuda.synchronize()
+            times["restore_s"].append(time.perf_counter() - t0)
+            return out
+
+    kw = dict(steps=steps, batch=1, seq=TRAIN_SEQ, smoke=False,
+              attn_backend="flash", remat=True, seed=0, log_every=steps,
+              save_interval=2, device="cuda")
+    params_a, losses_a = TR.train("moba-340m", **kw)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="train_resume_")
+    manager = TR.CheckpointManager
+    TR.CheckpointManager = Timed
+    try:
+        _, first = TR.train("moba-340m", ckpt_dir=tmp, stop_at_step=2, **kw)
+        torch.cuda.empty_cache()
+        params_b, rest = TR.train("moba-340m", ckpt_dir=tmp, resume="auto",
+                                  **kw)
+        kept = sorted(os.listdir(tmp))
+    finally:
+        TR.CheckpointManager = manager
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b = dict(adamw.tree_leaves(params_a)), dict(adamw.tree_leaves(
+        params_b))
+    close = all(bool(torch.allclose(b[p], a[p], rtol=1e-5, atol=1e-6))
+                for p in a)
+    bit_equal = all(bool(torch.equal(b[p], a[p])) for p in a)
+    losses_b = first + rest
+    losses_close = bool(np.allclose(losses_b, losses_a, rtol=1e-5, atol=0))
+    rec = {"phase": "train_resume", "arch": "moba-340m", "batch": 1,
+           "seq": TRAIN_SEQ, "steps": steps, "save_interval": 2, "keep": 1,
+           "losses_uninterrupted": losses_a, "losses_resumed": losses_b,
+           "losses_within_rtol_1e-5": losses_close,
+           "losses_bit_equal": losses_b == losses_a,
+           "params_within_rtol_1e-5": close, "params_bit_equal": bit_equal,
+           "kept": kept, **times,
+           "checkpoint_gb": [n / 1e9 for n in times["bytes"]]}
+    emit(rec)
+    del params_a, params_b, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (losses_close and close and len(losses_b) == steps
+            and len(times["restore_s"]) == 1 and kept == [
+                f"step_{steps:08d}"]):
+        raise SystemExit("train_resume: the resumed run differs from the "
+                         "uninterrupted one, or the checkpoints were not "
+                         "saved, kept and restored as asked")
+    return rec
+
+
 # ------------------------------------------------------------------ phase 7
 def phase_train_grads(block_size: int = 128, top_k: int = 8,
                       key_conv_width: int = 0):
@@ -2552,7 +3224,10 @@ def _ab_decode() -> dict:
 def _ab_train_kernels() -> dict:
     """Device ms of the Flash TopK launch, ``moba_fwd.launch`` and
     ``moba_bwd.launch`` alone on the phase-5 moba-340m bf16 case, dO in
-    the dtype the tree's backward wrapper takes."""
+    the dtype the tree's backward wrapper takes; Flash TopK also at the
+    small-block shape (block 32, top_k 32: the register list's largest
+    bucket), at phase 5's ``top_k-64`` shape (the shared-memory lists)
+    and in fp32 (the SIMT body)."""
     import torch
     from repro_torch.kernels import flash_topk as KT
     from repro_torch.kernels import moba_bwd as KB, moba_fwd as KF, ref
@@ -2569,9 +3244,22 @@ def _ab_train_kernels() -> dict:
     delta = torch.randn(lse.shape, generator=c["gen"], device="cuda") * 0.1
     tables = KB.segments(lay.tile_block, c["nb"])
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    # Flash TopK through its wrapper, whose only device work is the launch
-    # (the trees' ``launch`` signatures differ)
-    return {"do_dtype": str(do.dtype),
+    # the register list at its largest bucket (the small-block shape), the
+    # shared-memory lists (phase 5's top_k-64 shape) and the fp32 body
+    more = {"k32": dict(n=TRAIN_SEQ, dtype=torch.bfloat16, bs=32,
+                        top_k=32),
+            "k64": dict(n=4096, dtype=torch.bfloat16, bs=16, top_k=64),
+            "fp32": dict(n=TRAIN_SEQ, dtype=torch.float32)}
+    rec = {"do_dtype": str(do.dtype)}
+    for key, kw in more.items():
+        ck = _topk_case(h=16, hkv=16, nq=kw["n"], d=64, seed=11, **kw)
+        # Flash TopK through its wrapper, whose only device work is the
+        # launch (the trees' ``launch`` signatures differ)
+        rec[f"flash_topk_{key}_ms"] = cuda_events_ms(
+            lambda: KT.flash_topk(ck["qf"], ck["cents"], ck["top_k"],
+                                  ck["bs"], group=1, num_q_heads=16,
+                                  q_tile=ck["tile"]), flush=flush)
+    return {**rec,
             "flash_topk_ms": cuda_events_ms(
                 lambda: KT.flash_topk(c["qf"], c["cents"], c["top_k"],
                                       c["bs"], group=c["g"],
@@ -2623,6 +3311,7 @@ def _ab_one() -> dict:
 
 AB_KEYS = ("ms", "device_ms", "loop_us", "ms_no_hold", "library_ms",
            "library_device_ms", "library_loop_us", "flash_topk_ms",
+           "flash_topk_k32_ms", "flash_topk_k64_ms", "flash_topk_fp32_ms",
            "moba_fwd_ms", "moba_bwd_ms", "swa_bf16_ms", "swa_fp32_ms",
            "swa_d128_ms", "train_median_step_ms")
 
@@ -2701,6 +3390,7 @@ def main() -> int:
 
     smi = timed("env", phase_env)
     timing = timed("kernel", phase_kernel)
+    timed("kernel", phase_zero_ties)
     launches, kernel_launches = {}, {}
     launches["fp32"], kernel_launches["fp32"], bf16_bytes, _ = timed(
         "serve", phase_serve)
@@ -2727,12 +3417,22 @@ def main() -> int:
           phase="serve_qwen3_logits")
     decode_also["serve_adaptive"] = timed("serve_adaptive",
                                           phase_serve_adaptive)[:2]
+    prefix_counts, _ = timed("serve_prefix", phase_serve_prefix)
+    for case, key in (("bf16", "serve_prefix"),
+                      ("bf16_cow", "serve_prefix_cow"),
+                      ("kconv3", "serve_prefix_kconv3"),
+                      ("int8_cow", "serve_prefix_int8")):
+        decode_also[key] = prefix_counts[case]
     train_timing, train_err = timed("train_kernels", phase_train_kernels)
     train_launches, train_rec = timed("train", phase_train)
     small_blocks = timed("train_small_blocks", phase_train_small_blocks)
     train_also = {"train_small_blocks": small_blocks["launches"],
                   "train_key_conv": timed("train_key_conv",
                                           phase_train_key_conv, train_rec)}
+    accum = timed("train_accum", phase_train_accum)
+    train_also["train_accum_microbatch"] = accum["microbatch"]
+    train_also["train_accum_in_loss"] = accum["accum_in_loss"]
+    timed("train_resume", phase_train_resume)
     timed("train_grads", phase_train_grads)
     timed("train_grads", phase_train_grads, block_size=32, top_k=32)
     timed("train_key_conv", phase_train_grads,
@@ -2762,7 +3462,7 @@ def main() -> int:
             **({"launches_also": {
                 k: {"calls": c, "kernel_launches": n}
                 for k, (c, n) in decode_also.items()
-                if (k == "serve_key_conv_int8") == (kv_dtype == "int8")}}
+                if k.endswith("_int8") == (kv_dtype == "int8")}}
                if kv_dtype in ("fp32", "int8") else {}),
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "device_ms": t["device_ms"],

@@ -12,9 +12,11 @@ Selection semantics (faithful to the paper / Lu et al.):
   * early queries with fewer than k valid blocks select all valid ones;
     the empty slots carry the sentinel block id ``n_blocks``.
 
-Top-k ties break toward the lower block id, as ``lax.top_k`` does in the
-reference: :func:`topk_desc` sorts stably instead of calling
-``torch.topk``, which promises no order among equal scores.
+Top-k order is ``lax.top_k``'s, as in the reference: score descending
+on the float's total order (+0.0 above -0.0), then the lower block id.
+:func:`order_key` defines it once; :func:`topk_desc` sorts on it stably
+instead of calling ``torch.topk``, which promises no order among equal
+scores and ties the two zeros.
 """
 from __future__ import annotations
 
@@ -26,10 +28,22 @@ NEG_INF = -1e30
 POS_INF = 1e30
 
 
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """int32 keys whose order is the float32 total order of ``x``
+    (``i ^ ((i >> 31) & 0x7fffffff)`` of its bits): -0.0 sorts below
+    +0.0, every other pair as the floats compare.  The CUDA kernels'
+    rank merges compare the same keys (``order_key`` in
+    ``kernels/csrc/moba_decode.cu`` and ``flash_topk.cu``)."""
+    i = x.float().contiguous().view(torch.int32)
+    return i ^ ((i >> 31) & 0x7FFFFFFF)
+
+
 def topk_desc(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top ``k`` of the last axis, descending, ties to the lower index."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    """Top ``k`` of the last axis in ``lax.top_k``'s order: descending on
+    :func:`order_key`, ties to the lower index."""
+    idx = torch.sort(order_key(x), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    return x.gather(-1, idx), idx
 
 
 def pad_to_blocks(x: torch.Tensor, block_size: int,

@@ -11,7 +11,9 @@
 //     block +1e30 (always selected);
 //   * slots scoring <= -5e29 at the end become the sentinel nb (so do
 //     slots never filled when nb < top_k);
-//   * ties keep the lower block id, as lax.top_k does.
+//   * the order is lax.top_k's: score descending on the float's total
+//     order (+0.0 above -0.0; order_key below), ties to the lower block
+//     id.
 // Future blocks are never offered instead of entering at -1e30: every such
 // entry ends as the sentinel, and it can never displace a real score.
 //
@@ -46,15 +48,21 @@
 //     rank: its place is the number of list entries that beat it, and
 //     each entry it beats moves down one place, its id with it.  Every
 //     list entry has a lower id than the candidate, so "beats" is a strict
-//     score compare, all k compares are independent (no carried chain),
-//     and the tie order is lax.top_k's.  For top_k <= 32 the list lives in
-//     registers, unrolled to the bucket KR in {8, 16, 32} with the first
-//     KR - top_k slots blocked at +3e30 so they never move; above that it
-//     lives in shared memory, [top_k][R] interleaved so the threads of a
-//     warp touch distinct banks, with a binary search for the place.  Rows
-//     per CTA follow from top_k so the lists fit: 128 rows up to top_k
-//     128, then 16 * floor(1024 / top_k), which sets the limit
-//     top_k <= 1024 (16 rows, 128 KB of lists).
+//     compare of order keys (the lists hold keys, not floats: one integer
+//     compare a slot, as a float compare was; the bf16 body converts each
+//     score once, where it writes S, so the selection loop does no more
+//     work than it did on floats), all k compares are independent (no
+//     carried chain), and the tie order is lax.top_k's.
+//     Scores start from a +0.0 accumulator, and a round-to-nearest sum
+//     is -0.0 only when every term is, so a computed score is never -0.0;
+//     the keys make the order right for any input all the same.  For
+//     top_k <= 32 the list lives in registers, unrolled to the bucket KR
+//     in {8, 16, 32} with the first KR - top_k slots blocked at +3e30 so
+//     they never move; above that it lives in shared memory, [top_k][R]
+//     interleaved so the threads of a warp touch distinct banks, with a
+//     binary search for the place.  Rows per CTA follow from top_k so the
+//     lists fit: 128 rows up to top_k 128, then 16 * floor(1024 / top_k),
+//     which sets the limit top_k <= 1024 (16 rows, 128 KB of lists).
 //
 // Registers and shared memory (ptxas, and smem_bytes below), bf16 at d 64:
 // top_k 8 (KR 8) 56 registers, top_k 32 (KR 32) 124 registers, no spills;
@@ -101,6 +109,17 @@ constexpr float kPosInf = 1e30f;
 constexpr float kInit = -3e30f;      // an empty slot: below every score
 constexpr float kBlocked = 3e30f;    // an unused register slot
 
+// The float's total order as an int32 (routing.order_key in the port):
+// -0.0 below +0.0, every other pair as the floats compare.  The map is
+// its own inverse on the bits, so key_score gives the float back.
+__device__ __forceinline__ int order_key(float x) {
+  const int i = __float_as_int(x);
+  return i ^ ((i >> 31) & 0x7fffffff);
+}
+__device__ __forceinline__ float key_score(int k) {
+  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
+}
+
 using bf16 = __nv_bfloat16;
 
 // rows a CTA covers for this top_k: a multiple of 16 (one mma m-tile)
@@ -117,32 +136,33 @@ template <typename T, int D>
 __host__ __device__ constexpr int ld_of() {
   return std::is_same<T, float>::value ? D + 4 : D + 8;
 }
-constexpr int kLdS = kCentTile + 1;  // fp32 score rows
+constexpr int kLdS = kCentTile + 1;  // score rows (order keys)
 
 template <typename T, int D>
 __host__ __device__ constexpr size_t smem_bytes(int rows, int top_k) {
   return sizeof(T) * (static_cast<size_t>(rows) + 2 * kCentTile) *
              ld_of<T, D>() +
-         (std::is_same<T, bf16>::value ? sizeof(float) * rows * kLdS : 0) +
+         (std::is_same<T, bf16>::value ? sizeof(int) * rows * kLdS : 0) +
          (top_k > kRegMaxK ? static_cast<size_t>(8) * rows * top_k : 0);
 }
 
-// The running top-k of one row in registers, ordered by (score
+// The running top-k of one row in registers, ordered by (order key
 // descending, id ascending).  Candidates arrive in ascending id, so a
-// candidate beats an entry iff its score is strictly higher.  The first
-// KR - top_k slots are blocked at +3e30 so they never move.
+// candidate beats an entry iff its key is strictly higher.  The first
+// KR - top_k slots are blocked at +3e30 so they never move.  Candidates
+// come as order keys.
 template <int KR>
 struct RegList {
-  float s[KR];
+  int s[KR];                                 // order keys
   int id[KR];
   __device__ void init(int top_k) {
 #pragma unroll
     for (int j = 0; j < KR; ++j) {
-      s[j] = j < KR - top_k ? kBlocked : kInit;
+      s[j] = order_key(j < KR - top_k ? kBlocked : kInit);
       id[j] = 0;
     }
   }
-  __device__ __forceinline__ void offer(float x, int c) {
+  __device__ __forceinline__ void offer(int x, int c) {
     if (!(x > s[KR - 1])) return;            // filtered: not in the top-k
     bool b[KR];
 #pragma unroll
@@ -162,7 +182,8 @@ struct RegList {
 #pragma unroll
     for (int j = 0; j < KR; ++j)
       if (j >= KR - top_k)
-        dst[j - (KR - top_k)] = s[j] <= kNegInf * 0.5f ? nb : id[j];
+        dst[j - (KR - top_k)] =
+            key_score(s[j]) <= kNegInf * 0.5f ? nb : id[j];
   }
 };
 
@@ -170,23 +191,23 @@ struct RegList {
 // [j * rows + r]): a survivor's place comes from a binary search, the
 // entries below it move down one.
 struct SmemList {
-  float* s;
+  int* s;                                    // order keys
   int* id;
   int rows, top_k;
-  float thr;                                 // the k-th score, cached
-  __device__ void init(float* s_base, int* id_base, int r, int rows_,
+  int thr;                                   // the k-th key, cached
+  __device__ void init(int* s_base, int* id_base, int r, int rows_,
                        int k) {
     s = s_base + r;
     id = id_base + r;
     rows = rows_;
     top_k = k;
     for (int j = 0; j < k; ++j) {
-      s[j * rows] = kInit;
+      s[j * rows] = order_key(kInit);
       id[j * rows] = 0;
     }
-    thr = kInit;
+    thr = order_key(kInit);
   }
-  __device__ __forceinline__ void offer(float x, int c) {
+  __device__ __forceinline__ void offer(int x, int c) {
     if (!(x > thr)) return;
     int lo = 0, hi = top_k - 1;              // x beats entry top_k - 1
     while (lo < hi) {
@@ -204,7 +225,7 @@ struct SmemList {
   }
   __device__ void store(int32_t* dst, int, int nb) const {
     for (int j = 0; j < top_k; ++j)
-      dst[j] = s[j * rows] <= kNegInf * 0.5f ? nb : id[j * rows];
+      dst[j] = key_score(s[j * rows]) <= kNegInf * 0.5f ? nb : id[j * rows];
   }
 };
 
@@ -232,9 +253,11 @@ flash_topk_kernel(const T* __restrict__ q, const T* __restrict__ cents,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);                 // [rows_pad][LD]
   T* cs = qs + rows_pad * LD;                             // [2][kCentTile][LD]
-  float* ss = reinterpret_cast<float*>(cs + 2 * kCentTile * LD);
-  float* ls = ss + (kBf16 ? rows_pad * kLdS : 0);         // [top_k][rows_pad]
-  int* li = reinterpret_cast<int*>(ls + (KR ? 0 : top_k * rows_pad));
+  // bf16: S as order keys [rows_pad][kLdS]
+  int* ss = reinterpret_cast<int*>(cs + 2 * kCentTile * LD);
+  // keys [top_k][rows_pad], then ids [top_k][rows_pad]
+  int* ls = ss + (kBf16 ? rows_pad * kLdS : 0);
+  int* li = ls + (KR ? 0 : top_k * rows_pad);
 
   const int bkv = blockIdx.y;
   const int q0 = blockIdx.x * qc;
@@ -284,10 +307,11 @@ flash_topk_kernel(const T* __restrict__ q, const T* __restrict__ cents,
   }
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  // every candidate this row sees, in ascending id (the own block +1e30)
-  auto offer = [&](float s, int cand) {
-    list.offer(causal && cand == own ? kPosInf : s, cand);
-  };
+  // the candidates this row sees come in ascending id, as order keys; the
+  // own block (causal) is its last and is offered at +1e30 after the
+  // others of its tile, so the loops over a tile test nothing per
+  // candidate but the list's filter
+  const int own_key = order_key(kPosInf);
   if (n_tiles > 0) load_tile(0);
   mma::cp_async_commit();
   for (int t = 0; t < n_tiles; ++t) {
@@ -328,19 +352,21 @@ flash_topk_kernel(const T* __restrict__ q, const T* __restrict__ cents,
         const int tq = lane & 3;
 #pragma unroll
         for (int j = 0; j < kCentTile / 8; ++j) {
-          float* lo = ss + (m0 + g) * kLdS + 8 * j + 2 * tq;
-          float* hi = lo + 8 * kLdS;
-          lo[0] = acc[j][0];
-          lo[1] = acc[j][1];
-          hi[0] = acc[j][2];
-          hi[1] = acc[j][3];
+          int* lo = ss + (m0 + g) * kLdS + 8 * j + 2 * tq;
+          int* hi = lo + 8 * kLdS;
+          lo[0] = order_key(acc[j][0]);
+          lo[1] = order_key(acc[j][1]);
+          hi[0] = order_key(acc[j][2]);
+          hi[1] = order_key(acc[j][3]);
         }
       }
       __syncthreads();
       if (active && c0 < lim) {
-        const float* srow = ss + r * kLdS;
+        const int* srow = ss + r * kLdS;
         const int nc = min(kCentTile, lim - c0);
-        for (int c = 0; c < nc; ++c) offer(srow[c], c0 + c);
+        const int np = causal && own < c0 + nc ? nc - 1 : nc;
+        for (int c = 0; c < np; ++c) list.offer(srow[c], c0 + c);
+        if (np < nc) list.offer(own_key, own);
       }
     } else {
       // fp32: this row against four centroids at a time
@@ -364,7 +390,10 @@ flash_topk_kernel(const T* __restrict__ q, const T* __restrict__ cents,
           }
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            if (c + j < nc) offer(acc[j], c0 + c + j);
+            if (c + j < nc)
+              list.offer(causal && c0 + c + j == own ? own_key
+                                                     : order_key(acc[j]),
+                         c0 + c + j);
         }
       }
     }

@@ -194,9 +194,21 @@ __device__ __forceinline__ int load_len(const void* kv_len, int kvl64,
                : static_cast<const int32_t*>(kv_len)[b];
 }
 
-// entry (s, p) ranks above (t, r): higher score, or equal score and lower
-// page (lax.top_k's order)
-__device__ __forceinline__ bool beats(float s, int p, float t, int r) {
+// The float's total order as an int32 (routing.order_key in the port):
+// -0.0 below +0.0, every other pair as the floats compare.  The route
+// kernel keeps its scores as these keys, so a compare is one integer
+// compare, as a float compare was.
+__device__ __forceinline__ int order_key(float x) {
+  const int i = __float_as_int(x);
+  return i ^ ((i >> 31) & 0x7fffffff);
+}
+
+// entry (s, p) ranks above (t, r), both scores as order keys: higher
+// score on the total order, or equal score and lower page (lax.top_k's
+// order).  Scores are sums from a +0.0 accumulator, which round to -0.0
+// only if every term does, so the kernel computes no -0.0; the keys keep
+// the order right for any input.
+__device__ __forceinline__ bool beats(int s, int p, int t, int r) {
   return s > t || (s == t && p < r);
 }
 
@@ -234,7 +246,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 moba_decode_route_kernel(RouteArgs a) {
   __shared__ __align__(16) float qs[kMaxG][D];
-  __shared__ float cs[kMaxG][kRouteChunk];  // the chunk's masked scores
+  __shared__ int cs[kMaxG][kRouteChunk];    // masked scores, order keys
   const int row = blockIdx.x;
   const int b = row / a.hkv;
   const int h = row - b * a.hkv;
@@ -243,7 +255,7 @@ moba_decode_route_kernel(RouteArgs a) {
   const int KE = live_slots(K, npg);        // slots a head can fill
   const int NE = G * KE;
   extern __shared__ int dyn[];
-  float* ts = reinterpret_cast<float*>(dyn);  // [2][G][KE] running top-k
+  int* ts = dyn;                            // [2][G][KE] running top-k keys
   int* ti = dyn + 2 * NE;                   // [2][G][KE] their pages
   int* ids = ti + 2 * NE;                   // [G][KE] head-major selections
   int* first = ids + NE;                    // first occurrence of a page
@@ -305,7 +317,8 @@ moba_decode_route_kernel(RouteArgs a) {
 #pragma unroll
       for (int gg = 0; gg < kMaxG; ++gg)
         if (gg < G)
-          cs[gg][tid] = is_own ? kPosInf : (valid ? dot[gg] : kNegInf);
+          cs[gg][tid] = order_key(is_own ? kPosInf
+                                         : (valid ? dot[gg] : kNegInf));
     }
     __syncthreads();
     // merge the chunk into the running list by rank; the list holds pages
@@ -315,9 +328,9 @@ moba_decode_route_kernel(RouteArgs a) {
     for (int e = tid; e < G * ncand; e += kThreads) {
       const int gg = e / ncand;
       const int i = e - gg * ncand;
-      const float* ls = ts + cur * NE + gg * KE;
+      const int* ls = ts + cur * NE + gg * KE;
       const int* li = ti + cur * NE + gg * KE;
-      const float s = i < filled ? ls[i] : cs[gg][i - filled];
+      const int s = i < filled ? ls[i] : cs[gg][i - filled];
       const int p = i < filled ? li[i] : c0 + i - filled;
       int rank = 0;
       for (int j = 0; j < filled; ++j) rank += beats(ls[j], li[j], s, p);
@@ -342,7 +355,8 @@ moba_decode_route_kernel(RouteArgs a) {
     const int j = e - gg * K;
     const int x = cur * NE + gg * KE + j;
     const int kept = budget ? min(filled, budget[gg]) : filled;
-    const int id = (j < kept && ts[x] > kNegInf / 2) ? ti[x] : -1;
+    const int id =
+        (j < kept && ts[x] > order_key(kNegInf / 2)) ? ti[x] : -1;
     if (j < KE) ids[gg * KE + j] = id;
     sel[e] = id;
   }

@@ -52,6 +52,7 @@ import torch
 
 from repro_torch.configs.base import MoBAConfig
 from repro_torch.core import quantization as Q
+from repro_torch.core import routing
 from repro_torch.core.moba import (NEG_INF, moba_paged_decode_attention,
                                    paged_route_scores)
 from repro_torch.kernels import runtime
@@ -293,8 +294,9 @@ def route_tables_plain(q: torch.Tensor, centroids: torch.Tensor,
     outputs: the masked scores of ``moba_paged_route``
     (``paged_route_scores``); a running top-k over
     chunks of :data:`ROUTE_CHUNK` pages where each candidate's new place
-    is the number of candidates that beat it (higher score, or equal
-    score and lower page); selections scoring <= -5e29, or ranked at or
+    is the number of candidates that beat it (higher score on
+    ``routing.order_key``'s total order, or equal score and lower page);
+    selections scoring <= -5e29, or ranked at or
     past the head's budget (``head_top_k``, (Hkv, G)), invalid; the
     union by rank (a page's slot is the number of distinct selected
     pages below it); ``phys``/``base``/``n_uniq`` as
@@ -315,7 +317,8 @@ def route_tables_plain(q: torch.Tensor, centroids: torch.Tensor,
         cs = torch.cat([top_s, masked[..., c0:c0 + ROUTE_CHUNK]], -1)
         ci = torch.cat([top_i, pages[c0:c0 + ROUTE_CHUNK].expand(
             b, hkv, g, -1)], -1)
-        sj, si = cs[..., :, None], cs[..., None, :]
+        key = routing.order_key(cs)
+        sj, si = key[..., :, None], key[..., None, :]
         beats = (sj > si) | ((sj == si)
                              & (ci[..., :, None] < ci[..., None, :]))
         rank = beats.sum(-2)                                 # j beats i

@@ -69,7 +69,8 @@ def flash_topk_merge_ref(q: torch.Tensor, centroids: torch.Tensor,
     only blocks up to the own one when causal, the own one at +1e30); a
     candidate not strictly above the row's k-th score is filtered out; a
     survivor is merged by rank — its place is the number of list entries
-    that beat it (strictly higher score: every entry has a lower id), and
+    that beat it (strictly higher score on ``routing.order_key``'s total
+    order: every entry has a lower id), and
     each entry it beats moves down one place.  Empty slots hold -3e30;
     slots at or below -5e29 end as the sentinel nb.  Same arguments and
     result as :func:`flash_topk_ref`."""
@@ -86,7 +87,8 @@ def flash_topk_merge_ref(q: torch.Tensor, centroids: torch.Tensor,
         if causal:
             x = torch.where((own == c)[:, None], routing.POS_INF, x)
         offered = (own >= c) if causal else torch.ones_like(own, dtype=bool)
-        beats = (x > ls) & offered[:, None]
+        beats = (routing.order_key(x) > routing.order_key(ls)) \
+            & offered[:, None]
         above = torch.cat([torch.zeros_like(beats[..., :1]),
                            beats[..., :-1]], dim=-1)          # beats j - 1
         ls = torch.where(beats, torch.where(above, torch.cat(

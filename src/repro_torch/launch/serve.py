@@ -14,6 +14,10 @@ engine (the reference's ``--mode batch``).
   # build (or --route-policy profile:PATH to load a saved profile):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch moba-340m \
       --mode batch --attn-backend flash --route-policy snr:pfail=0.01
+
+  # radix-tree prefix cache, prompts prefilled in chunks of 256 tokens:
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode batch \
+      --device cpu --prefix-cache --prefill-chunk 256
 """
 from __future__ import annotations
 
@@ -49,20 +53,26 @@ def _make_engine(cfg, params, ecfg: EngineConfig, shards: int,
 def serve(arch: str, batch: int = 4, prompt_len: int = 64, gen: int = 32,
           smoke: bool = True, attn_backend: str = "reference",
           seed: int = 0, device="cuda", shards: int = 0,
-          kv_dtype: str = "fp32", route_policy: str = "static"
-          ) -> np.ndarray:
+          kv_dtype: str = "fp32", route_policy: str = "static",
+          prefill_chunk: int = 0, prefix_cache: bool = False,
+          swap_bytes: int = None) -> np.ndarray:
     """Decode ``gen`` greedy tokens for ``batch`` random prompts through
-    the paged engine.  Returns int32 tokens of shape (batch, gen)."""
+    the paged engine.  ``prefill_chunk``, ``prefix_cache`` and
+    ``swap_bytes`` (None keeps the engine's default) are the
+    ``EngineConfig`` fields of those names.  Returns int32 tokens of
+    shape (batch, gen)."""
     dev = resolve_device(device)
     cfg = configs.get_smoke_config(arch) if smoke else configs.get_config(arch)
     params = T.init_lm(torch.Generator(device=dev).manual_seed(seed), cfg)
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len),
                            dtype=np.int32)
+    kw = {} if swap_bytes is None else {"swap_bytes": swap_bytes}
     eng = _make_engine(cfg, params, EngineConfig(
         max_seqs=batch, max_seq_len=_round_up(prompt_len + gen, 16),
         max_prefill_batch=min(batch, 4), attn_backend=attn_backend,
-        kv_dtype=kv_dtype, route_policy=route_policy),
+        prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
+        kv_dtype=kv_dtype, route_policy=route_policy, **kw),
         shards, device=dev)
     if eng.route_profile is not None:
         print(eng.route_profile.summary())
@@ -75,6 +85,12 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 64, gen: int = 32,
           f"in {st['decode_s']:.2f}s over {st['decode_steps']} steps "
           f"({st['decode_tokens'] / max(st['decode_s'], 1e-9):.1f} tok/s) "
           f"on {dev}")
+    if prefix_cache:
+        rate = st["prefix_hit_tokens"] / max(st["prefix_prompt_tokens"], 1)
+        print(f"  prefix cache: hit rate {rate:.2f} "
+              f"({st['prefix_hit_tokens']} tokens), "
+              f"{st['cow_copies']} COW copies, "
+              f"{st['tree_evictions']} tree evictions")
     return np.stack([np.asarray(r.out[:gen], np.int32) for r in reqs])
 
 
@@ -108,6 +124,18 @@ def main(argv=None):
                          "P, e.g. snr:pfail=0.01), or 'profile:PATH' "
                          "(load a saved routing-profile artifact); "
                          "core/adaptive.py")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: cache prompts in chunks of "
+                         "this many tokens across engine steps "
+                         "(0 = whole-prompt prefill)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix-tree prefix caching: requests sharing a "
+                         "cached token prefix reuse its KV pages "
+                         "(copy-on-write) and prefill only the suffix")
+    ap.add_argument("--swap-bytes", type=int, default=None,
+                    help="host-memory budget for preemption swap "
+                         "(bytes; 0 disables swap so preempted requests "
+                         "recompute; default 64 MiB)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
@@ -117,7 +145,9 @@ def main(argv=None):
               gen=args.gen, smoke=args.smoke,
               attn_backend=args.attn_backend or "reference",
               seed=args.seed, device=args.device, kv_dtype=args.kv_dtype,
-              route_policy=args.route_policy)
+              route_policy=args.route_policy,
+              prefill_chunk=args.prefill_chunk,
+              prefix_cache=args.prefix_cache, swap_bytes=args.swap_bytes)
     except ServingError as e:  # unsupported config / impossible sizing
         print(f"error: {e}", file=sys.stderr)
         raise SystemExit(2)

@@ -10,11 +10,11 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
-from repro_torch.serving.scheduler import UnsupportedFeatureError
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
@@ -27,25 +27,55 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     each layer group), then one :func:`repro_torch.optim.adamw.
     adamw_update`.
 
-    Gradient accumulation (``tcfg.microbatch > 1``, ``accum_in_loss``) is
-    the reference's and is not ported yet (ROADMAP.md §A)."""
-    if tcfg.microbatch and tcfg.microbatch > 1:
-        raise UnsupportedFeatureError(
-            "microbatch", "gradient accumulation is not ported yet; "
-                          "ROADMAP.md §A lists it after the training slice")
-    if accum_in_loss:
-        raise UnsupportedFeatureError(
-            "accum_in_loss", "accumulation inside the loss is not ported "
-                             "yet; ROADMAP.md §A lists it after the "
-                             "training slice")
+    Gradient accumulation, as in the reference: ``tcfg.microbatch`` m > 1
+    splits the batch along dim 0 into m chunks of B/m rows (chunk i holds
+    rows [i·B/m, (i+1)·B/m), the reference's reshape) and runs one
+    backward a chunk, summing the fp32 gradients with weight 1/m.  With
+    ``accum_in_loss`` the loss is instead the 1/m-weighted sum over the
+    chunks, each chunk's loss under ``torch.utils.checkpoint`` (only its
+    inputs are kept; the backward recomputes it), and one
+    ``autograd.grad`` differentiates the whole; the reference expresses
+    this as a scan over rematted chunks so the gradient reduction happens
+    once a step.  Either way one chunk's activations are live at a time
+    and the loss is the mean of the chunks' losses."""
     lr_fn = adamw.cosine_schedule(tcfg)
+    m = tcfg.microbatch if tcfg.microbatch and tcfg.microbatch > 1 else 1
+
+    def chunk_loss(params, chunk):
+        return T.lm_loss(params, chunk, cfg, backend=backend,
+                         remat=remat)[0]
+
+    def chunks(batch):
+        rows = next(iter(batch.values())).shape[0]
+        if rows % m:
+            raise ValueError(f"batch of {rows} rows does not split into "
+                             f"{m} microbatches")
+        split = {k: v.reshape(m, rows // m, *v.shape[1:])
+                 for k, v in batch.items()}
+        return [{k: v[i] for k, v in split.items()} for i in range(m)]
 
     def train_step(params, opt_state, batch):
         leaves = [leaf.requires_grad_() for _, leaf in
                   adamw.tree_leaves(params)]
-        loss, _ = T.lm_loss(params, batch, cfg, backend=backend,
-                            remat=remat)
-        grads = adamw.tree_like(params, torch.autograd.grad(loss, leaves))
+        if m == 1:
+            loss = chunk_loss(params, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        elif accum_in_loss:
+            loss = torch.zeros((), device=leaves[0].device)
+            for c in chunks(batch):
+                loss = loss + torch.utils.checkpoint.checkpoint(
+                    chunk_loss, params, c, use_reentrant=False) / m
+            grads = torch.autograd.grad(loss, leaves)
+        else:
+            loss = torch.zeros((), device=leaves[0].device)
+            grads = [torch.zeros_like(p, dtype=torch.float32)
+                     for p in leaves]
+            for c in chunks(batch):
+                lc = chunk_loss(params, c)
+                gc = torch.autograd.grad(lc, leaves)
+                loss = loss + lc.detach() / m
+                grads = [a + g / m for a, g in zip(grads, gc)]
+        grads = adamw.tree_like(params, grads)
         params, opt_state, om = adamw.adamw_update(params, grads, opt_state,
                                                    tcfg, lr_fn)
         out = {"loss": loss.detach()}

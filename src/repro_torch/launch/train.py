@@ -13,12 +13,18 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch moba-340m \
       --seq 4096 --batch 1 --attn-backend flash --key-conv 3
 
+  # fault-tolerant run: checkpoint every 20 steps, resume from the
+  # latest checkpoint after a kill, 2 microbatches a step:
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 50 \
+      --batch 4 --device cpu --ckpt-dir ckpt/run1 --resume auto \
+      --microbatch 2
+
 ``--key-conv W`` also applies to ``--smoke`` configs with MoBA layers
 (the JAX package's ``launch/train.py`` drops it there), so a CPU smoke
-run trains the conv weights.  The reference's checkpoint/auto-resume
-(``--ckpt-dir``, ``--resume``) and gradient accumulation
-(``--microbatch``) are not ported yet: they raise
-``UnsupportedFeatureError`` (ROADMAP.md §A).
+run trains the conv weights.  Checkpoints are the reference's format
+(``checkpoint/manager.py``): a run killed and resumed with ``--resume
+auto`` reproduces the uninterrupted run, and either package's trainer
+resumes from the other's checkpoints.
 """
 from __future__ import annotations
 
@@ -26,10 +32,12 @@ import argparse
 import dataclasses
 import sys
 import time
+from typing import Optional
 
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import backends as B
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -40,18 +48,6 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.serving.scheduler import (ServingError,
                                            UnsupportedFeatureError)
-
-
-def _check_scope(ckpt_dir: str, resume: str, microbatch: int) -> None:
-    if ckpt_dir or resume != "none":
-        raise UnsupportedFeatureError(
-            "ckpt_dir/resume", "checkpointing (the reference's "
-                               "CheckpointManager) is not ported yet; see "
-                               "ROADMAP.md §A")
-    if microbatch > 1:
-        raise UnsupportedFeatureError(
-            "microbatch", "gradient accumulation is not ported yet; see "
-                          "ROADMAP.md §A")
 
 
 def _smoke_config(arch: str, key_conv_width: int):
@@ -73,15 +69,24 @@ def _smoke_config(arch: str, key_conv_width: int):
 def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 512,
           smoke: bool = True, attn_backend: str = "sparse",
           ckpt_dir: str = "", resume: str = "none",
-          lr: float = 6e-4, seed: int = 0,
+          save_interval: int = 20, lr: float = 6e-4, seed: int = 0,
           microbatch: int = 0, log_every: int = 10,
           block_size: int = 0, top_k: int = 0, key_conv_width: int = 0,
           remat: bool = False, on_step=None, stop_at_step: int = 0,
           total_steps_override: int = 0, device="cuda"):
     """Train ``arch`` on synthetic data for ``steps`` steps; returns
-    (params, losses).  ``device`` defaults to the card and raises without
-    one; pass "cpu" for the plain PyTorch paths."""
-    _check_scope(ckpt_dir, resume, microbatch)
+    (params, losses of the steps this call ran).  ``device`` defaults to
+    the card and raises without one; pass "cpu" for the plain PyTorch
+    paths.
+
+    ``ckpt_dir`` saves params and AdamW moments every ``save_interval``
+    steps and at the last step run; ``resume="auto"`` first restores the
+    latest checkpoint there (params, moments, the step count, and the
+    data step from its ``extra``).  ``stop_at_step`` ends the run early
+    with the schedule of ``steps`` steps (a kill, for tests);
+    ``total_steps_override`` sets the schedule's horizon.
+    ``microbatch`` > 1 accumulates gradients over that many chunks of the
+    batch (``launch/steps.py::make_train_step``)."""
     dev = resolve_device(device)
     kw = {}
     if block_size:
@@ -101,6 +106,20 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 512,
                                   global_batch=batch, seed=seed))
     params = T.init_lm(torch.Generator(device=dev).manual_seed(seed), cfg)
     opt_state = adamw.adamw_init(params)
+    start_step = 0
+    mgr: Optional[CheckpointManager] = None
+    if ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir, keep=3)
+        if resume in ("auto", "latest") and mgr.latest_step() is not None:
+            tree = {"params": params, "mu": opt_state.mu,
+                    "nu": opt_state.nu}
+            tree, extra, ck_step = mgr.restore(tree)
+            params = tree["params"]
+            opt_state = adamw.AdamWState(
+                torch.tensor(ck_step, dtype=torch.int32, device=dev),
+                tree["mu"], tree["nu"])
+            start_step = extra.get("data_step", ck_step)
+            print(f"[resume] restored step {ck_step} from {ckpt_dir}")
     # full spec strings allowed, e.g. "flash:flat,kb_tile=64" — options
     # apply process-wide to the named backend instance
     backend = B.resolve_backend_spec(attn_backend, default="sparse")
@@ -113,7 +132,7 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 512,
             f"[monitor] straggler step {st}: {dt:.2f}s vs median "
             f"{med:.2f}s"))
     end = min(stop_at_step, steps) if stop_at_step else steps
-    for step in range(end):
+    for step in range(start_step, end):
         tokens = torch.as_tensor(data.batch_at(step)["tokens"], device=dev)
         params, opt_state, metrics = step_fn(params, opt_state,
                                              {"tokens": tokens})
@@ -127,6 +146,14 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 512,
                   f"lr {float(metrics['lr']):.2e} "
                   f"gnorm {float(metrics['grad_norm']):7.3f} "
                   f"[{time.time() - t0:6.1f}s]", flush=True)
+        if mgr and ((step + 1) % save_interval == 0 or step == end - 1):
+            mgr.save(step + 1,
+                     {"params": params, "mu": opt_state.mu,
+                      "nu": opt_state.nu},
+                     extra={"data_step": step + 1,
+                            "loss": loss, "arch": arch})
+    if mgr:
+        mgr.wait()
     if monitor.straggler_steps:
         print(f"[monitor] summary: {monitor.summary()}")
     return params, losses
@@ -145,13 +172,16 @@ def main(argv=None):
                     help="backend spec, e.g. sparse | flash | flash:flat | "
                          "flash:grouped,kb_tile=64")
     ap.add_argument("--ckpt-dir", default="",
-                    help="not ported yet: raises")
+                    help="save checkpoints here (the reference's format)")
     ap.add_argument("--resume", default="none", choices=["none", "auto"],
-                    help="not ported yet: 'auto' raises")
+                    help="auto: restore the latest checkpoint in "
+                         "--ckpt-dir first")
+    ap.add_argument("--save-interval", type=int, default=20)
     ap.add_argument("--lr", type=float, default=6e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--microbatch", type=int, default=0,
-                    help="not ported yet: values above 1 raise")
+                    help="gradient accumulation over this many chunks of "
+                         "the batch (0 or 1: none)")
     ap.add_argument("--block-size", type=int, default=0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--key-conv", type=int, default=0,
@@ -164,7 +194,7 @@ def main(argv=None):
         train(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
               smoke=args.smoke, attn_backend=args.attn_backend,
               ckpt_dir=args.ckpt_dir, resume=args.resume,
-              lr=args.lr, seed=args.seed,
+              save_interval=args.save_interval, lr=args.lr, seed=args.seed,
               microbatch=args.microbatch, block_size=args.block_size,
               top_k=args.top_k, key_conv_width=args.key_conv,
               device=args.device)

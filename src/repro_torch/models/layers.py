@@ -206,7 +206,10 @@ def _paged_attend(q, k, v, cache, page_state, cfg: ModelConfig, kind: str,
     ``page_state['slots']``.  Fresh rows (``kv_len`` 0) and padding rows
     read a zero state, which makes a recycled slot's old ring harmless.
     The ring is updated in place: inactive decode slots keep theirs, and
-    prefill writes only active rows with a slot, with no host sync.
+    prefill writes only active rows with a slot, with no host sync.  Pools
+    with per-page ``key_conv_tails`` (prefix-cache engines) record the raw
+    keys landing in each page's last W-1 positions right after the page
+    write, in decode and in prefill.
 
     ``head_top_k`` (H,) reaches MoBA layers as the (Hkv, G) budgets every
     paged routing path takes (h = hkv·G + g): a view of an int32 tensor
@@ -241,12 +244,16 @@ def _paged_attend(q, k, v, cache, page_state, cfg: ModelConfig, kind: str,
     if n == 1:                                 # decode: one token per seq
         be = B.resolve(backend, kind=kind, phase="decode", cache="paged",
                        key_conv=needs_conv, adaptive=adaptive)
+        k_raw = k
         if needs_conv:
             ring = cache["key_conv_state"]     # decode rows ARE the slots
             k, stepped = KC.apply_key_conv_decode(conv_w, k, ring)
             ring.copy_(torch.where(active[:, None, None, None], stepped,
                                    ring))
         PC.paged_append_decode(cache, bt, kvl, active, k, v)
+        if needs_conv and "key_conv_tails" in cache:
+            PC.update_key_conv_tails(cache, bt, kvl, active.to(torch.int32),
+                                     k_raw)
         o = be.paged_decode(a, kind, q, cache, bt, post_len,
                             positions=positions, head_top_k=htk)
         return o, cache
@@ -265,6 +272,8 @@ def _paged_attend(q, k, v, cache, page_state, cfg: ModelConfig, kind: str,
         PC.write_ring_rows(cache, slots, active & (slots >= 0),
                            KC.key_conv_state_update(state, k_raw, q_len))
     PC.paged_append_prefill(cache, bt, q_len, k, v, kv_len=kvl)
+    if needs_conv and "key_conv_tails" in cache:
+        PC.update_key_conv_tails(cache, bt, kvl, q_len, k_raw)
     if page_state.get("chunked"):
         o = be.paged_chunk_prefill(a, kind, q, cache, bt, kvl, q_len,
                                    head_top_k=htk)

@@ -179,18 +179,21 @@ def lm_loss(params, batch: dict, cfg: ModelConfig,
 # -------------------------------------------------------------------- cache
 def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
                       dtype=torch.bfloat16, device="cuda",
-                      kv_dtype: str = "fp32", max_seqs: int = 0) -> dict:
+                      kv_dtype: str = "fp32", max_seqs: int = 0,
+                      prefix_tails: bool = False) -> dict:
     """Stacked paged caches ``{"slot_i": pool}``, each pool leaf with the
     leading layer-group axis of the params.  ``max_seqs`` sizes the
     per-slot key-conv rings of MoBA slots of key-conv models (0 skips
-    them)."""
+    them); ``prefix_tails`` adds their per-page raw-key tails, which the
+    prefix cache loads rings from."""
     from repro_torch.serving import paged_cache as PC
 
     pattern, n_groups = _block_kinds(cfg)
     return {f"slot_{i}": PC.init_page_pool(
                 cfg, num_pages, page_size, with_centroids=(kind == "moba"),
                 dtype=dtype, device=device, kv_dtype=kv_dtype,
-                groups=n_groups, max_seqs=max_seqs)
+                groups=n_groups, max_seqs=max_seqs,
+                prefix_tails=prefix_tails)
             for i, kind in enumerate(pattern)}
 
 

@@ -5,9 +5,10 @@ functions; the scheduler owns the host state (free pages, block table,
 request queues).  The public surface is STAGED, as in the reference:
 
   * :meth:`Engine.prefill` — admit one request, cache its whole context
-    (all chunks, applying any swap restore admission scheduled) and
-    sample its first token; returns a :class:`Prefix` handle, or None
-    when the pool cannot host it right now.
+    (all chunks, applying any COW copy, swap restore or ring load
+    admission scheduled) and sample its first token; returns a
+    :class:`Prefix` handle, or None when the pool cannot host it right
+    now.
   * :meth:`Engine.insert` — bind a prefilled request into the decode
     batch at its slot.
   * :meth:`Engine.generate_step` — plan growth/preemption, dispatch one
@@ -29,11 +30,15 @@ step's tables does not wait for the steps already enqueued.
 Supported: attention-only dense-family layer patterns, key convolution
 (per-slot raw-key rings), whole-prompt and chunked prefill, preemption
 by recompute and by host swap, dispatch-ahead, unquantized and int8/fp8
-pools, and static or SNR-guided adaptive routing (``route_policy``: a
+pools, static or SNR-guided adaptive routing (``route_policy``: a
 per-(layer, head) top_k profile calibrated or loaded once at
-construction, :func:`build_route_profile`).  The reference's prefix
-cache and sharded engine raise :class:`UnsupportedFeatureError` at
-construction until their slices land (ROADMAP.md).
+construction, :func:`build_route_profile`), and the radix-tree prefix
+cache (``prefix_cache``): admission maps a request's longest cached
+prefix onto the pages that hold it (refcounted, shared), copies a shared
+partial tail page before the suffix writes into it (COW), and loads a
+key-conv ring from the last matched page's raw-key tail; quantized and
+key-conv pools share whole pages only.  The reference's sharded engine
+is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -271,17 +276,16 @@ class HostSwapStore:
 
 
 def drain_cache_ops(caches, sched: Scheduler, swap_store, page_size: int):
-    """Apply the scheduler's planned device cache ops: swap restores,
-    which write a victim's pages into its newly reserved pages and its
-    key-conv ring row into its new slot (the port's scheduler plans no
-    COW copies or ring loads from page tails: both come only from the
-    prefix cache, not ported yet).
-    Restores also set the request's ``cache_len`` so the takes computed
-    at prefill see the restored prefix."""
+    """Apply the scheduler's planned device cache ops, in order: COW page
+    copies (sources pinned since scheduling, so applying them first reads
+    them before any reuse), swap restores, which write a victim's pages
+    into its newly reserved pages and its key-conv ring row into its new
+    slot, and key-conv ring loads from page tails.  Restores also set the
+    request's ``cache_len`` so the takes computed at prefill see the
+    restored prefix."""
     ops = sched.take_cache_ops()
-    if ops["copies"] or ops["ring_loads"]:
-        raise ServingError("page copies / ring loads planned without the "
-                           "prefix cache")
+    for s, d in ops["copies"]:
+        caches = PC.copy_pages(caches, [s], [d])
     for req in ops["restores"]:
         sd = req.swap_data
         pages = sched._seq_pages[req.slot][
@@ -292,6 +296,8 @@ def drain_cache_ops(caches, sched: Scheduler, swap_store, page_size: int):
         req.cache_len = sd["n_tokens"]
         swap_store.drop(req)
         sched.stats["swap_restores"] += 1
+    for sl, pg in ops["ring_loads"]:
+        caches = PC.load_ring_from_tails(caches, [sl], [pg])
     return caches
 
 
@@ -317,8 +323,10 @@ class EngineConfig:
     prefill_chunk: int = 0             # split prompts into chunks of this
     #                                    many tokens across engine steps
     #                                    (0 = whole-prompt prefill)
-    prefix_cache: bool = False         # radix-tree prefix cache (not
-    #                                    ported yet: True raises)
+    prefix_cache: bool = False         # radix-tree prefix cache: admission
+    #                                    maps cached pages (refcount++) and
+    #                                    prefills only the suffix, COWing a
+    #                                    shared partial tail page
     swap_bytes: int = 64 << 20         # host-memory cap for swap-based
     #                                    preemption; 0 = always recompute
     #                                    preempted prefixes
@@ -341,15 +349,6 @@ class EngineConfig:
     #                                    one's tokens (0 = synchronous).
     #                                    The legacy step()/run() driver
     #                                    drains every iteration regardless.
-
-
-def out_of_scope(ecfg: EngineConfig) -> Optional[Tuple[str, str]]:
-    """(field, reason) for an EngineConfig value the port cannot serve
-    yet, or None."""
-    if ecfg.prefix_cache:
-        return ("prefix_cache", f"the radix-tree prefix cache (COW page "
-                                f"copies, tree publishing) is {_LATER}")
-    return None
 
 
 @dataclasses.dataclass
@@ -375,9 +374,6 @@ class Engine:
             raise ServingError(
                 f"unknown kv_dtype {ecfg.kv_dtype!r}; "
                 f"expected one of {Q.KV_DTYPES}")
-        reason = out_of_scope(ecfg)
-        if reason is not None:
-            raise UnsupportedFeatureError(*reason)
         if ecfg.dispatch_ahead < 0:
             raise ServingError(
                 f"dispatch_ahead must be >= 0, got {ecfg.dispatch_ahead}")
@@ -398,22 +394,34 @@ class Engine:
         self.route_profile, route_map = build_route_profile(
             cfg, params, ecfg.route_policy, self.pages_per_seq)
         route_map = S.as_route_map(route_map, self.device)
+        conv = needs_key_conv(cfg)
+        if ecfg.prefix_cache and conv \
+                and cfg.attention.moba.key_conv_width - 1 > self.page_size:
+            raise ServingError(
+                f"prefix cache needs key_conv_width - 1 "
+                f"({cfg.attention.moba.key_conv_width - 1}) <= page_size "
+                f"({self.page_size}): ring state restores from one "
+                f"page's raw-key tail")
         self.caches = T.init_paged_caches(
             cfg, self.num_pages, self.page_size,
             dtype=getattr(torch, cfg.dtype), device=self.device,
-            kv_dtype=ecfg.kv_dtype, max_seqs=ecfg.max_seqs)
+            kv_dtype=ecfg.kv_dtype, max_seqs=ecfg.max_seqs,
+            prefix_tails=ecfg.prefix_cache and conv)
         self.swap_store = (HostSwapStore(self, ecfg.swap_bytes)
                            if ecfg.swap_bytes > 0 else None)
         self.sched = Scheduler(
             num_pages=self.num_pages, page_size=self.page_size,
             max_seqs=ecfg.max_seqs, max_pages_per_seq=self.pages_per_seq,
             max_prefill_batch=ecfg.max_prefill_batch,
-            chunk_tokens=ecfg.prefill_chunk, key_conv=needs_key_conv(cfg),
+            chunk_tokens=ecfg.prefill_chunk,
+            prefix_cache=ecfg.prefix_cache, key_conv=conv,
+            full_page_match=ecfg.kv_dtype != "fp32",
             swap=self.swap_store)
-        # swap restores resume mid-context, so their suffix prefills need
-        # the chunk-aware (kv_len-offset) path even when chunked prefill
-        # itself is off
-        self._chunk_aware = bool(ecfg.prefill_chunk or ecfg.swap_bytes > 0)
+        # prefix hits and swap restores resume mid-context, so their
+        # suffix prefills need the chunk-aware (kv_len-offset) path even
+        # when chunked prefill itself is off
+        self._chunk_aware = bool(ecfg.prefill_chunk or ecfg.prefix_cache
+                                 or ecfg.swap_bytes > 0)
         self._prefill = S.make_paged_prefill_step(
             cfg, backend=self.attn_backend, chunked=self._chunk_aware,
             route_map=route_map)
@@ -433,6 +441,8 @@ class Engine:
         self._tok_dev = None
         self._emitted: List[Tuple[Request, int]] = []
         self.sched.before_preempt = self._sync_for_preempt
+        # perf counters (wall seconds / token counts); the prefix/swap
+        # keys mirror the scheduler's counters each step
         self.stats = {"prefill_s": 0.0, "decode_s": 0.0,
                       "prefill_tokens": 0, "decode_steps": 0,
                       "decode_tokens": 0, "preemptions": 0,
@@ -520,7 +530,11 @@ class Engine:
     def _observe_one(self) -> None:
         """Block on the OLDEST in-flight decode step and fold its tokens
         into host state.  Requests that hit EOS at an earlier
-        observation skip recording: their overrun steps are discarded."""
+        observation skip recording: their overrun steps wrote K/V for
+        garbage past the stream's end, inside pages still reserved for
+        them and past every offset the prefix tree publishes, and are
+        discarded.  A page filled by an observed token joins the prefix
+        tree at once."""
         reqs, tok_dev = self._inflight.popleft()
         t0 = time.perf_counter()
         tok = tok_dev.cpu().numpy()     # the only host-device sync point
@@ -536,6 +550,9 @@ class Engine:
             self.stats["decode_tokens"] += 1
             if r.t_first is None:
                 r.t_first = self._wall()
+            if self.ecfg.prefix_cache \
+                    and r.cache_len % self.page_size == 0:
+                self.sched.note_cached(r)   # page-boundary crossing
             self._emitted.append((r, t))
         if not self._inflight:
             # pipeline empty → the host vector is authoritative again
@@ -567,6 +584,8 @@ class Engine:
 
     def _update_stats(self) -> None:
         self.stats.update(self.sched.stats)
+        if self.sched.tree is not None:
+            self.stats["tree_evictions"] = self.sched.tree.evictions
         self.stats["pages_in_use_peak"] = max(
             self.stats["pages_in_use_peak"],
             self.num_pages - self.sched.alloc.available)
@@ -575,9 +594,10 @@ class Engine:
     def prefill(self, req: Request, now: float = float("inf")
                 ) -> Optional[Prefix]:
         """Stage 1: admit ``req``, cache its whole context (all chunks
-        under chunked prefill, with admission's swap restore applied
-        first) and sample its first token.  Returns None when the pool or
-        slots cannot host it right now."""
+        under chunked prefill, with admission's COW copies, swap restore
+        and ring loads applied first; each chunk's full pages join the
+        prefix tree) and sample its first token.  Returns None when the
+        pool or slots cannot host it right now."""
         if req.state not in ("waiting",) or req.slot >= 0:
             raise ServingError(
                 f"request {req.rid}: prefill() on state {req.state!r} "
@@ -599,10 +619,18 @@ class Engine:
         # snapshot: the final chunk appends the sampled token to ``out``,
         # growing ``context`` by one
         target = len(req.context)
+        first = True
         while req.cache_len < target:
+            if not first:
+                # between chunks the plan-time tail-ownership guarantee:
+                # cannot fail, every page was reserved at admission
+                ok = self.sched._cow_tail(req)
+                assert ok, "chunk continuation pages reserved at admission"
             self.caches = drain_cache_ops(self.caches, self.sched,
                                           self.swap_store, self.page_size)
             self._run_prefill([req], now)
+            self.sched.note_cached(req)
+            first = False
         req.state = "prefilled"
         self._update_stats()
         return Prefix(req=req, token=int(req.out[-1]), slot=req.slot)
@@ -660,9 +688,9 @@ class Engine:
 
     # ------------------------------------------------- legacy closed loop
     def step(self, now: float = float("inf")) -> Dict:
-        """One legacy engine iteration: admit + prefill (applying any swap
-        restores the plan scheduled), dispatch one decode step over all
-        running, observe it synchronously."""
+        """One legacy engine iteration: admit + prefill (applying the COW
+        copies, swap restores and ring loads the plan scheduled), dispatch
+        one decode step over all running, observe it synchronously."""
         self.drain()    # synchronous semantics if stages interleaved
         preempted = self.sched.plan_decode(now)
         self.stats["preemptions"] += len(preempted)
@@ -671,6 +699,8 @@ class Engine:
                                       self.swap_store, self.page_size)
         if prefills:
             self._run_prefill(prefills, now)
+            for r in prefills:            # newly cached full pages join
+                self.sched.note_cached(r)  # the prefix tree immediately
         # recomputed after prefill so every request whose context
         # completed this step joins the decode batch in the same iteration
         decodes = [r for r in self.sched.running

@@ -31,7 +31,15 @@ MoBA pools of key-conv models carry a per-sequence-slot ring
 ``key_conv_state`` of the last ``key_conv_width - 1`` raw keys (the
 conv's left context, ``models/layers.py::_paged_attend``).  It is indexed
 by slot, not page, so it is not in :data:`PAGE_LEAVES`; swap moves it
-with :func:`gather_ring_rows` / :func:`scatter_ring_rows`.
+with :func:`gather_ring_rows` / :func:`scatter_ring_rows`.  Engines with
+the prefix cache also give them per-page ``key_conv_tails``, the raw keys
+of each page's last ``width - 1`` positions: a prefix hit loads the
+sequence's ring from the last matched page's tail
+(:func:`load_ring_from_tails`), so the suffix prefill convolves with the
+state a contiguous prefill would have carried.
+
+The prefix cache's copy-on-write duplicates a shared page in every page
+leaf (:func:`copy_pages`) before a sequence writes into it.
 """
 from __future__ import annotations
 
@@ -43,10 +51,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quantization as Q
 
 # leaves indexed by physical page id on their (first non-group) axis —
-# the unit that page-granular ops (swap save/restore) move.  The scale
-# leaves of quantized pools are here so a swapped-in page comes back
-# with its own scales, not the stale ones of the page it lands on.
-PAGE_LEAVES = ("pages_k", "pages_v", "scales_k", "scales_v", "centroids")
+# the unit that page-granular ops (COW copy, swap save/restore) move.  The
+# scale leaves of quantized pools are here so a copied or swapped-in page
+# comes with its own scales, not the stale ones of the page it lands on;
+# the key-conv tails so a page keeps the raw keys its ring loads need.
+PAGE_LEAVES = ("pages_k", "pages_v", "scales_k", "scales_v", "centroids",
+               "key_conv_tails")
 
 
 def resolve_page_size(cfg: ModelConfig) -> int:
@@ -60,7 +70,8 @@ def resolve_page_size(cfg: ModelConfig) -> int:
 def init_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
                    with_centroids: bool, dtype=torch.bfloat16,
                    device="cuda", kv_dtype: str = "fp32",
-                   groups: Optional[int] = None, max_seqs: int = 0) -> Dict:
+                   groups: Optional[int] = None, max_seqs: int = 0,
+                   prefix_tails: bool = False) -> Dict:
     """One layer slot's pool; ``groups`` adds the leading layer-group
     axis the model's group loop indexes (``transformer.init_paged_caches``).
 
@@ -72,7 +83,8 @@ def init_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
     MoBA pools (``with_centroids``) of key-conv models with ``max_seqs``
     > 0 also get the ring ``key_conv_state`` (max_seqs, hkv, W-1, dh) at
     ``dtype``, never quantized: it feeds the conv that feeds the
-    router."""
+    router.  ``prefix_tails`` (prefix-cache engines) adds the per-page
+    ``key_conv_tails`` (num_pages, hkv, W-1, dh), at ``dtype`` too."""
     hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     if kv_dtype not in Q.KV_DTYPES:
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}; "
@@ -96,6 +108,10 @@ def init_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
             pool["key_conv_state"] = torch.zeros(
                 lead + (max_seqs, hkv, width - 1, dh), dtype=dtype,
                 device=device)
+            if prefix_tails:
+                pool["key_conv_tails"] = torch.zeros(
+                    lead + (num_pages, hkv, width - 1, dh), dtype=dtype,
+                    device=device)
     return pool
 
 
@@ -123,6 +139,40 @@ def write_ring_rows(cache: Dict, slots: torch.Tensor, ok: torch.Tensor,
     """``key_conv_state[slots[i]] = rows[i]`` for every prefill row with
     ``ok[i]``, in place (one layer group's pool)."""
     _scatter_rows(cache["key_conv_state"], slots, ok, rows)
+
+
+def update_key_conv_tails(cache: Dict, block_table: torch.Tensor,
+                          kv_len: torch.Tensor, q_len: torch.Tensor,
+                          k_raw: torch.Tensor) -> Dict:
+    """Keep each page's raw-key tail through an append, in place (one
+    layer group's pool, right after the page write).
+
+    k_raw (B, hkv, L, dh) are the pre-conv keys row i writes at absolute
+    positions [kv_len[i], kv_len[i] + q_len[i]); those landing in a page's
+    last ``width - 1`` positions are recorded in that page's tail.  Decode
+    passes L == 1 and the active mask as ``q_len``.  Rows that write no
+    tail go through :func:`_scatter_rows`: nothing of theirs is written,
+    and no host sync decides it."""
+    tails = cache["key_conv_tails"]           # (P, hkv, depth, dh)
+    num_pages, hkv, depth, dh = tails.shape
+    ps = cache["pages_k"].shape[1]
+    b, _, length, _ = k_raw.shape
+    npg = block_table.shape[1]
+    dev = k_raw.device
+    pos = kv_len[:, None] + torch.arange(length, device=dev)  # (B,L) abs
+    logical = torch.clamp(pos // ps, max=npg - 1)
+    phys = block_table.gather(1, logical.long())              # (B,L)
+    ti = pos % ps - (ps - depth)                             # tail index
+    valid = ((torch.arange(length, device=dev)[None, :] < q_len[:, None])
+             & (phys >= 0) & (ti >= 0))
+    heads = torch.arange(hkv, device=dev)
+    row = ((phys[..., None] * hkv + heads) * depth
+           + ti[..., None])                                  # (B,L,hkv)
+    vals = k_raw.permute(0, 2, 1, 3)                         # (B,L,hkv,dh)
+    _scatter_rows(tails.view(num_pages * hkv * depth, dh), row.reshape(-1),
+                  valid[..., None].expand(b, length, hkv),
+                  vals.reshape(b * length * hkv, dh))
+    return cache
 
 
 def paged_append_decode(cache: Dict, block_table: torch.Tensor,
@@ -325,12 +375,41 @@ def swa_windowed_decode_attention(q: torch.Tensor, cache: Dict,
 
 
 # --------------------------------------------------------------------------
-# page-granular cache ops (swap preemption).
+# page-granular cache ops (prefix cache / COW / swap preemption).
 #
 # ``caches`` here is the engine-level dict ``{"slot_i": pool}`` whose
 # leaves carry a leading layer-group dim (G, ...).  These run between the
-# scheduler's plan and the step's first write.
+# scheduler's plan and the step's first write, in place.  Page and slot
+# ids are host ints, so the copies are plain slices: no index upload, no
+# host sync.
 # --------------------------------------------------------------------------
+
+def copy_pages(caches, src: List[int], dst: List[int]):
+    """Copy-on-write: duplicate physical pages ``src[i] -> dst[i]`` in
+    every page-indexed leaf (K/V, scales, centroids, key-conv tails), so
+    a sequence diverging mid-page writes into its own copy.  Copying the
+    centroid too keeps the page routable; the suffix prefill recomputes
+    it from the stored keys once it appends."""
+    for s, d in zip(src, dst):
+        for pool in caches.values():
+            for name in PAGE_LEAVES:
+                if name in pool:
+                    pool[name][:, d].copy_(pool[name][:, s])
+    return caches
+
+
+def load_ring_from_tails(caches, slots: List[int], pages: List[int]):
+    """Prefix-hit admission for key-conv models: sequence ``slots[i]``'s
+    ring row becomes page ``pages[i]``'s raw-key tail, the last
+    ``width - 1`` raw keys before the match boundary: the state a
+    contiguous prefill would have carried into the suffix."""
+    for sl, pg in zip(slots, pages):
+        for pool in caches.values():
+            if "key_conv_tails" in pool and "key_conv_state" in pool:
+                pool["key_conv_state"][:, sl].copy_(
+                    pool["key_conv_tails"][:, pg])
+    return caches
+
 
 def gather_pages_host(caches, pages: List[int]) -> Dict:
     """Snapshot physical pages to host memory (swap-out): every

@@ -150,19 +150,16 @@ def test_staged_matches_legacy(model, kw):
 
 # ------------------------------------------------------- out-of-scope gates
 @pytest.mark.parametrize("field,ecfg", [
-    ("prefix_cache", dict(prefix_cache=True)),
     ("route_policy", dict(route_policy="snr:pfail=0.9")),
 ])
 def test_out_of_scope_engine_config_raises(model, field, ecfg):
-    """The prefix cache is not ported yet (its error points at
-    ROADMAP.md); adaptive routing is, and a malformed policy still fails
-    construction under its own field."""
+    """A malformed routing policy fails construction under its own
+    field."""
     _, _, cfg, params = model
     with pytest.raises(UnsupportedFeatureError) as ei:
         Engine(cfg, params, EngineConfig(**ecfg), device="cpu")
     assert ei.value.feature == field
-    want = "ROADMAP.md" if field == "prefix_cache" else "pfail must be in"
-    assert want in str(ei.value)
+    assert "pfail must be in" in str(ei.value)
 
 
 def test_out_of_scope_model_and_fleet_raise(model):
@@ -245,6 +242,7 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert len(files) > 20                  # the scan sees the package
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert {"src/repro_torch/core/key_conv.py",
+            "src/repro_torch/checkpoint/manager.py",
             "src/repro_torch/data/niah.py",
             "src/repro_torch/configs/qwen3_0_6b.py"} <= names
     for path in files:

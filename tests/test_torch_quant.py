@@ -281,7 +281,7 @@ def test_swap_moves_scales(kv_dtype):
     assert ("slot_0", "scales_k") in snap and ("slot_0", "scales_v") in snap
     TPC.scatter_pages_device(caches, free, snap)
     pool = caches["slot_0"]
-    for name in TPC.PAGE_LEAVES:
+    for name in (n for n in TPC.PAGE_LEAVES if n in pool):
         np.testing.assert_array_equal(_bytes(pool[name][0, free]),
                                       _bytes(pool[name][0, src]))
 

@@ -34,7 +34,6 @@ from repro_torch.launch import steps as S
 from repro_torch.launch.train import train
 from repro_torch.models import transformer as TT
 from repro_torch.optim import adamw
-from repro_torch.serving.scheduler import UnsupportedFeatureError
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 BACKENDS = ("reference", "xla", "flash")
@@ -226,30 +225,130 @@ def test_train_defaults_to_cuda():
     assert res.returncode != 0 and "cuda" in res.stderr
 
 
-OUT_OF_SCOPE = {
-    "ckpt_dir": dict(ckpt_dir="/nonexistent/ckpt"),
-    "resume": dict(resume="auto"),
-    "microbatch": dict(microbatch=2),
-}
+# ------------------------------------------------- gradient accumulation
+ACCUM = {"microbatch": dict(microbatch=2),
+         "accum_in_loss": dict(microbatch=2, accum_in_loss=True)}
 
 
-@pytest.mark.parametrize("flag", OUT_OF_SCOPE)
-def test_out_of_scope_train_flags_raise(flag):
-    with pytest.raises(UnsupportedFeatureError):
-        train("moba-340m", steps=1, batch=1, seq=16, device="cpu",
-              **OUT_OF_SCOPE[flag])
+def _one_step(step_fn, params, tokens):
+    params = {k: v for k, v in params.items()}
+    params = adamw.tree_like(params, [v.detach().clone() for _, v in
+                                      adamw.tree_leaves(params)])
+    state = adamw.adamw_init(params)
+    params, state, m = step_fn(params, state,
+                               {"tokens": torch.from_numpy(tokens)})
+    return params, state, m
 
 
-def test_out_of_scope_cli_flag_exits_2():
-    res = _cli("--smoke", "--device", "cpu", "--microbatch", "2")
-    assert res.returncode == 2 and "microbatch" in res.stderr
+@pytest.mark.parametrize("backend", ["xla", "flash"])
+@pytest.mark.parametrize("mode", ACCUM)
+def test_accumulated_step_matches_jax(smoke, mode, backend):
+    """One step of batch 4 in 2 microbatches, per-microbatch backward or
+    one loss over the chunks: loss within 2e-4 and, through the first
+    moment (0.1 x the clipped gradient after one step from zero), every
+    gradient leaf within 5e-3 of its max, against the reference's step."""
+    jcfg, tcfg, jparams, tparams = smoke
+    kw = dict(ACCUM[mode])
+    accum = kw.pop("accum_in_loss", False)
+    jt = JTrainConfig(global_batch_size=4, seq_len=32, total_steps=3,
+                      warmup_steps=1, **kw)
+    tt = TrainConfig(**dataclasses.asdict(jt))
+    tokens = _tokens(6, b=4)
+    jstep = jax.jit(JS.make_train_step(jcfg, jt, backend=backend,
+                                       accum_in_loss=accum))
+    _, jstate, jm = jstep(jparams, JADAM.adamw_init(jparams),
+                          {"tokens": jnp.asarray(tokens)})
+    _, state, m = _one_step(S.make_train_step(tcfg, tt, backend=backend,
+                                              accum_in_loss=accum),
+                            tparams, tokens)
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(float(m["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=2e-4)
+    _assert_grads_close(_leaves(state.mu), _jax_leaves(jstate.mu))
 
 
-@pytest.mark.parametrize("kw", [dict(microbatch=4), dict(accum=True)],
-                         ids=["microbatch", "accum_in_loss"])
-def test_make_train_step_rejects_accumulation(smoke, kw):
-    _, tcfg, _, _ = smoke
-    with pytest.raises(UnsupportedFeatureError):
-        S.make_train_step(tcfg, TrainConfig(microbatch=kw.get("microbatch",
-                                                              0)),
-                          accum_in_loss=kw.get("accum", False))
+@pytest.mark.parametrize("mode", ACCUM)
+def test_accumulated_step_equals_one_shot_step(smoke, mode):
+    """Equal-length chunks: the mean of the chunks' losses is the
+    batch's loss, and the accumulated gradient the batch's gradient."""
+    _, tcfg, _, tparams = smoke
+    kw = dict(ACCUM[mode])
+    accum = kw.pop("accum_in_loss", False)
+    tokens = _tokens(8, b=4)
+    base = dict(global_batch_size=4, seq_len=32, total_steps=3,
+                warmup_steps=1)
+    _, one, m1 = _one_step(S.make_train_step(tcfg, TrainConfig(**base),
+                                             backend="flash"),
+                           tparams, tokens)
+    _, acc, m2 = _one_step(S.make_train_step(
+        tcfg, TrainConfig(**base, **kw), backend="flash",
+        accum_in_loss=accum), tparams, tokens)
+    np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]),
+                               rtol=1e-5)
+    _assert_grads_close(_leaves(acc.mu), {
+        k: v.numpy() for k, v in _leaves(one.mu).items()})
+
+
+def test_microbatch_must_divide_the_batch(smoke):
+    _, tcfg, _, tparams = smoke
+    step = S.make_train_step(tcfg, TrainConfig(microbatch=3),
+                             backend="xla")
+    with pytest.raises(ValueError, match="microbatches"):
+        _one_step(step, tparams, _tokens(1, b=4))
+
+
+# ------------------------------------------------ checkpoint and resume
+TRAIN_KW = dict(steps=6, batch=2, seq=32, smoke=True, attn_backend="xla",
+                lr=1e-3, seed=7, device="cpu", save_interval=2)
+
+
+def test_train_checkpoint_restart_matches_uninterrupted(tmp_path):
+    """Kill-and-resume reproduces the uninterrupted run (the port's
+    counterpart of tests/test_integration.py's fault-tolerance
+    contract), with 2 microbatches a step."""
+    params_a, losses_a = train("moba-340m", ckpt_dir=str(tmp_path / "a"),
+                               microbatch=2, **TRAIN_KW)
+    d2 = str(tmp_path / "b")
+    _, first = train("moba-340m", ckpt_dir=d2, microbatch=2,
+                     stop_at_step=3, **TRAIN_KW)
+    params_b, losses_b = train("moba-340m", ckpt_dir=d2, resume="auto",
+                               microbatch=2, **TRAIN_KW)
+    assert len(first) == 3 and len(losses_b) == 3
+    np.testing.assert_allclose(losses_a, first + losses_b, rtol=1e-5)
+    a, b = _leaves(params_a), _leaves(params_b)
+    for name in a:
+        np.testing.assert_allclose(b[name].detach().numpy(),
+                                   a[name].detach().numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+    # saved at steps 2, 3 (the stop) and 4, 6; the last 3 kept
+    assert sorted(os.listdir(d2)) == ["step_00000003", "step_00000004",
+                                      "step_00000006"]
+
+
+def test_port_resumes_from_jax_checkpoint(tmp_path):
+    """The JAX trainer writes a checkpoint at step 2; the port restores
+    it and its next step's loss matches the JAX trainer's step 2."""
+    from repro.launch.train import train as jtrain
+    jkw = {k: v for k, v in TRAIN_KW.items() if k != "device"}
+    d = str(tmp_path / "jax")
+    jtrain("moba-340m", ckpt_dir=d, stop_at_step=2, log_every=100, **jkw)
+    _, jlosses = jtrain("moba-340m", stop_at_step=3, log_every=100, **jkw)
+    _, losses = train("moba-340m", ckpt_dir=d, resume="auto",
+                      stop_at_step=3, **TRAIN_KW)
+    assert len(losses) == 1
+    np.testing.assert_allclose(losses[0], jlosses[2], atol=2e-4, rtol=2e-4)
+
+
+def test_train_cli_checkpoint_resume_microbatch(tmp_path):
+    args = ("--smoke", "--steps", "2", "--batch", "2", "--seq", "32",
+            "--device", "cpu", "--ckpt-dir", str(tmp_path), "--resume",
+            "auto", "--microbatch", "2", "--save-interval", "1")
+    res = _cli(*args)
+    assert res.returncode == 0, res.stderr
+    assert sorted(os.listdir(tmp_path)) == ["step_00000001",
+                                            "step_00000002"]
+    res = _cli(*args[:2], "3", *args[3:])
+    assert res.returncode == 0, res.stderr
+    assert "[resume] restored step 2" in res.stdout
+    assert res.stdout.count("loss") == 1          # step 2 only
