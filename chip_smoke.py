@@ -69,7 +69,12 @@ Phases, one JSON line each; any failure exits non-zero:
                route at moba-340m's decode shape: selections equal the
                plain versions' exactly (``lax.top_k``'s order: the
                float's total order, then the lower index), and some rows
-               are cut inside a tie.
+               are cut inside a tie.  Then signed zeros: fp32 Flash TopK
+               and the decode route on rows whose every product
+               underflows, which their fused multiply-add chains score
+               -0.0: each must order them below the +0.0 rows as
+               ``lax.top_k`` does, or, had no -0.0 arisen, as on +0.0
+               (``ordered_as`` reports which).
   3. serve   — moba-340m at full width (bf16, random weights from a
                seeded torch.Generator) through ``Engine`` on the ``flash``
                backend: 8 prompts of 1024..4095 tokens, 64 new tokens
@@ -145,7 +150,10 @@ Phases, one JSON line each; any failure exits non-zero:
                bit for bit to the raw keys the tree's page holder
                computed before the match; a second turn (turn 1's
                prompt, its output and 64 tokens) hits turn 1's cache and
-               holds against a fresh engine.
+               holds against a fresh engine: its stream, and the logits
+               of the 65 positions it prefills on top of the hit (the
+               COW-copied page's keys feed every one) within 5e-2
+               relative.
   5. train_kernels — the four FlashMoBA training kernels (centroids, Flash
                TopK, forward, backward) against their plain PyTorch
                versions at the moba-340m training shapes (B=1, H=Hkv=16,
@@ -983,11 +991,119 @@ def phase_zero_ties():
                  "rows_cut_in_a_zero_tie": cut,
                  "rows": int(sel.shape[0] * sel.shape[1])})
     ok &= equal and cut > 0
+    signed = _signed_zero_checks(negative, q.shape, pool, table, kv, cfg)
+    ok &= all(r["ok"] for r in signed)
+    recs += signed
     emit({"phase": "zero_ties", "checks": recs, "ok": ok})
     if not ok:
         raise SystemExit("zero_ties: a kernel's selections differ from its "
                          "plain version's on ties at 0.0, or no tie was "
-                         "selected")
+                         "selected, or a kernel ordered -0.0 against +0.0 "
+                         "other than lax.top_k does")
+
+
+# a query component of about -1e-30 times a centroid component of 1e-20:
+# the product (~-1e-50) is below fp32's least subnormal
+SIGNED_Q_SCALE = 1e-30
+SIGNED_TINY = 1e-20
+
+
+def _signed_centroids(rows: int, d: int):
+    """fp32 centroid rows for the signed-zero check, and two row masks:
+    rows 4i are zero (a score of +0.0), rows 4i+2 hold
+    :data:`SIGNED_TINY` in every component (``tiny``), odd rows
+    :func:`_tie_values`' exact values in component 0."""
+    import torch
+    j = torch.arange(rows, device="cuda")
+    c = torch.zeros((rows, d), device="cuda")
+    c[:, 0] = _tie_values(rows)
+    tiny = j % 4 == 2
+    c[tiny] = SIGNED_TINY
+    return c, tiny, j % 4 == 0
+
+
+def _signed_zero_checks(negative, q_shape, pool, table, kv, cfg) -> list:
+    """-0.0 on the card: queries of negative components about -1e-30
+    against :func:`_signed_centroids`.  Each product of a tiny row
+    underflows, and a fused multiply-add whose exact result is nonzero
+    and rounds to zero keeps that result's sign, so the kernels' fp32
+    chains score a tiny row -0.0 while a zero row stays +0.0.  The plain
+    versions' einsum need not round the same way, so the expected
+    selections come from the plain selection code on the scores with the
+    tiny rows set to -0.0 (``neg``: ``lax.top_k`` ranks them below the
+    zero rows) and to +0.0 (``pos``: what a float compare, which ties
+    the two zeros, selects on -0.0 scores too).  Each kernel must equal
+    one of the two; ``ordered_as`` says which, and ``rows_where_sign_
+    decides`` counts the rows where they differ (there must be some).
+    Through Flash TopK in fp32 (block 128 / top_k 8) and the decode
+    route (fp32 centroids, bf16 q)."""
+    import torch
+    from repro_torch.core import moba as CM
+    from repro_torch.core import routing
+    from repro_torch.kernels import flash_topk as KT
+    from repro_torch.kernels import moba_decode as MD
+    from repro_torch.kernels import ref
+
+    def result(kernel, got, want, extra):
+        eq = {z: bool(torch.equal(got, w)) for z, w in want.items()}
+        differ = int((want["neg"] != want["pos"]).reshape(
+            want["neg"].shape[0], -1).any(-1).sum())
+        return {"kernel": kernel, "signed": True, **extra,
+                "ordered_as": ("-0.0 below +0.0" if eq["neg"] else
+                               "+0.0" if eq["pos"] else "neither"),
+                "rows_where_sign_decides": differ,
+                "rows": int(want["neg"].shape[0]),
+                "ok": (eq["neg"] or eq["pos"]) and differ > 0}
+
+    out = []
+    h, hkv, n, d, bs, top_k = 4, 2, 2048, 64, 128, 8
+    nb = n // bs
+    q = negative((h, n, d), torch.float32) * SIGNED_Q_SCALE
+    c, tiny, zero = _signed_centroids(nb, d)
+    cents = c.expand(hkv, nb, d).contiguous()
+    got = KT.flash_topk(q, cents, top_k, bs, group=h // hkv, num_q_heads=h)
+    scores = routing.routing_scores(
+        q, cents[ref.kv_rows(h, h, h // hkv, q.device)])
+    pos = torch.arange(n, device="cuda")
+    scores = torch.where(zero, torch.zeros_like(scores), scores)
+    want = {z: routing.select_blocks(
+        torch.where(tiny, torch.full_like(scores, v), scores), top_k, bs,
+        pos) for z, v in (("neg", -0.0), ("pos", 0.0))}
+    out.append(result("flash_topk", got.reshape(h * n, -1),
+                      {z: w.reshape(h * n, -1) for z, w in want.items()},
+                      {"block_size": bs, "top_k": top_k,
+                       "dtype": "torch.float32", "n": n,
+                       "plain_equal": bool(torch.equal(got, ref.flash_topk_ref(
+                           q, cents, top_k, bs, group=h // hkv,
+                           num_q_heads=h)))}))
+    # the decode route: the page's physical id picks its centroid row
+    c, tiny, zero = _signed_centroids(pool["centroids"].shape[0],
+                                      pool["centroids"].shape[-1])
+    pool["centroids"].copy_(c[:, None, :].expand_as(pool["centroids"]))
+    q = (negative(q_shape, torch.float32) * SIGNED_Q_SCALE).to(torch.bfloat16)
+    _, rt = _decode_launch(q, pool, table, kv, cfg)
+    masked = CM.paged_route_scores(q, pool["centroids"], table, kv, 128)
+    live = masked.abs() < 1e29
+    ent = table.clamp(min=0).long()
+    tiny_pg = (tiny[ent] & (table >= 0))[:, None, None, None, :] & live
+    masked = torch.where((zero[ent] & (table >= 0))[:, None, None, None, :]
+                         & live, torch.zeros_like(masked), masked)
+    want, scores_fn = {}, MD.paged_route_scores
+    try:
+        for z, v in (("neg", -0.0), ("pos", 0.0)):
+            crafted = torch.where(tiny_pg, torch.full_like(masked, v), masked)
+            MD.paged_route_scores = lambda *a, _m=crafted: _m
+            want[z] = MD.route_tables_plain(q, pool["centroids"], table, kv,
+                                            cfg.top_k, 128).sel
+    finally:
+        MD.paged_route_scores = scores_fn
+    plain = MD.route_tables_plain(q, pool["centroids"], table, kv, cfg.top_k,
+                                  128)
+    out.append(result("moba_paged_decode (route)", rt.sel, want,
+                      {"block_size": 128, "top_k": cfg.top_k,
+                       "dtype": "torch.bfloat16",
+                       "plain_equal": bool(torch.equal(rt.sel, plain.sel))}))
+    return out
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1947,8 +2063,9 @@ def phase_serve_prefix():
             bad.append(f"{name}: a ring loaded from the tails is not the "
                        f"publisher's raw keys")
         if "second_turn" in case and not case["second_turn"]["ok"]:
-            bad.append(f"{name}: the second turn missed its hit or parted "
-                       f"from a fresh engine off a near-tie")
+            bad.append(f"{name}: the second turn missed its hit, parted "
+                       f"from a fresh engine off a near-tie, or its suffix "
+                       f"logits are not the fresh engine's")
         if name == "bf16" and (
                 case["profile"]["on"]["launch_calls_per_step"]
                 != case["profile"]["off"]["launch_calls_per_step"]):
@@ -1965,28 +2082,83 @@ def phase_serve_prefix():
     return counts, rec
 
 
+# the second turn's suffix logits, cached engine against a fresh one:
+# ||a - b|| / ||b|| over every logit of the suffix.  bf16 rounding moves
+# it by about 1e-2; K/V from a wrong page moves every suffix position
+# (all of them attend the COW-copied page, their own block) by O(1).
+SECOND_TURN_REL_TOL = 5e-2
+
+
+def _prefill_logits(m: int):
+    """Patch ``T.prefill`` to keep, for each call, the fp32 logits of its
+    row 0 at that row's last ``m`` valid positions.  Returns (the list
+    they go into, the undo)."""
+    from repro_torch.models import transformer as T
+    prefill, got = T.prefill, []
+
+    def rec(*a, **kw):
+        logits, caches = prefill(*a, **kw)
+        q = int(kw["page_state"]["q_len"][0])
+        got.append(logits[0, max(q - m, 0):q].float().clone())
+        return logits, caches
+
+    T.prefill = rec
+
+    def undo():
+        T.prefill = prefill
+    return got, undo
+
+
 def _second_turn(cfg, params, eng, prompt, out, n: int) -> dict:
     """Turn 2 on ``eng`` (whose tree holds turn 1): turn 1's prompt, its
     output and 64 new tokens.  Turn 1's cache (its prompt and all but its
     last token, the partial tail page included at finish) must be the
-    hit; the stream is held against a fresh engine's, teacher-forced."""
+    hit; the stream is held against a fresh engine's, teacher-forced, and
+    so are the logits of every position the cached engine prefills on top
+    of the hit (:data:`SECOND_TURN_REL_TOL`; the one-shot ``lm_apply``'s
+    distance from the fresh engine is reported beside it)."""
+    import torch
+    from repro_torch.models import transformer as T
     rng = np.random.default_rng(2)
     turn2 = np.concatenate([prompt, np.asarray(out, np.int32),
                             rng.integers(0, cfg.vocab_size, 64,
                                          dtype=np.int32)])
+    want_hit = len(prompt) + n - 1
+    m = len(turn2) - want_hit                    # the suffix prefilled
     before = {k: eng.stats[k] for k in ("prefix_hit_tokens", "cow_copies")}
-    req = eng.submit(turn2, max_new_tokens=n)
-    eng.run()
-    hit = eng.stats["prefix_hit_tokens"] - before["prefix_hit_tokens"]
-    fresh, feng, _, _ = _prefix_serve(cfg, params, [turn2], n)
+    got, undo = _prefill_logits(m)
+    try:
+        req = eng.submit(turn2, max_new_tokens=n)
+        eng.run()
+        fresh, feng, _, _ = _prefix_serve(cfg, params, [turn2], n)
+    finally:
+        undo()
     del feng
     gc.collect()
+    hit = eng.stats["prefix_hit_tokens"] - before["prefix_hit_tokens"]
     vs = _parted(cfg, params, [turn2], fresh["streams"], [list(req.out)])
-    want_hit = len(prompt) + n - 1
+    cached, ref = got[0], got[-1]
+    with torch.no_grad():
+        one, _, _ = T.lm_apply(params, torch.as_tensor(turn2, device="cuda")
+                               [None], cfg, backend="flash")
+    one = one[0, -m:].float()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    logits = {"positions": m, "rel_err": rel(cached, ref),
+              "max_abs_err": float((cached - ref).abs().max()),
+              "max_abs_logit": float(ref.abs().max()),
+              "argmax_equal": int((cached.argmax(-1)
+                                   == ref.argmax(-1)).sum()),
+              "one_shot_rel_err": rel(one, ref),
+              "tol": SECOND_TURN_REL_TOL}
+    logits["ok"] = (len(got) == 2 and cached.shape == ref.shape
+                    and logits["rel_err"] <= SECOND_TURN_REL_TOL)
     return {"prompt_len": len(turn2), "hit_tokens": hit,
             "expected_hit_tokens": want_hit,
             "cow_copies": eng.stats["cow_copies"] - before["cow_copies"],
-            "vs_fresh": vs, "ok": hit == want_hit and vs["ok"]}
+            "vs_fresh": vs, "suffix_logits": logits,
+            "ok": hit == want_hit and vs["ok"] and logits["ok"]}
 
 
 # ------------------------------------------------------------------ phase 5

@@ -53,9 +53,12 @@
 //     score once, where it writes S, so the selection loop does no more
 //     work than it did on floats), all k compares are independent (no
 //     carried chain), and the tie order is lax.top_k's.
-//     Scores start from a +0.0 accumulator, and a round-to-nearest sum
-//     is -0.0 only when every term is, so a computed score is never -0.0;
-//     the keys make the order right for any input all the same.  For
+//     Scores start from a +0.0 accumulator, but a score can still be
+//     -0.0: a fused multiply-add whose exact result is nonzero and rounds
+//     to zero keeps that result's sign, so a chain whose products all
+//     underflow can end at -0.0 (chip_smoke.py's zero_ties builds such
+//     rows).  A float compare would tie it with +0.0; the keys rank it
+//     below, as lax.top_k does.  For
 //     top_k <= 32 the list lives in registers, unrolled to the bucket KR
 //     in {8, 16, 32} with the first KR - top_k slots blocked at +3e30 so
 //     they never move; above that it lives in shared memory, [top_k][R]

@@ -205,9 +205,9 @@ __device__ __forceinline__ int order_key(float x) {
 
 // entry (s, p) ranks above (t, r), both scores as order keys: higher
 // score on the total order, or equal score and lower page (lax.top_k's
-// order).  Scores are sums from a +0.0 accumulator, which round to -0.0
-// only if every term does, so the kernel computes no -0.0; the keys keep
-// the order right for any input.
+// order).  Scores are fused multiply-add chains from +0.0, and one whose
+// products all underflow can end at -0.0 (an inexact result that rounds
+// to zero keeps its sign), which a float compare would tie with +0.0.
 __device__ __forceinline__ bool beats(int s, int p, int t, int r) {
   return s > t || (s == t && p < r);
 }

@@ -55,24 +55,23 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 64, gen: int = 32,
           seed: int = 0, device="cuda", shards: int = 0,
           kv_dtype: str = "fp32", route_policy: str = "static",
           prefill_chunk: int = 0, prefix_cache: bool = False,
-          swap_bytes: int = None) -> np.ndarray:
+          swap_bytes: int = EngineConfig.swap_bytes) -> np.ndarray:
     """Decode ``gen`` greedy tokens for ``batch`` random prompts through
     the paged engine.  ``prefill_chunk``, ``prefix_cache`` and
-    ``swap_bytes`` (None keeps the engine's default) are the
-    ``EngineConfig`` fields of those names.  Returns int32 tokens of
-    shape (batch, gen)."""
+    ``swap_bytes`` are the ``EngineConfig`` fields of those names.
+    Returns int32 tokens of shape (batch, gen)."""
     dev = resolve_device(device)
     cfg = configs.get_smoke_config(arch) if smoke else configs.get_config(arch)
     params = T.init_lm(torch.Generator(device=dev).manual_seed(seed), cfg)
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len),
                            dtype=np.int32)
-    kw = {} if swap_bytes is None else {"swap_bytes": swap_bytes}
     eng = _make_engine(cfg, params, EngineConfig(
         max_seqs=batch, max_seq_len=_round_up(prompt_len + gen, 16),
         max_prefill_batch=min(batch, 4), attn_backend=attn_backend,
         prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
-        kv_dtype=kv_dtype, route_policy=route_policy, **kw),
+        kv_dtype=kv_dtype, route_policy=route_policy,
+        swap_bytes=swap_bytes),
         shards, device=dev)
     if eng.route_profile is not None:
         print(eng.route_profile.summary())
@@ -132,10 +131,11 @@ def main(argv=None):
                     help="radix-tree prefix caching: requests sharing a "
                          "cached token prefix reuse its KV pages "
                          "(copy-on-write) and prefill only the suffix")
-    ap.add_argument("--swap-bytes", type=int, default=None,
+    ap.add_argument("--swap-bytes", type=int,
+                    default=EngineConfig.swap_bytes,
                     help="host-memory budget for preemption swap "
                          "(bytes; 0 disables swap so preempted requests "
-                         "recompute; default 64 MiB)")
+                         "recompute; default %(default)s)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")

@@ -284,8 +284,8 @@ def drain_cache_ops(caches, sched: Scheduler, swap_store, page_size: int):
     request's ``cache_len`` so the takes computed at prefill see the
     restored prefix."""
     ops = sched.take_cache_ops()
-    for s, d in ops["copies"]:
-        caches = PC.copy_pages(caches, [s], [d])
+    if ops["copies"]:
+        caches = PC.copy_pages(caches, *zip(*ops["copies"]))
     for req in ops["restores"]:
         sd = req.swap_data
         pages = sched._seq_pages[req.slot][
@@ -296,8 +296,8 @@ def drain_cache_ops(caches, sched: Scheduler, swap_store, page_size: int):
         req.cache_len = sd["n_tokens"]
         swap_store.drop(req)
         sched.stats["swap_restores"] += 1
-    for sl, pg in ops["ring_loads"]:
-        caches = PC.load_ring_from_tails(caches, [sl], [pg])
+    if ops["ring_loads"]:
+        caches = PC.load_ring_from_tails(caches, *zip(*ops["ring_loads"]))
     return caches
 
 
