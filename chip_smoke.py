@@ -153,7 +153,36 @@ Phases, one JSON line each; any failure exits non-zero:
                holds against a fresh engine: its stream, and the logits
                of the 65 positions it prefills on top of the hit (the
                COW-copied page's keys feed every one) within 5e-2
-               relative.
+               relative.  Then the serve CLI's other modes, each through
+               its entry point in ``launch/serve.py`` on moba-340m at
+               full width (bf16, seed-0 weights), ``flash``:
+               ``serve_fixed`` (the dense-cache fixed loop, batch 8, a
+               2,048-token prompt, 64 new tokens; each step call timed
+               between syncs with the kernels it launched: 12 each of
+               centroids, Flash TopK and ``moba_fwd`` in the prefill,
+               none in a decode step; its streams beside ``serve()``'s
+               paged engine on the same prompts, the partings and their
+               top-2 gaps reported; then in fp32, batch 2, 8 new tokens,
+               flash against xla: prefill and decode logits within 2e-3,
+               greedy tokens equal, xla replaying flash's prefill and
+               decode selections by the near-tie rule, and the paged
+               engine's streams equal the fixed loop's up to a top-2
+               gap <= 1e-3);
+               ``serve_stream`` (16 requests, Poisson arrivals at 4
+               req/s, prompts 1,024..4,095 tokens, 16..64 new tokens, 8
+               slots, realtime: every metric it returns; every request
+               finishes, 12 decode calls and 36 kernels a step, streams
+               equal a ``dispatch_ahead=0`` batch run's up to the
+               near-tie rule); ``serve_openloop`` (the same ranges, one
+               arrival every 4 decode steps, ``dispatch_ahead`` 1 then
+               0: sustained tokens/s, TTFT and TPOT p50/p99, the
+               pipeline depth peak; the two runs' streams equal up to the
+               near-tie rule, the same launch gates); ``serve_http`` (the
+               CLI with ``--http`` in a subprocess; 3 concurrent clients
+               POST 1,024..2,048-token prompts for 32 tokens each, one
+               GETs ``/stats``: each stream equals its final record,
+               ``ttft_ms`` present, decode steps counted, exit code 0 on
+               SIGINT).
   5. train_kernels — the four FlashMoBA training kernels (centroids, Flash
                TopK, forward, backward) against their plain PyTorch
                versions at the moba-340m training shapes (B=1, H=Hkv=16,
@@ -265,11 +294,13 @@ the decode kernels once per pool dtype; Flash TopK also with its
 small-block times and its times alone at top_k 16, 64 and 1024;
 ``swa_attention`` also at d 128 and in fp32; ``launches_also``: each
 kernel's launches on the other paths, ``serve_key_conv``,
-``serve_qwen3``, ``serve_adaptive`` (its (b) run) and ``serve_prefix``
-(each case with the cache on) for the decode kernels, whose bf16 entry
-also holds ``with_budgets``; ``train_small_blocks``, ``train_key_conv``
-and ``train_accum``'s two accumulating bf16 steps for the training
-kernels), and as the last line ``{"ok": true, "device": {...}}``.
+``serve_qwen3``, ``serve_adaptive`` (its (b) run), ``serve_prefix``
+(each case with the cache on), ``serve_stream`` and ``serve_openloop``
+(each ``dispatch_ahead``) for the decode kernels, whose bf16 entry also
+holds ``with_budgets``; ``serve_fixed``'s prefill,
+``train_small_blocks``, ``train_key_conv`` and ``train_accum``'s two
+accumulating bf16 steps for the training kernels), and as the last line
+``{"ok": true, "device": {...}}``.
 
   python3 chip_smoke.py --ab DIR
 
@@ -2162,6 +2193,774 @@ def _second_turn(cfg, params, eng, prompt, out, n: int) -> dict:
 
 
 # ------------------------------------------------------------------ phase 5
+# ---------------------------------------- the serve CLI's remaining modes
+FIXED_CASE = dict(batch=8, prompt_len=2048, gen=64)
+FIXED_FP32_CASE = dict(batch=2, prompt_len=2048, gen=8)
+# the stream / open-loop scenarios: 16 requests of 1024..4095 prompt
+# tokens and 16..64 new tokens on 8 slots (numpy's upper bounds exclusive)
+STREAM_CASE = dict(n_requests=16, prompt_range=(1024, 4096),
+                   gen_range=(16, 65), max_seqs=8)
+STREAM_RATE = 4.0                  # req/s, Poisson (seeded)
+OPENLOOP_EVERY = 4                 # one arrival every 4 decode steps
+HTTP_CLIENTS, HTTP_NEW_TOKENS = 3, 32
+# the bf16 fixed loop: FlashMoBA's output in its prefill against the fp32
+# reference on the same inputs and selections (largest error over the
+# largest |reference|), and its teacher-forced logits against a one-shot
+# lm_apply (per-position relative L2 error: the largest, and the median
+# over that of two one-shot paths)
+FIXED_BF16_OUT_TOL = 1e-2
+FIXED_TF_REL_TOL = 1e-1
+FIXED_TF_MEDIAN_RATIO = 1.5
+
+
+def _capture_engines():
+    """Patch ``launch/serve.py::_make_engine`` to keep every engine the
+    entry points build (they return metrics or tokens, not requests).
+    Returns the list and the undo."""
+    from repro_torch.launch import serve as TS
+    made, make = [], TS._make_engine
+
+    def keep(*a, **kw):
+        made.append(make(*a, **kw))
+        return made[-1]
+
+    TS._make_engine = keep
+
+    def undo():
+        TS._make_engine = make
+    return made, undo
+
+
+def _timed_steps(times: list, counts: list):
+    """Patch ``launch/steps.py``'s dense-cache step builders so each step
+    call is timed between two syncs, with the port kernels it launched
+    (:func:`_counts` and the decode kernels' calls, read around it).
+    Returns the undo."""
+    import torch
+    from repro_torch.kernels import moba_decode as MD
+    from repro_torch.launch import steps as S
+    builders = S.make_prefill_step, S.make_decode_step
+
+    def wrap(builder):
+        def build(*a, **kw):
+            fn = builder(*a, **kw)
+
+            def call(*args):
+                torch.cuda.synchronize()
+                c0, d0 = _counts(), MD.LAUNCHES
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                c1 = _counts()
+                counts.append({**{k: c1[k] - c0[k] for k in c1},
+                               "moba_paged_decode": MD.LAUNCHES - d0})
+                return out
+            return call
+        return build
+
+    S.make_prefill_step, S.make_decode_step = map(wrap, builders)
+
+    def undo():
+        S.make_prefill_step, S.make_decode_step = builders
+    return undo
+
+
+def _finished_streams(eng):
+    """(prompts, streams, max_new_tokens) of an engine's finished
+    requests, in submission order."""
+    reqs = sorted(eng.finished, key=lambda r: r.rid)
+    return ([r.prompt for r in reqs], [list(r.out) for r in reqs],
+            [r.max_new_tokens for r in reqs])
+
+
+def _decode_gate(what: str, calls: int, kernels: int, steps: int,
+                 moba_layers: int) -> list:
+    if calls == 0 or calls != moba_layers * steps or kernels != 3 * calls:
+        return [f"{what}: {calls} decode calls and {kernels} kernels for "
+                f"{steps} decode steps, expected {moba_layers} and "
+                f"{3 * moba_layers} a step"]
+    return []
+
+
+def _replay_selection(recorded: list, audit: list, plain_selection):
+    """A stand-in for ``core/moba.py::moba_selection`` that returns the
+    next of Flash TopK's ``recorded`` selections (B·H, Nq_p, k), first
+    holding it to the plain routing of its own q and k by the near-tie
+    rule (``audit`` gets (rows differing, largest gap, ok))."""
+    from repro_torch.core import routing
+    from repro_torch.kernels import ref
+
+    def replay(q, k, moba_cfg, q_positions=None, head_top_k=None):
+        assert head_top_k is None
+        b, h, nq, d = q.shape
+        hkv, n = k.shape[1], k.shape[2]
+        sel = recorded[len(audit)][:, :nq]
+        mine = plain_selection(q, k, moba_cfg, q_positions)
+        kv = ref.kv_rows(b * h, h, h // hkv, q.device)
+        cents = routing.block_centroids(k, moba_cfg.block_size)
+        masked = _masked_scores(q.reshape(b * h, nq, d),
+                                cents.reshape(b * hkv, -1, d)[kv], n,
+                                moba_cfg.block_size)
+        audit.append(_near_ties(masked, sel, mine.reshape(b * h, nq, -1)))
+        return sel.reshape(b, h, nq, -1)
+    return replay
+
+
+def _fixed_flash_vs_xla() -> dict:
+    """The fixed loop in fp32 (TF32 off) at full width, batch 2, a
+    2,048-token prompt, 8 new tokens: ``flash`` then ``xla`` from the
+    entry points' seed-0 weights and prompts.  The prefill's last logits
+    and each decode step's logits within 2e-3, greedy tokens equal.  The
+    xla run replays the flash run's selections, each held to its own
+    routing by the near-tie rule: Flash TopK's in the prefill, and the
+    dense-cache decode route's (the same plain function on both
+    backends, whose inputs differ in the last bits).  Then the paged
+    engine on ``flash``, built as ``serve()`` builds it, on the same
+    prompts: its streams equal the flash fixed loop's up to the first
+    teacher-forced top-2 gap <= :data:`GAP_TOL`."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import moba as CM
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = FIXED_FP32_CASE
+    cfg = dataclasses.replace(get_config("moba-340m"), dtype="float32")
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    host_prompts = list(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (c["batch"], c["prompt_len"])).astype(np.int32))
+    prompts = torch.as_tensor(np.stack(host_prompts), device="cuda")
+    flash_topk, plain_selection = ops.flash_topk, CM.moba_selection
+    decode_route = CM.moba_decode_route
+    rec_sel, rec_route, audit, route_audit = [], [], [], []
+
+    def record_topk(*args, **kw):
+        rec_sel.append(flash_topk(*args, **kw))
+        return rec_sel[-1]
+
+    def record_route(*args, **kw):
+        rec_route.append(decode_route(*args, **kw))
+        return rec_route[-1]
+
+    def replay_route(q, k_cache, kv_len, mcfg, centroids=None):
+        idx, valid = rec_route[len(route_audit)]
+        own_idx, own_valid = decode_route(q, k_cache, kv_len, mcfg,
+                                          centroids)
+        nb = -(-k_cache.shape[2] // mcfg.block_size)
+        masked = CM.moba_decode_scores(q, k_cache, kv_len, mcfg,
+                                       centroids).reshape(-1, 1, nb)
+        masked = torch.cat([masked, torch.full_like(masked[..., :1],
+                                                    CM.NEG_INF)], -1)
+        k = idx.shape[-1]
+        route_audit.append(_near_ties(
+            masked, torch.where(valid, idx, nb).reshape(-1, 1, k),
+            torch.where(own_valid, own_idx, nb).reshape(-1, 1, k)))
+        return idx, valid
+
+    runs = {}
+    try:
+        for backend in ("flash", "xla"):
+            if backend == "flash":
+                ops.flash_topk, CM.moba_decode_route = (record_topk,
+                                                        record_route)
+            else:
+                ops.flash_topk = flash_topk
+                CM.moba_selection = _replay_selection(rec_sel, audit,
+                                                      plain_selection)
+                CM.moba_decode_route = replay_route
+            caches = T.init_caches(cfg, c["batch"],
+                                   c["prompt_len"] + c["gen"],
+                                   dtype=torch.float32, device="cuda")
+            with torch.no_grad():
+                lg, caches = T.prefill(params, prompts, cfg, caches,
+                                       backend=backend)
+                logits = [lg[:, -1]]
+                for _ in range(c["gen"] - 1):
+                    tok = logits[-1].argmax(-1)[:, None].to(torch.int32)
+                    lg, caches = T.decode_step(params, tok, cfg, caches,
+                                               backend=backend)
+                    logits.append(lg[:, -1])
+            runs[backend] = torch.stack(logits, 1)          # (B, gen, V)
+            del caches
+    finally:
+        ops.flash_topk, CM.moba_selection = flash_topk, plain_selection
+        CM.moba_decode_route = decode_route
+    torch.cuda.synchronize()
+    fl, xl = runs["flash"], runs["xla"]
+    ml = _moba_layers(cfg)
+    diffs = (fl - xl).abs().amax(dim=(0, 2)).tolist()
+    close = bool(torch.allclose(fl, xl, atol=2e-3, rtol=2e-3))
+    same = bool(torch.equal(fl.argmax(-1), xl.argmax(-1)))
+    routing_ok = (len(audit) == ml and all(ok for _, _, ok in audit)
+                  and len(route_audit) == ml * (c["gen"] - 1)
+                  and all(ok for _, _, ok in route_audit))
+    finite = bool(torch.isfinite(fl).all())
+    fixed_streams = fl.argmax(-1).tolist()
+    del runs, fl, xl
+    eng = Engine(cfg, params, EngineConfig(
+        max_seqs=c["batch"], max_prefill_batch=c["batch"],
+        max_seq_len=-(-(c["prompt_len"] + c["gen"]) // 16) * 16,
+        attn_backend="flash"), device="cuda")
+    reqs = [eng.submit(p, max_new_tokens=c["gen"]) for p in host_prompts]
+    eng.run()
+    engine_streams = [list(r.out) for r in reqs]
+    del eng, reqs
+    gc.collect()
+    vs_engine = _parted(cfg, params, host_prompts, engine_streams,
+                        fixed_streams, tol=GAP_TOL)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"dtype": "float32", **c, "tol": 2e-3,
+            "max_abs_diff_prefill": diffs[0],
+            "max_abs_diff_decode_steps": diffs[1:],
+            "allclose": close, "greedy_equal": same, "finite": finite,
+            "prefill_routing_rows_differing_per_layer":
+                [r for r, _, _ in audit],
+            "decode_routing_rows_differing":
+                sum(r for r, _, _ in route_audit),
+            "routing_max_gap": max((g for _, g, _ in audit + route_audit),
+                                   default=0.0),
+            "routing_near_ties_ok": routing_ok,
+            "streams_vs_engine": vs_engine,
+            "ok": close and same and finite and routing_ok
+            and vs_engine["ok"]}
+
+
+def _record_first_flash_moba():
+    """Patch ``kernels/ops.py`` so that the first FlashMoBA forward (layer
+    0 of a prefill) keeps copies of its inputs and of what its centroids
+    kernel, Flash TopK and the whole forward returned.  Returns (the dict
+    they go into, the undo)."""
+    from repro_torch.kernels import ops
+    fm, bc, ft = ops.flash_moba, ops.block_centroids_kernel, ops.flash_topk
+    kept = {}
+
+    def moba(q, k, v, mcfg, **kw):
+        out = fm(q, k, v, mcfg, **kw)
+        if "out" not in kept:
+            kept.update(q=q.clone(), k=k.clone(), v=v.clone(), cfg=mcfg,
+                        scale=kw.get("scale"), out=out.detach().clone())
+        return out
+
+    def cents(*a, **kw):
+        out = bc(*a, **kw)
+        if "cents" not in kept:
+            kept["cents"] = out.clone()
+        return out
+
+    def topk(*a, **kw):
+        out = ft(*a, **kw)
+        if "sel" not in kept:
+            kept["sel"] = out.clone()
+        return out
+
+    ops.flash_moba, ops.block_centroids_kernel, ops.flash_topk = \
+        moba, cents, topk
+
+    def undo():
+        ops.flash_moba, ops.block_centroids_kernel, ops.flash_topk = \
+            fm, bc, ft
+    return kept, undo
+
+
+def _check_fixed_prefill_kernels(kept: dict) -> dict:
+    """The three kernels of the bf16 fixed loop's prefill, each on the
+    inputs it got in layer 0 (:func:`_record_first_flash_moba`): the
+    centroids against ``ref.centroids_ref`` (both bf16, 1e-2 as phase 6);
+    Flash TopK's selection against ``ref.flash_topk_ref`` on the same q
+    and centroids by the near-tie rule; the forward's output against
+    ``moba_attention_reference`` in fp32 on the same q, k, v and
+    selections, within :data:`FIXED_BF16_OUT_TOL` of its largest |value|.
+    Beside it, the same reference with one block fewer (top_k - 1): the
+    distance of the smallest routing fault, which the tolerance must
+    stay below."""
+    import torch
+    from repro_torch.core import moba as CM
+    from repro_torch.kernels import ops, ref
+    q, k, v, mcfg = kept["q"], kept["k"], kept["v"], kept["cfg"]
+    b, h, nq, d = q.shape
+    hkv, n = k.shape[1], k.shape[2]
+    bs, top_k, g = mcfg.block_size, mcfg.top_k, h // hkv
+    rec = {"shape": {"B": b, "H": h, "Hkv": hkv, "Nq": nq, "N": n, "d": d,
+                     "block_size": bs, "top_k": top_k},
+           "dtype": str(q.dtype).replace("torch.", "")}
+    want_c = ref.centroids_ref(k.reshape(b * hkv, n, d), bs)
+    got_c = kept["cents"]
+    rec["block_centroids"] = {
+        "max_abs_err": float((got_c.float() - want_c.float()).abs().max()),
+        "tol": 1e-2, "ok": got_c.shape == want_c.shape and bool(
+            torch.allclose(got_c.float(), want_c.float(), atol=1e-2,
+                           rtol=1e-2))}
+    qf = ops.padded_queries(q, min(128, nq))
+    sel = kept["sel"]
+    want_s = ref.flash_topk_ref(qf, got_c, top_k, bs, group=g,
+                                num_q_heads=h, q_pos_offset=n - nq)
+    rows, gap, ties_ok = _topk_near_ties(
+        dict(qf=qf, cents=got_c, sel=want_s, h=h, g=g, n=n, nq=nq, bs=bs),
+        sel)
+    rec["flash_topk"] = {"rows_differing": rows, "rows": b * h * nq,
+                         "max_gap": gap, "ok": ties_ok}
+    plain = CM.moba_selection
+    mine = sel[:, :nq].reshape(b, h, nq, top_k)
+    CM.moba_selection = lambda *a, **kw: mine
+    try:
+        with torch.no_grad():
+            want = CM.moba_attention_reference(q.float(), k.float(),
+                                               v.float(), mcfg,
+                                               scale=kept["scale"])
+    finally:
+        CM.moba_selection = plain
+    with torch.no_grad():
+        short = CM.moba_attention_reference(
+            q.float(), k.float(), v.float(),
+            dataclasses.replace(mcfg, top_k=top_k - 1), scale=kept["scale"])
+    big = float(want.abs().max())
+    err = float((kept["out"].float() - want).abs().max())
+    fault = float((short - want).abs().max())
+    rec["moba_fwd"] = {"max_abs_err": err, "max_abs_ref": big,
+                       "rel_err": err / big, "tol": FIXED_BF16_OUT_TOL,
+                       "one_block_short_rel": fault / big,
+                       "ok": kept["out"].shape == want.shape
+                       and err <= FIXED_BF16_OUT_TOL * big
+                       and fault > FIXED_BF16_OUT_TOL * big}
+    del want, short
+    rec["ok"] = all(rec[x]["ok"] for x in ("block_centroids", "flash_topk",
+                                           "moba_fwd"))
+    return rec
+
+
+def _fixed_teacher_forced(cfg, params, prompts, streams) -> dict:
+    """The engine's ``streams`` teacher-forced through the fixed loop's
+    bf16 path: one dense-cache prefill and a plain decode step per token
+    on ``flash``, as ``serve_fixed`` runs them.  Each position's logits
+    are held against a one-shot ``lm_apply`` on ``flash`` over the prompt
+    and the stream by their relative L2 error: the largest within
+    :data:`FIXED_TF_REL_TOL`, the median within
+    :data:`FIXED_TF_MEDIAN_RATIO` times that of ``lm_apply`` on
+    ``reference`` against ``flash`` (the spread of two one-shot paths,
+    measured here).  The same loop with each decode step's MoBA one
+    block short (top_k - 1) must fail that median bound: the gate's
+    power, measured in the same run.  Where the fixed loop's argmax is
+    not the engine's token, the logit gap between the two is
+    reported."""
+    import torch
+    from repro_torch.core import backends as B
+    from repro_torch.models import transformer as T
+    b, p, gen = len(prompts), len(prompts[0]), len(streams[0])
+    toks = torch.as_tensor(np.asarray(streams, np.int32), device="cuda")
+    pt = torch.as_tensor(np.stack(prompts), device="cuda")
+
+    def fixed_loop():
+        caches = T.init_caches(cfg, b, p + gen,
+                               dtype=getattr(torch, cfg.dtype),
+                               device="cuda")
+        with torch.no_grad():
+            lg, caches = T.prefill(params, pt, cfg, caches, backend="flash")
+            out = [lg[:, -1].float()]
+            for j in range(gen - 1):
+                lg, caches = T.decode_step(params, toks[:, j:j + 1], cfg,
+                                           caches, backend="flash")
+                out.append(lg[:, -1].float())
+        return torch.stack(out, 1)                           # (B, gen, V)
+
+    fixed = fixed_loop()
+    decode = B.moba_decode_attention
+    B.moba_decode_attention = lambda q, k, v, kv_len, mcfg, **kw: decode(
+        q, k, v, kv_len, dataclasses.replace(mcfg, top_k=mcfg.top_k - 1),
+        **kw)
+    try:
+        short = fixed_loop()
+    finally:
+        B.moba_decode_attention = decode
+    seq = torch.cat([pt, toks[:, :-1]], 1)
+    one = {}
+    for backend in ("flash", "reference"):
+        with torch.no_grad():
+            lg, _, _ = T.lm_apply(params, seq, cfg, backend=backend)
+        one[backend] = lg[:, p - 1:].float()
+        del lg
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def rel(a, ref_):
+        return ((a - ref_).norm(dim=-1) / ref_.norm(dim=-1)).flatten()
+    r_fixed, r_short = rel(fixed, one["flash"]), rel(short, one["flash"])
+    r_one = rel(one["reference"], one["flash"])
+    median_tol = FIXED_TF_MEDIAN_RATIO * float(r_one.median())
+    off = fixed.argmax(-1) != toks
+    lost = (fixed.amax(-1) - fixed.gather(-1, toks.long()[..., None])[..., 0])
+    rec = {"positions": int(r_fixed.numel()), "tol": FIXED_TF_REL_TOL,
+           "median_tol": median_tol,
+           "rel_err_max": float(r_fixed.max()),
+           "rel_err_median": float(r_fixed.median()),
+           "vs_reference_rel_err_max":
+               float(rel(fixed, one["reference"]).max()),
+           "one_shot_reference_vs_flash_rel_err_max": float(r_one.max()),
+           "one_shot_reference_vs_flash_rel_err_median":
+               float(r_one.median()),
+           "decode_one_block_short_rel_err_max": float(r_short.max()),
+           "decode_one_block_short_rel_err_median":
+               float(r_short.median()),
+           "argmax_equal_engine_tokens": int((~off).sum()),
+           "max_logit_gap_where_not": float(lost[off].max())
+           if bool(off.any()) else 0.0,
+           "finite": bool(torch.isfinite(fixed).all())}
+    rec["ok"] = (rec["finite"] and rec["rel_err_max"] <= FIXED_TF_REL_TOL
+                 and rec["rel_err_median"] <= median_tol
+                 and rec["decode_one_block_short_rel_err_median"]
+                 > median_tol)
+    return rec
+
+
+def phase_serve_fixed():
+    """``serve_fixed`` on moba-340m at full width (bf16, seed-0 weights)
+    on ``flash``: batch 8, one 2,048-token prompt length (``default_rng
+    (0)``), 64 new tokens, through the entry point.  Each step call is
+    timed between syncs with the port kernels it launched: the prefill
+    must launch 12 each of centroids, Flash TopK and ``moba_fwd`` (and
+    no backward or decode kernel), each decode step none; layer 0's
+    three kernels are held against their plain versions on the inputs
+    the prefill gave them (:func:`_check_fixed_prefill_kernels`).  Then
+    ``serve()`` on the same prompts and weights (the paged engine), whose
+    streams are teacher-forced through the fixed loop's bf16 prefill and
+    decode steps and held against ``lm_apply``
+    (:func:`_fixed_teacher_forced`: greedy streams of two paths that
+    round differently in bf16 part at near-ties, so the logits are
+    gated, not the tokens).  Then :func:`_fixed_flash_vs_xla` in fp32,
+    which holds the fixed loop to the engine token for token.  Returns
+    the prefill's kernel counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moba_decode as MD
+    from repro_torch.launch import serve as TS
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("moba-340m")
+    ml = _moba_layers(cfg)
+    kw = dict(smoke=False, attn_backend="flash", device="cuda", **FIXED_CASE)
+    times, counts, bad = [], [], []
+    undo = _timed_steps(times, counts)
+    kept, unrecord = _record_first_flash_moba()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        fixed = TS.serve_fixed("moba-340m", **kw)
+    finally:
+        unrecord()
+        undo()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill_counts, decode_counts = counts[0], counts[1:]
+    want = {"block_centroids": ml, "flash_topk": ml, "moba_fwd": ml,
+            "moba_bwd": 0, "moba_paged_decode": 0}
+    if prefill_counts != want:
+        bad.append(f"prefill launched {prefill_counts}, expected {want}")
+    if any(any(d.values()) for d in decode_counts):
+        bad.append("a decode step launched a port kernel")
+    b, g = FIXED_CASE["batch"], FIXED_CASE["gen"]
+    dec_s = sum(times[1:])
+    rec = {"phase": "serve_fixed", "arch": cfg.name, "dtype": cfg.dtype,
+           "backend": "flash", **FIXED_CASE, "wall_s": wall,
+           "prefill_s": times[0], "decode_steps": len(times) - 1,
+           "decode_tok_s": b * (len(times) - 1) / dec_s,
+           "decode_step_ms": dec_s / (len(times) - 1) * 1e3,
+           "decode_step_ms_median": float(np.median(times[1:])) * 1e3,
+           "peak_mem_gib": peak, "prefill_launches": prefill_counts,
+           "decode_step_launches": {k: sum(d[k] for d in decode_counts)
+                                    for k in want}}
+    ok_shape = fixed.shape == (b, g) and fixed.dtype == np.int32 \
+        and bool(((fixed >= 0) & (fixed < cfg.vocab_size)).all())
+    if not ok_shape:
+        bad.append(f"tokens of shape {fixed.shape} {fixed.dtype}")
+    rec["prefill_kernels"] = _check_fixed_prefill_kernels(kept)
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not rec["prefill_kernels"]["ok"]:
+        bad.append("a prefill kernel disagrees with its plain version "
+                   "at the bf16 fixed-loop shape")
+
+    made, undo = _capture_engines()
+    MD.LAUNCHES = MD.KERNEL_LAUNCHES = 0
+    try:
+        engine = TS.serve("moba-340m", **kw)
+    finally:
+        undo()
+    eng = made[0]
+    st = dict(eng.stats)
+    rec["engine"] = {"prefill_s": st["prefill_s"],
+                     "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+                     "decode_step_ms": st["decode_s"] / st["decode_steps"]
+                     * 1e3, "decode_steps": st["decode_steps"],
+                     "decode_calls": MD.LAUNCHES,
+                     "kernel_launches": MD.KERNEL_LAUNCHES}
+    bad += _decode_gate("serve_fixed's engine run", MD.LAUNCHES,
+                        MD.KERNEL_LAUNCHES, st["decode_steps"], ml)
+    del eng, made
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    prompts = list(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, FIXED_CASE["prompt_len"])).astype(np.int32))
+    rec["streams_equal_engine_bf16"] = sum(
+        list(a) == list(e) for a, e in zip(fixed.tolist(), engine.tolist()))
+    rec["teacher_forced_vs_lm_apply"] = _fixed_teacher_forced(
+        cfg, params, prompts, engine.tolist())
+    if not rec["teacher_forced_vs_lm_apply"]["ok"]:
+        bad.append("bf16: the fixed loop's teacher-forced logits are not "
+                   "within tolerance of lm_apply's")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["fp32_flash_vs_xla"] = _fixed_flash_vs_xla()
+    if not rec["fp32_flash_vs_xla"]["ok"]:
+        bad.append("fp32: flash and xla fixed loops disagree, or a routing "
+                   "difference is no near-tie")
+    rec["ok"], rec["failures"] = not bad, bad
+    emit(rec)
+    if bad:
+        raise SystemExit("serve_fixed: " + "; ".join(bad))
+    return prefill_counts
+
+
+def phase_serve_stream():
+    """``serve_stream`` at full width (bf16, seed-0 weights) on ``flash``:
+    :data:`STREAM_CASE` with Poisson arrivals at :data:`STREAM_RATE`
+    req/s (seeded), ``realtime=True``; every metric it returns.  Gates:
+    every request finishes with its count, 12 decode calls and 36
+    kernels a step (counts zeroed just before, read just after), and the
+    streams equal a ``dispatch_ahead=0`` batch run of the same prompts
+    (an ``Engine`` built as the entry point builds it) up to the first
+    teacher-forced top-2 gap <= 1e-2.  Returns the decode counts."""
+    import torch
+    from repro_torch.kernels import moba_decode as MD
+    from repro_torch.launch import serve as TS
+    from repro_torch.serving.engine import Engine
+
+    made, undo = _capture_engines()
+    MD.LAUNCHES = MD.KERNEL_LAUNCHES = 0
+    try:
+        m = TS.serve_stream("moba-340m", rate=STREAM_RATE, smoke=False,
+                            attn_backend="flash", realtime=True,
+                            device="cuda", **STREAM_CASE)
+    finally:
+        undo()
+    calls, kernels = MD.LAUNCHES, MD.KERNEL_LAUNCHES
+    eng = made[0]
+    cfg, params = eng.cfg, eng.params
+    prompts, streams, news = _finished_streams(eng)
+    bad = _decode_gate("serve_stream", calls, kernels, m["decode_steps"],
+                       _moba_layers(cfg))
+    if len(streams) != STREAM_CASE["n_requests"] or any(
+            len(s) != n for s, n in zip(streams, news)):
+        bad.append("a request did not finish with its count")
+    base = Engine(cfg, params, dataclasses.replace(eng.ecfg,
+                                                   dispatch_ahead=0),
+                  device="cuda")
+    del eng, made
+    gc.collect()
+    reqs = [base.submit(p, max_new_tokens=n) for p, n in zip(prompts, news)]
+    base.run()
+    want = [list(r.out) for r in reqs]
+    del base, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"phase": "serve_stream", "arch": cfg.name, "dtype": cfg.dtype,
+           "backend": "flash", "rate": STREAM_RATE, **STREAM_CASE,
+           "realtime": True, **m, "decode_calls": calls,
+           "kernel_launches": kernels,
+           "prompt_lens": [len(p) for p in prompts], "new_tokens": news,
+           "streams_vs_batch": _parted(cfg, params, prompts, want,
+                                       streams)}
+    if not rec["streams_vs_batch"]["ok"]:
+        bad.append("a stream parted from the batch run's off a near-tie")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["ok"], rec["failures"] = not bad, bad
+    emit(rec)
+    if bad:
+        raise SystemExit("serve_stream: " + "; ".join(bad))
+    return calls, kernels
+
+
+def phase_serve_openloop():
+    """``serve_openloop`` at full width (bf16, seed-0 weights) on
+    ``flash``: :data:`STREAM_CASE`'s ranges (its own seeded draws), one
+    arrival every :data:`OPENLOOP_EVERY` decode steps, ``dispatch_ahead``
+    1 then 0: sustained tokens/s, TTFT and TPOT p50/p99, the pipeline
+    depth peak.  Gates: 12 decode calls and 36 kernels a step in each
+    run, every request finishes with its count, and the two runs'
+    streams equal up to the first teacher-forced top-2 gap <= 1e-2.
+    Returns the decode counts by run."""
+    import torch
+    from repro_torch.kernels import moba_decode as MD
+    from repro_torch.launch import serve as TS
+    from repro_torch.models import transformer as T
+
+    rec, out, bad, counts = {"phase": "serve_openloop"}, {}, [], {}
+    for da in (1, 0):
+        made, undo = _capture_engines()
+        MD.LAUNCHES = MD.KERNEL_LAUNCHES = 0
+        try:
+            m = TS.serve_openloop("moba-340m", every=OPENLOOP_EVERY,
+                                  smoke=False, attn_backend="flash",
+                                  dispatch_ahead=da, device="cuda",
+                                  **STREAM_CASE)
+        finally:
+            undo()
+        key = f"dispatch_ahead_{da}"
+        counts[f"serve_openloop_da{da}"] = (MD.LAUNCHES, MD.KERNEL_LAUNCHES)
+        eng = made[0]
+        cfg = eng.cfg
+        prompts, streams, news = _finished_streams(eng)
+        out[da] = streams
+        bad += _decode_gate(f"serve_openloop ({key})", MD.LAUNCHES,
+                            MD.KERNEL_LAUNCHES, m["decode_steps"],
+                            _moba_layers(cfg))
+        if len(streams) != STREAM_CASE["n_requests"] or any(
+                len(s) != n for s, n in zip(streams, news)):
+            bad.append(f"{key}: a request did not finish with its count")
+        rec[key] = {**m, "decode_calls": MD.LAUNCHES,
+                    "kernel_launches": MD.KERNEL_LAUNCHES}
+        del eng, made
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec.update({"arch": cfg.name, "dtype": cfg.dtype, "backend": "flash",
+                "every": OPENLOOP_EVERY, **STREAM_CASE,
+                "prompt_lens": [len(p) for p in prompts],
+                "new_tokens": news})
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    rec["streams_da1_vs_da0"] = _parted(cfg, params, prompts, out[0],
+                                        out[1])
+    if not rec["streams_da1_vs_da0"]["ok"]:
+        bad.append("dispatch-ahead 1 and 0 streams parted off a near-tie")
+    if rec["dispatch_ahead_1"]["dispatch_depth_peak"] < 1:
+        bad.append("dispatch-ahead never held a step in flight")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["ok"], rec["failures"] = not bad, bad
+    emit(rec)
+    if bad:
+        raise SystemExit("serve_openloop: " + "; ".join(bad))
+    return counts
+
+
+def _http(port: int, method: str, path: str, body=None) -> list:
+    """One request to the local server (``Connection: close`` framing);
+    returns the body's JSON lines."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, body=body)
+        return [json.loads(line) for line in
+                conn.getresponse().read().splitlines()]
+    finally:
+        conn.close()
+
+
+def phase_serve_http():
+    """The port's serve CLI with ``--http`` in a subprocess (moba-340m at
+    full width, bf16, ``flash``, 4 slots, 2,112 positions each) on a free
+    local port: :data:`HTTP_CLIENTS` concurrent clients POST
+    ``/generate`` with prompts of 1,024..2,048 tokens and 32 new tokens
+    each, then one GETs ``/stats``; then SIGINT.  Gates: each stream's
+    tokens equal its final record's ``tokens``, 32 of them; ``ttft_ms``
+    in every final record; ``/stats`` shows decode steps; the server
+    exits 0 on SIGINT."""
+    import signal
+    import socket
+    import threading
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=SRC)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve",
+         "--arch", "moba-340m", "--attn-backend", "flash",
+         "--http", str(port), "--max-seqs", "4", "--max-seq-len", "2112"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    watchdog = threading.Timer(600, proc.kill)
+    watchdog.start()
+    rec, bad = {"phase": "serve_http", "port": port}, []
+    try:
+        line = proc.stdout.readline()
+        rec["startup_s"] = time.perf_counter() - t0
+        rec["banner"] = line.strip()
+        if f"127.0.0.1:{port}" not in line:
+            raise SystemExit(f"serve_http: the server did not start: "
+                             f"{line!r}")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, 32000, int(n), dtype=np.int32)
+                   for n in rng.integers(1024, 2049, HTTP_CLIENTS)]
+        records, walls = [None] * HTTP_CLIENTS, [0.0] * HTTP_CLIENTS
+
+        def client(i):
+            c0 = time.perf_counter()
+            records[i] = _http(port, "POST", "/generate", json.dumps(
+                {"prompt": prompts[i].tolist(),
+                 "max_new_tokens": HTTP_NEW_TOKENS}))
+            walls[i] = time.perf_counter() - c0
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(HTTP_CLIENTS)]
+        c0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        rec["clients_wall_s"] = time.perf_counter() - c0
+        if any(t.is_alive() for t in threads):
+            raise SystemExit("serve_http: a client did not finish")
+        stats = _http(port, "GET", "/stats")[0]
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err = proc.stderr.read()
+    clients = []
+    for i, r in enumerate(records):
+        if not r:
+            bad.append(f"client {i}: no response")
+            continue
+        toks, final = [x.get("token") for x in r[:-1]], r[-1]
+        ok = (final.get("done") and toks == final.get("tokens")
+              and len(toks) == HTTP_NEW_TOKENS and "ttft_ms" in final)
+        clients.append({"prompt_len": len(prompts[i]),
+                        "tokens": len(toks), "ttft_ms": final.get("ttft_ms"),
+                        "wall_s": walls[i], "ok": bool(ok)})
+        if not ok:
+            bad.append(f"client {i}: stream and final record disagree")
+    rec.update({"clients": clients, "exit_code": rc,
+                "stats": {k: stats.get(k) for k in (
+                    "decode_steps", "decode_tokens", "prefill_tokens",
+                    "prefill_s", "decode_s", "dispatch_depth_peak",
+                    "preemptions")}})
+    if not stats.get("decode_steps"):
+        bad.append("/stats shows no decode step")
+    if rc != 0:
+        bad.append(f"SIGINT: exit code {rc}: {err[-2000:]}")
+    rec["ok"], rec["failures"] = not bad, bad
+    emit(rec)
+    if bad:
+        raise SystemExit("serve_http: " + "; ".join(bad))
+
+
 def _bound(nbytes: float, flops: float, flops_rate: float) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / flops_rate * 1e3
@@ -3144,9 +3943,8 @@ def phase_train_grads(block_size: int = 128, top_k: int = 8,
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import moba as CM
-    from repro_torch.core import routing
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
 
@@ -3166,19 +3964,7 @@ def phase_train_grads(block_size: int = 128, top_k: int = 8,
         recorded.append(sel)
         return sel
 
-    def replay(q, k, moba_cfg, q_positions=None):
-        b, h, nq, d = q.shape
-        hkv, n = k.shape[1], k.shape[2]
-        sel = recorded[len(audit)][:, :nq]
-        mine = plain_selection(q, k, moba_cfg, q_positions)
-        kv = ref.kv_rows(b * h, h, h // hkv, q.device)
-        cents = routing.block_centroids(k, moba_cfg.block_size)
-        masked = _masked_scores(q.reshape(b * h, nq, d),
-                                cents.reshape(b * hkv, -1, d)[kv], n,
-                                moba_cfg.block_size)
-        audit.append(_near_ties(masked, sel, mine.reshape(b * h, nq, -1)))
-        return sel.reshape(b, h, nq, -1)
-
+    replay = _replay_selection(recorded, audit, plain_selection)
     out = {}
     try:
         for backend in ("flash", "xla"):
@@ -3595,10 +4381,15 @@ def main() -> int:
                       ("kconv3", "serve_prefix_kconv3"),
                       ("int8_cow", "serve_prefix_int8")):
         decode_also[key] = prefix_counts[case]
+    fixed_counts = timed("serve_fixed", phase_serve_fixed)
+    decode_also["serve_stream"] = timed("serve_stream", phase_serve_stream)
+    decode_also.update(timed("serve_openloop", phase_serve_openloop))
+    timed("serve_http", phase_serve_http)
     train_timing, train_err = timed("train_kernels", phase_train_kernels)
     train_launches, train_rec = timed("train", phase_train)
     small_blocks = timed("train_small_blocks", phase_train_small_blocks)
-    train_also = {"train_small_blocks": small_blocks["launches"],
+    train_also = {"serve_fixed": fixed_counts,
+                  "train_small_blocks": small_blocks["launches"],
                   "train_key_conv": timed("train_key_conv",
                                           phase_train_key_conv, train_rec)}
     accum = timed("train_accum", phase_train_accum)

@@ -67,18 +67,25 @@ def dense_attention(q, k, v, causal: bool = True,
 
 
 def attention_dispatch(cfg: AttentionConfig, kind: str, q, k, v,
-                       q_positions=None, backend: str = "reference",
-                       causal: bool = True) -> torch.Tensor:
-    """Cache-free multi-token attention through a registered backend
-    (``core.backends``), resolved by name + capability query.
+                       q_positions=None, kv_len=None,
+                       backend: str = "reference", causal: bool = True,
+                       centroids=None) -> torch.Tensor:
+    """Route to a registered attention backend (``core.backends``) by
+    name + capability query.
 
     ``kind`` ∈ {dense, swa, moba} selects the layer behaviour; ``backend``
-    selects the implementation.  The dense per-sequence KV cache (the
-    reference's single-token decode branch) is not part of the port yet
-    (ROADMAP.md); serving goes through the paged pools instead.
+    selects the implementation.  Single-token calls against a dense cache
+    (``q`` length 1 with ``kv_len``) resolve the decode phase, with
+    ``centroids`` the MoBA layer's incremental centroid cache; everything
+    else the prefill phase.  Paged pools go through the backends' paged
+    methods instead (``models/layers.py``).
     """
     from repro_torch.core import backends as B
 
+    if q.shape[2] == 1 and kv_len is not None:
+        be = B.resolve(backend, kind=kind, phase="decode", cache="dense")
+        return be.decode(cfg, kind, q, k, v, kv_len, centroids=centroids,
+                         q_positions=q_positions)
     be = B.resolve(backend, kind=kind, phase="prefill", cache="dense")
     return be.prefill(cfg, kind, q, k, v, q_positions=q_positions,
-                      causal=causal)
+                      kv_len=kv_len, causal=causal)

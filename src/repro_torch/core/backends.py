@@ -18,9 +18,11 @@ Registered backends of the port:
 Dense and sliding-window kinds share one implementation across backends
 (base-class methods); MoBA is where backends differ.  Paged *prefill* is
 shared too: the ragged reference path is the only implementation with
-per-sequence ``kv_len`` masking.  The ``dense`` cache protocol is the
-cache-free path here: the reference's dense per-sequence KV cache is not
-ported yet (ROADMAP.md).
+per-sequence ``kv_len`` masking.  The ``dense`` cache protocol covers
+cache-free attention (training) and the dense per-sequence KV cache of
+the fixed serving loop; its MoBA decode (:meth:`AttentionBackend.
+moba_decode`) is the plain gather on every backend, ``flash`` included,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import torch
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.core.attention import dense_attention
 from repro_torch.core.moba import (moba_attention_reference,
+                                   moba_decode_attention,
                                    moba_paged_decode_attention,
                                    moba_paged_prefill_attention)
 from repro_torch.core.quantization import KV_DTYPES
@@ -50,8 +53,8 @@ class BackendCapabilityError(ValueError):
 @dataclasses.dataclass(frozen=True)
 class Capabilities:
     """What a backend can run.  ``caches`` uses 'dense' for the
-    cache-free (training) path and 'paged' for the serving engine's
-    block-table pools.
+    cache-free (training) path and the fixed loop's dense per-sequence
+    caches, and 'paged' for the serving engine's block-table pools.
 
     ``key_conv`` lists the cache protocols under which the backend can
     consume key-conv'd keys.  The conv itself runs in
@@ -99,14 +102,29 @@ class AttentionBackend:
     def _window(cfg: AttentionConfig, kind: str) -> int:
         return cfg.window if kind == "swa" else 0
 
-    # --------------------------------------------------- full sequence
+    # ------------------------------------------- full sequence / dense KV
     def prefill(self, cfg: AttentionConfig, kind: str, q, k, v, *,
-                q_positions=None, causal: bool = True) -> torch.Tensor:
-        """Cache-free multi-token attention."""
+                q_positions=None, kv_len=None,
+                causal: bool = True) -> torch.Tensor:
+        """Multi-token attention: training, prefill, or cached prefill
+        (``kv_len`` marks the valid prefix of a dense cache; MoBA callers
+        pass only the valid prefix, see ``models/layers.py``)."""
         if kind == "moba":
             return self.moba_prefill(cfg, q, k, v, q_positions=q_positions)
         return dense_attention(q, k, v, causal=causal,
-                               q_positions=q_positions,
+                               q_positions=q_positions, kv_len=kv_len,
+                               window=self._window(cfg, kind),
+                               scale=cfg.scale)
+
+    def decode(self, cfg: AttentionConfig, kind: str, q, k, v, kv_len, *,
+               centroids=None, q_positions=None) -> torch.Tensor:
+        """Single-token attention against a dense cache of which the first
+        ``kv_len`` positions are valid."""
+        if kind == "moba":
+            return self.moba_decode(cfg, q, k, v, kv_len,
+                                    centroids=centroids)
+        return dense_attention(q, k, v, causal=True,
+                               q_positions=q_positions, kv_len=kv_len,
                                window=self._window(cfg, kind),
                                scale=cfg.scale)
 
@@ -172,6 +190,13 @@ class AttentionBackend:
                      q_positions=None) -> torch.Tensor:
         raise NotImplementedError(f"{self.name}: moba prefill")
 
+    def moba_decode(self, cfg: AttentionConfig, q, k, v, kv_len, *,
+                    centroids=None) -> torch.Tensor:
+        # block routing is implementation-independent at decode: the
+        # plain gather is every backend's dense-cache decode
+        return moba_decode_attention(q, k, v, kv_len, cfg.moba,
+                                     scale=cfg.scale, centroids=centroids)
+
     def moba_paged_decode(self, cfg: AttentionConfig, q, cache, block_table,
                           kv_len, head_top_k=None) -> torch.Tensor:
         return moba_paged_decode_attention(
@@ -207,8 +232,10 @@ class XLABackend(AttentionBackend):
 
 
 class FlashBackend(AttentionBackend):
-    """Hopper kernel path: FlashMoBA training attention and the paged MoBA
-    decode kernel (CPU tensors take the kernels' plain versions).
+    """Hopper kernel path: FlashMoBA for cache-free and dense-cache
+    prefill attention and the paged MoBA decode kernel (CPU tensors take
+    the kernels' plain versions).  Dense-cache decode keeps the shared
+    plain gather, as the reference's Pallas backend does.
     ``train_grid``, ``kb_tile`` and ``decode_grid`` keep the reference's
     options; both grid values reach the one Hopper kernel of each
     function."""

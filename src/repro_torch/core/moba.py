@@ -1,9 +1,13 @@
-"""Mixture of Block Attention — plain PyTorch reference and paged paths.
+"""Mixture of Block Attention — plain PyTorch reference, the public entry
+point, and the dense-cache and paged decode paths.
 
 The reference path materializes the N×N mask and is the correctness
-oracle; the paged functions are the serving engine's plain versions
-(the ``xla`` backend, and the CPU side of the Hopper decode kernel in
-``kernels/moba_decode.py``).
+oracle; :func:`moba_attention` selects an implementation from the
+backend registry (``core.backends``).  The paged functions are the
+serving engine's plain versions (the ``xla`` backend, and the CPU side of
+the Hopper decode kernel in ``kernels/moba_decode.py``);
+:func:`moba_decode_attention` is the dense per-sequence cache's decode,
+shared by every backend (no kernel in either package).
 
 Shapes: q (B, H, Nq, d); k, v (B, Hkv, N, d) with H % Hkv == 0 (GQA —
 query heads grouped onto kv heads by reshape, no KV duplication).
@@ -14,8 +18,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import MoBAConfig
+from repro_torch.configs.base import AttentionConfig, MoBAConfig
 from repro_torch.core import routing
+from repro_torch.core.key_conv import apply_key_conv
 
 NEG_INF = routing.NEG_INF
 
@@ -113,6 +118,28 @@ def moba_attention_reference(q: torch.Tensor, k: torch.Tensor,
     pg = p.reshape(b, hkv, -1, nq, n)
     o = torch.einsum("bhgqs,bhsd->bhgqd", pg, v.float())
     return o.reshape(b, h, nq, d).to(q.dtype)
+
+
+def moba_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cfg: MoBAConfig,
+                   key_conv_weights: Optional[torch.Tensor] = None,
+                   impl: str = "reference",
+                   q_positions: Optional[torch.Tensor] = None,
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """Public MoBA attention entry point.
+
+    ``impl`` names a registered attention backend (``core.backends``):
+    'reference' (O(N^2) oracle), 'xla'/'sparse' (plain gather-and-densify)
+    or 'flash'/'kernel' (FlashMoBA on the Hopper kernels).  Keys are
+    key-conv'd first when ``key_conv_weights`` is given."""
+    from repro_torch.core import backends as B
+
+    if key_conv_weights is not None:
+        k = apply_key_conv(key_conv_weights, k)
+    be = B.resolve(impl, kind="moba", phase="prefill", cache="dense",
+                   key_conv=key_conv_weights is not None)
+    acfg = AttentionConfig(kind="moba", moba=cfg, scale=scale)
+    return be.moba_prefill(acfg, q, k, v, q_positions=q_positions)
 
 
 def _topk_pages(masked: torch.Tensor, top_k: int):
@@ -372,3 +399,88 @@ def moba_paged_prefill_attention(q: torch.Tensor, pages_k: torch.Tensor,
     p = torch.where(mask.any(-1, keepdim=True), p, 0.0)
     o = torch.einsum("bhgqs,bhsd->bhgqd", p, vf)
     return o.reshape(b, h, nq, d).to(q.dtype)
+
+
+def _dense_kv_len(kv_len, like: torch.Tensor) -> torch.Tensor:
+    """``kv_len`` (a host int, a 0-d tensor or (B,) per-row lengths) as a
+    tensor broadcasting against (B, Hkv, G, 1, nb) scores."""
+    kvl = torch.as_tensor(kv_len, device=like.device)
+    return kvl.reshape(-1, 1, 1, 1, 1) if kvl.ndim else kvl
+
+
+def moba_decode_scores(q: torch.Tensor, k_cache: torch.Tensor, kv_len,
+                       cfg: MoBAConfig,
+                       centroids: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The masked block scores :func:`moba_decode_route` takes its top-k
+    of: (B, Hkv, G, 1, nb) fp32 dots of the unscaled query with each
+    block's centroid (the incremental centroid cache, or centroids
+    recomputed from the valid part of the cache), ``NEG_INF`` for blocks
+    at or past ``kv_len``, ``POS_INF`` for the own block."""
+    hkv, nmax = k_cache.shape[1], k_cache.shape[2]
+    bs = cfg.block_size
+    nb = -(-nmax // bs)
+    kvl = _dense_kv_len(kv_len, q)
+    cents = (centroids if centroids is not None
+             else routing.block_centroids(k_cache, bs, kv_len=kv_len))
+    qg = _group_queries(q, hkv).float()                      # (B,Hkv,G,1,d)
+    scores = torch.einsum("bhgqd,bhnd->bhgqn", qg, cents.float())
+    blk = _arange(nb, q)
+    # causal over blocks: block j valid iff it holds any position < kv_len
+    masked = torch.where(blk * bs < kvl, scores, NEG_INF)
+    is_own = blk == torch.clamp(kvl - 1, min=0) // bs
+    return torch.where(is_own, routing.POS_INF, masked)
+
+
+def moba_decode_route(q: torch.Tensor, k_cache: torch.Tensor, kv_len,
+                      cfg: MoBAConfig,
+                      centroids: Optional[torch.Tensor] = None):
+    """Block routing of :func:`moba_decode_attention`: top-k of
+    :func:`moba_decode_scores` in ``lax.top_k``'s order, padded with
+    invalid slots when there are fewer blocks than ``top_k``.
+
+    Returns (idx, sel_valid): block ids (B, Hkv, G, 1, top_k) int64
+    (invalid slots 0) and their validity mask."""
+    return _topk_pages(moba_decode_scores(q, k_cache, kv_len, cfg,
+                                          centroids), cfg.top_k)
+
+
+def moba_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, kv_len, cfg: MoBAConfig,
+                          scale: Optional[float] = None,
+                          centroids: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Single-step decode: q (B, H, 1, d) against a (B, Hkv, Nmax, d)
+    dense cache of which the first ``kv_len`` positions are valid
+    (``kv_len`` a host int or tensor, as :func:`_dense_kv_len` takes).
+
+    Routes on ``centroids`` ((B, Hkv, nb, d) fp32 incremental centroid
+    cache; None recomputes them from the cache), gathers only the
+    ``top_k`` selected blocks and takes one fp32 softmax over their valid
+    tokens: O(Nmax/B·d + k·B·d) reads per kv head."""
+    b, h, _, d = q.shape
+    hkv, nmax = k_cache.shape[1], k_cache.shape[2]
+    bs = cfg.block_size
+    if nmax % bs:     # ragged cache tail: pad (masked by kv_len below)
+        k_cache = routing.pad_to_blocks(k_cache, bs, axis=-2)
+        v_cache = routing.pad_to_blocks(v_cache, bs, axis=-2)
+    nb = k_cache.shape[2] // bs
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    idx, sel_valid = moba_decode_route(q, k_cache, kv_len, cfg,
+                                       centroids=centroids)
+    qg = _group_queries(q, hkv).float()                      # (B,Hkv,G,1,d)
+    # gather the k selected blocks: (B,Hkv,G,1,k,bs,d)
+    rows = _arange(b, q)[:, None, None, None, None]
+    heads = _arange(hkv, q)[None, :, None, None, None]
+    kg = k_cache.reshape(b, hkv, nb, bs, d)[rows, heads, idx].float()
+    vg = v_cache.reshape(b, hkv, nb, bs, d)[rows, heads, idx].float()
+    s = torch.einsum("bhgqd,bhgqkld->bhgqkl", qg, kg) * scale
+    pos = idx[..., :, None] * bs + _arange(bs, q)            # (...,k,bs)
+    tok_valid = (pos < _dense_kv_len(kv_len, q)[..., None]) \
+        & sel_valid[..., None]
+    s = torch.where(tok_valid, s, NEG_INF)
+    sf = s.reshape(*s.shape[:-2], -1)
+    p = torch.softmax(sf, dim=-1).reshape(s.shape)
+    o = torch.einsum("bhgqkl,bhgqkld->bhgqd", p, vg)
+    return o.reshape(b, h, 1, d).to(q.dtype)

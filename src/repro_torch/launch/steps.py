@@ -1,5 +1,5 @@
-"""Step-function builders: the training step and the paged serving
-engine's prefill and decode steps.
+"""Step-function builders: the training step, the fixed serving loop's
+dense-cache prefill and decode steps, and the paged serving engine's.
 
 The reference jits these and donates the params, optimizer state and
 cache arguments; the port runs them eagerly and updates params, moments
@@ -83,6 +83,33 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         return params, opt_state, out
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, backend: str = "sparse"):
+    """Dense-cache prefill: ``prefill_step(params, tokens (B, S), caches)
+    -> (logits of the last position (B, 1, V), caches)``."""
+
+    @torch.no_grad()
+    def prefill_step(params, tokens, caches):
+        logits, caches = T.prefill(params, tokens, cfg, caches,
+                                   backend=backend)
+        return logits[:, -1:], caches
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, backend: str = "reference"):
+    """Dense-cache greedy decode: ``decode_step(params, token (B, 1),
+    caches) -> (next token (B, 1) int32, caches)``."""
+
+    @torch.no_grad()
+    def decode_step(params, token, caches):
+        logits, caches = T.decode_step(params, token, cfg, caches,
+                                       backend=backend)
+        next_tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        return next_tok.to(torch.int32), caches
+
+    return decode_step
 
 
 def as_route_map(route_map, device=None

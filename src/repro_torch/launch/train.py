@@ -68,6 +68,7 @@ def _smoke_config(arch: str, key_conv_width: int):
 
 def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 512,
           smoke: bool = True, attn_backend: str = "sparse",
+          moba_impl: Optional[str] = None,
           ckpt_dir: str = "", resume: str = "none",
           save_interval: int = 20, lr: float = 6e-4, seed: int = 0,
           microbatch: int = 0, log_every: int = 10,
@@ -87,6 +88,11 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 512,
     ``total_steps_override`` sets the schedule's horizon.
     ``microbatch`` > 1 accumulates gradients over that many chunks of the
     batch (``launch/steps.py::make_train_step``)."""
+    if moba_impl is not None:
+        raise ValueError(
+            f"train(moba_impl=...) was removed; pass "
+            f"attn_backend={moba_impl!r} instead (same values; see "
+            f"core.backends.resolve_backend_spec)")
     dev = resolve_device(device)
     kw = {}
     if block_size:
@@ -171,6 +177,8 @@ def main(argv=None):
     ap.add_argument("--attn-backend", default="sparse",
                     help="backend spec, e.g. sparse | flash | flash:flat | "
                          "flash:grouped,kb_tile=64")
+    ap.add_argument("--moba-impl", default=None,
+                    help=argparse.SUPPRESS)   # removed: structured error
     ap.add_argument("--ckpt-dir", default="",
                     help="save checkpoints here (the reference's format)")
     ap.add_argument("--resume", default="none", choices=["none", "auto"],
@@ -190,6 +198,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
+    if args.moba_impl is not None:
+        ap.error(f"--moba-impl was removed; use "
+                 f"--attn-backend {args.moba_impl} (same values)")
     try:
         train(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
               smoke=args.smoke, attn_backend=args.attn_backend,

@@ -4,6 +4,11 @@ Functional style as in the reference: params are plain dicts of tensors
 (the JAX package's layout, so one set of weights feeds both), and
 ``apply(params, x) -> y``.  Compute in ``cfg.dtype`` (bf16 by default),
 params in fp32; all attention math fp32.
+
+Key-conv caching: the depthwise conv is causal, so a convolved key never
+changes once written.  Both cache kinds store *convolved* keys plus the
+last W-1 raw keys as state for the single-step decode conv, so routing
+and attention always see the same convolved keys.
 """
 from __future__ import annotations
 
@@ -12,8 +17,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import routing
 from repro_torch.core.attention import attention_dispatch
-from repro_torch.core.key_conv import apply_key_conv, init_key_conv
+from repro_torch.core.key_conv import (apply_key_conv, apply_key_conv_decode,
+                                       init_key_conv, key_conv_state_init)
 
 
 def wcast(w: torch.Tensor, dt) -> torch.Tensor:
@@ -145,11 +152,13 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     """Self attention layer.  Returns (out, cache).
 
     ``backend`` names a registered attention backend (``core.backends``).
-    ``cache`` is None (cache-free) or a paged pool from
-    ``serving.paged_cache`` (recognised by its ``pages_k`` leaf), which
-    then needs ``page_state`` = {block_table (B,npg), kv_len (B,)
-    pre-step lengths, q_len (B,) new tokens this step, active (B,) bool}
-    from the scheduler.  The pool is updated in place.
+    ``cache`` is None (cache-free), the dense per-sequence cache of
+    :func:`init_cache`, or a paged pool from ``serving.paged_cache``
+    (recognised by its ``pages_k`` leaf), which then needs ``page_state``
+    = {block_table (B,npg), kv_len (B,) pre-step lengths, q_len (B,) new
+    tokens this step, active (B,) bool} from the scheduler.  Either cache
+    is updated in place; a dense cache comes back as a new dict whose
+    host-int ``len`` counts the tokens written.
 
     ``head_top_k``: optional (H,) int32 per-query-head routing budgets
     in [1, moba.top_k] from an adaptive routing profile.  Only the paged
@@ -174,12 +183,12 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         k = apply_rope(k, positions, a.rope_theta)
 
     conv_w = p.get("key_conv") if kind == "moba" else None
-    if cache is not None:
-        if "pages_k" not in cache:
-            raise ValueError("only paged caches are ported; the dense "
-                             "per-sequence cache comes later (ROADMAP.md)")
+    if cache is not None and "pages_k" in cache:
         o, cache = _paged_attend(q, k, v, cache, page_state, cfg, kind,
                                  positions, backend, conv_w, head_top_k)
+    elif cache is not None:
+        o, cache = _dense_cache_attend(q, k, v, cache, cfg, kind, positions,
+                                       backend, conv_w)
     else:
         if conv_w is not None:     # routing and attention see conv'd keys
             k = apply_key_conv(conv_w, k)
@@ -187,6 +196,93 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                                backend=backend)
     o = o.permute(0, 2, 1, 3).reshape(b, n, h * dh)
     return o @ wcast(p["wo"], dt), cache
+
+
+def _dense_cache_attend(q, k, v, cache, cfg: ModelConfig, kind: str,
+                        positions, backend: str, conv_w=None):
+    """Dense-cache attention (the fixed serving loop): write the new K/V
+    at ``cache['len']`` (a host int, so neither the write nor any slice
+    needs a device sync), update the MoBA centroid cache, then attend.
+
+    Centroids, in fp32 as in the reference: a decode step's rank-1 update
+    ``(old·m + k) / (m + 1)`` of the written block (m its earlier
+    tokens); a prefill rebuilds them over the valid prefix.  Key conv: a
+    decode step convolves its key against the raw-key state; a prefill
+    convolves the whole prefix (a fresh sequence) and keeps its raw tail
+    as state.
+
+    MoBA prefill attends over the valid prefix ``[:len+n]`` only: the
+    queries are then the suffix of the keys, which ``flash_moba``
+    assumes.  (The reference hands it the whole cache, and its ``flash``
+    path then places the queries at the cache's end.)  Dense and SWA
+    layers mask the whole cache by ``kv_len``; MoBA decode routes on the
+    centroid cache."""
+    n = q.shape[2]
+    start = cache["len"]
+    end = start + n
+    new = dict(cache, len=end)
+    if conv_w is not None:
+        state = cache["key_conv_state"]
+        if n == 1:
+            k, stepped = apply_key_conv_decode(conv_w, k, state)
+        else:
+            depth = state.shape[2]
+            raw = torch.cat([state, k.to(state.dtype)], dim=2)
+            stepped = raw[:, :, raw.shape[2] - depth:]
+            k = apply_key_conv(conv_w, k)
+        state.copy_(stepped)
+    cache["k"][:, :, start:end] = k.to(cache["k"].dtype)
+    cache["v"][:, :, start:end] = v.to(cache["v"].dtype)
+    if "centroids" in cache:
+        bs = cfg.attention.moba.block_size
+        c = cache["centroids"]
+        if n == 1:
+            j, m = start // bs, start % bs
+            old = c[:, :, j:j + 1]
+            c[:, :, j:j + 1] = (old * m + k.float()) / old.new_full(
+                (), m + 1)
+        else:
+            c.copy_(routing.block_centroids(cache["k"], bs,
+                                            kv_len=end).float())
+    a = cfg.attention
+    if kind == "moba" and n > 1:
+        o = attention_dispatch(a, kind, q, cache["k"][:, :, :end],
+                               cache["v"][:, :, :end],
+                               q_positions=positions, backend=backend)
+    else:
+        o = attention_dispatch(a, kind, q, cache["k"], cache["v"],
+                               q_positions=positions, kv_len=end,
+                               backend=backend,
+                               centroids=cache.get("centroids"))
+    return o, new
+
+
+def init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda", groups: int = 0
+               ) -> dict:
+    """Dense per-sequence cache of one ``kind`` slot: ``k``/``v`` (B,
+    Hkv, max_len, d) in ``dtype``, ``len`` (a host int, 0), and on MoBA
+    slots the fp32 incremental centroid cache (B, Hkv, nb, d) and, with
+    key conv, the raw-key state (B, Hkv, W-1, d).  ``groups > 0``
+    prepends the layer-group axis to every tensor leaf."""
+    hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    lead = (groups,) if groups else ()
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(lead + shape, dtype=dt, device=device)
+
+    c = {"k": zeros(batch, hkv, max_len, dh),
+         "v": zeros(batch, hkv, max_len, dh), "len": 0}
+    m = cfg.attention.moba
+    if kind == "moba" and m is not None:
+        nb = -(-max_len // m.block_size)
+        c["centroids"] = zeros(batch, hkv, nb, dh, dt=torch.float32)
+        if m.key_conv_width:
+            state = key_conv_state_init(m.key_conv_width, batch, hkv, dh,
+                                        dtype=dtype, device=device)
+            c["key_conv_state"] = (state.expand(lead + state.shape)
+                                   .contiguous())
+    return c
 
 
 def _paged_attend(q, k, v, cache, page_state, cfg: ModelConfig, kind: str,

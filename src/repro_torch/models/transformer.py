@@ -7,8 +7,10 @@ layer-group axis — so one set of weights feeds both packages.  The
 reference scans over groups; here a Python loop indexes group ``g`` of
 every leaf (a view, so cache writes land in the stacked pools).
 
-Other families (MoE, SSM, enc-dec, VLM) and the shared-attention slot
-come with later slices (ROADMAP.md).
+Caches are paged pools (the serving engine) or dense per-sequence
+caches (the fixed serving loop, :func:`init_caches`).  Other families
+(MoE, SSM, enc-dec, VLM) and the shared-attention slot come with later
+slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -86,8 +88,10 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def _group(tree, gi: int):
-    """Group ``gi`` of a stacked tree: views, so writes reach the stack."""
-    return {k: _group(v, gi) if isinstance(v, dict) else v[gi]
+    """Group ``gi`` of a stacked tree: views, so writes reach the stack.
+    Host values (a dense cache's ``len``) are shared by every group."""
+    return {k: _group(v, gi) if isinstance(v, dict)
+            else v[gi] if isinstance(v, torch.Tensor) else v
             for k, v in tree.items()}
 
 
@@ -113,9 +117,10 @@ def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
              positions: Optional[torch.Tensor] = None,
              page_state: Optional[dict] = None, remat: bool = False,
              route_map: Optional[dict] = None):
-    """tokens (B, S) -> (logits (B, S, V), aux, caches).  Paged caches are
-    updated in place and returned; ``aux`` (the reference's MoE loss) is
-    zero for the dense family.
+    """tokens (B, S) -> (logits (B, S, V), aux, caches).  Caches are
+    updated in place and returned (a dense cache's host-int ``len``
+    advanced by S); ``aux`` (the reference's MoE loss) is zero for the
+    dense family.
 
     ``route_map``: optional ``{"slot_i": (n_groups, H) int32}`` per-head
     MoBA routing budgets from a routing profile; group ``g``'s layer of
@@ -132,16 +137,20 @@ def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     x = params["embed"][tokens.long()].to(dt)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
+    lens = {}
+
     def group_body(x, gi: int):
         for i, kind in enumerate(pattern):
             name = f"slot_{i}"
             p_i = _group(params["blocks"][name], gi)
             cache_i = None if caches is None else _group(caches[name], gi)
             rt = None if route_map is None else route_map.get(name)
-            x, _ = apply_block(p_i, x, cfg, kind, positions=positions,
+            x, c = apply_block(p_i, x, cfg, kind, positions=positions,
                                cache=cache_i, backend=backend,
                                page_state=page_state,
                                head_top_k=None if rt is None else rt[gi])
+            if c is not None and "len" in c:
+                lens[name] = c["len"]
         return x
 
     for gi in range(n_groups):
@@ -150,6 +159,8 @@ def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                                                   use_reentrant=False)
         else:
             x = group_body(x, gi)
+    for name, n in lens.items():           # dense caches: every group
+        caches[name]["len"] = n            # wrote the same positions
     x = L.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"]).to(dt)
@@ -177,6 +188,23 @@ def lm_loss(params, batch: dict, cfg: ModelConfig,
 
 
 # -------------------------------------------------------------------- cache
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, device="cuda") -> dict:
+    """Stacked dense per-sequence caches ``{"slot_i": cache}``
+    (``layers.init_cache``), each tensor leaf with the leading layer-group
+    axis of the params; ``len`` is one host int per slot."""
+    pattern, n_groups = _block_kinds(cfg)
+    return {f"slot_{i}": L.init_cache(cfg, kind, batch, max_len,
+                                      dtype=dtype, device=device,
+                                      groups=n_groups)
+            for i, kind in enumerate(pattern)}
+
+
+def _cache_len(caches) -> int:
+    """A dense cache tree's length: every slot holds the same count."""
+    return next(iter(caches.values()))["len"]
+
+
 def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
                       dtype=torch.bfloat16, device="cuda",
                       kv_dtype: str = "fp32", max_seqs: int = 0,
@@ -200,9 +228,10 @@ def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, caches,
             backend="reference", page_state=None, positions=None,
             route_map=None):
-    """``positions`` defaults to [0, S) (fresh prompts); chunked paged
-    prefill passes per-row (B, S) offsets instead.  ``route_map`` as in
-    :func:`lm_apply`."""
+    """Prefill into paged pools or dense caches.  ``positions`` defaults
+    to [0, S) (fresh prompts; a dense cache starts empty, as in the
+    reference); chunked paged prefill passes per-row (B, S) offsets
+    instead.  ``route_map`` as in :func:`lm_apply`."""
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     logits, _, caches = lm_apply(params, tokens, cfg, caches=caches,
@@ -213,10 +242,14 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, caches,
 
 def decode_step(params, token: torch.Tensor, cfg: ModelConfig, caches,
                 backend="reference", page_state=None, route_map=None):
-    """token (B, 1) against paged caches; the per-sequence position is
-    the scheduler's pre-step length.  ``route_map`` as in
-    :func:`lm_apply`.  Returns (logits (B,1,V), caches)."""
-    pos = page_state["kv_len"][:, None]                      # (B,1) ragged
+    """token (B, 1) against caches.  With paged caches the per-sequence
+    position is the scheduler's pre-step length; with dense caches it is
+    the shared cache length.  ``route_map`` as in :func:`lm_apply`.
+    Returns (logits (B,1,V), caches)."""
+    if page_state is not None:
+        pos = page_state["kv_len"][:, None]                  # (B,1) ragged
+    else:
+        pos = torch.arange(1, device=token.device) + _cache_len(caches)
     logits, _, caches = lm_apply(params, token, cfg, caches=caches,
                                  backend=backend, positions=pos,
                                  page_state=page_state, route_map=route_map)

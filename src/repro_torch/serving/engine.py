@@ -313,6 +313,10 @@ def unsupported_reason(cfg: ModelConfig) -> Optional[Tuple[str, str]]:
     return None
 
 
+def engine_supported(cfg: ModelConfig) -> bool:
+    return unsupported_reason(cfg) is None
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     max_seqs: int = 8                  # concurrent sequence slots
@@ -349,6 +353,18 @@ class EngineConfig:
     #                                    one's tokens (0 = synchronous).
     #                                    The legacy step()/run() driver
     #                                    drains every iteration regardless.
+    # moba_impl was removed (the old alias for attn_backend); the InitVar
+    # keeps the keyword rejectable with a shaped error instead of a bare
+    # TypeError
+    moba_impl: dataclasses.InitVar[Optional[str]] = None
+
+    def __post_init__(self, moba_impl):
+        if moba_impl:
+            raise UnsupportedFeatureError(
+                "moba_impl",
+                f"EngineConfig.moba_impl was removed; pass "
+                f"attn_backend={moba_impl!r} instead (same values; see "
+                f"core.backends.resolve_backend_spec)")
 
 
 @dataclasses.dataclass

@@ -29,7 +29,9 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import from_jax
 from repro_torch.core import backends as B
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve import _make_engine, serve
+from repro_torch.launch.serve import (_make_engine, serve, serve_fixed,
+                                      serve_openloop, serve_stream)
+from repro_torch.launch.train import train
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.scheduler import (ServingError,
@@ -202,9 +204,12 @@ def test_backend_registry_and_specs(monkeypatch):
         B.parse_backend_spec("xla:kb_tile=64")
     with pytest.raises(B.BackendCapabilityError, match="integer"):
         B.parse_backend_spec("flash:kb_tile=x")
-    # every backend runs cache-free (training) MoBA and paged MoBA
+    # every backend runs cache-free (training) MoBA, dense-cache MoBA
+    # decode (the fixed loop) and paged MoBA
     for name in ("reference", "xla", "flash"):
         assert B.resolve(name, kind="moba", phase="prefill",
+                         cache="dense").name == name
+        assert B.resolve(name, kind="moba", phase="decode",
                          cache="dense").name == name
         for phase in ("prefill", "decode"):
             assert B.resolve(name, kind="moba", phase=phase,
@@ -226,6 +231,12 @@ def test_device_defaults_to_cuda(model):
     with pytest.raises(RuntimeError, match="cuda"):
         serve("moba-340m", batch=1, prompt_len=8, gen=2)
     with pytest.raises(RuntimeError, match="cuda"):
+        serve_fixed("moba-340m", batch=1, prompt_len=8, gen=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_stream("moba-340m", n_requests=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_openloop("moba-340m", n_requests=1)
+    with pytest.raises(RuntimeError, match="cuda"):
         from_jax(jax.tree.map(np.asarray, jparams), cfg)
     assert resolve_device("cpu") == torch.device("cpu")
 
@@ -244,7 +255,8 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert {"src/repro_torch/core/key_conv.py",
             "src/repro_torch/checkpoint/manager.py",
             "src/repro_torch/data/niah.py",
-            "src/repro_torch/configs/qwen3_0_6b.py"} <= names
+            "src/repro_torch/configs/qwen3_0_6b.py",
+            "src/repro_torch/serving/frontend.py"} <= names
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, (str(path), hits)
@@ -259,3 +271,33 @@ def test_serve_cli_smoke_on_cpu():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
     assert "decode tokens" in res.stdout
+
+
+# ----------------------------------------------- the removed moba_impl
+def test_moba_impl_removed_everywhere():
+    """``tests/test_staged_engine.py``'s surfaces on the port: the removed
+    alias fails with a shaped error naming ``attn_backend``."""
+    with pytest.raises(ValueError, match="attn_backend='xla'"):
+        train("moba-340m", moba_impl="xla", device="cpu")
+    with pytest.raises(UnsupportedFeatureError, match="attn_backend") as ei:
+        EngineConfig(moba_impl="sparse")
+    assert ei.value.feature == "moba_impl"
+    # the InitVar leaves replace() and asdict() as they were
+    ecfg = dataclasses.replace(EngineConfig(), max_seqs=2)
+    assert "moba_impl" not in dataclasses.asdict(ecfg)
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.train",
+                                    "repro_torch.launch.serve"])
+def test_moba_impl_cli_flag_rejected(module):
+    """Both CLIs exit 2 on --moba-impl, naming the --attn-backend
+    replacement (no silent precedence)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", module, "--moba-impl", "xla", "--smoke",
+         "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 2, (res.stdout, res.stderr)
+    err = res.stderr + res.stdout
+    assert "--moba-impl was removed" in err
+    assert "--attn-backend xla" in err
