@@ -13,7 +13,9 @@ Phases, one JSON line each; any failure exits non-zero:
                moba-340m decode shapes (B=8, H=Hkv=16, d=64, page 128,
                top_k 8, a 320-page pool, shuffled block tables, ragged
                kv_len with 0, 1, an exact page boundary and a table
-               shorter than top_k), a G=2, d=128 geometry, and page 16
+               shorter than top_k), a G=2, d=128 geometry, the same
+               shapes at d 128 (``g1-d128``: qwen2-moe-a2.7b's G 1 at d
+               128; its bf16 call timed as the main one), and page 16
                with top_k 64 and with top_k 128 over 512-page tables (G=2:
                the route's running top-k across four 128-page chunks; at
                top_k 128 its lists hold 256 slots a row in dynamic shared
@@ -182,12 +184,34 @@ Phases, one JSON line each; any failure exits non-zero:
                POST 1,024..2,048-token prompts for 32 tokens each, one
                GETs ``/stats``: each stream equals its final record,
                ``ttft_ms`` present, decode steps counted, exit code 0 on
-               SIGINT).
+               SIGINT).  Then the MoE, SSM and hybrid families:
+               ``serve_moe`` (qwen2-moe-a2.7b at full width and depth,
+               53.33 GiB of fp32 weights, bf16 compute, through
+               ``Engine`` on ``flash`` from bf16 pools: phase 3's
+               prompts, 32 new tokens, 2 prompts a prefill; every
+               request finishes, 24 decode calls and 72 kernels a step,
+               decode and prefill tokens/s, peak memory, a profiled
+               window, the (token, slot) pairs its prefills dropped past
+               the expert capacity; then in fp32 at 2 rows of 1,500 and
+               700 tokens, flash against xla decode logits within 2e-3
+               and greedy tokens equal on the rows whose expert choices
+               agree, xla replaying flash's block selections, each
+               differing expert choice counted and required to start at
+               a router top-k gap <= 1e-5); ``serve_ssm`` (mamba2-780m
+               and zamba2-1.2b at full width and depth through
+               ``serve()``'s fallback to the fixed loop, 8 × 2,048
+               tokens, 32 new: prefill s, decode step ms, tokens/s, peak
+               memory, no MoBA kernel launched; in fp32 at 2 × 512, 8
+               new, the recurrent decode's logits against one
+               ``lm_apply`` over prompt and tokens within 2e-3, greedy
+               tokens equal).
   5. train_kernels — the four FlashMoBA training kernels (centroids, Flash
                TopK, forward, backward) against their plain PyTorch
                versions at the moba-340m training shapes (B=1, H=Hkv=16,
                N=Nq=8192, d=64, block 128, top_k 8, q tile 128) in bf16
-               and fp32, plus G=2/d=128, a ragged N=8000, a query suffix
+               and fp32, plus G=2/d=128, G=1/d=128 (``g1-d128``,
+               qwen2-moe-a2.7b's MoBA at N 4096, its bf16 kernels timed
+               as the main ones), a ragged N=8000, a query suffix
                Nq=1000, the paper's small blocks (``small-blocks``: block
                32, top_k 32, bf16 and fp32) and original MoBA's blocks
                (``block-512``: block 512, top_k 2, bf16: the forward's
@@ -269,6 +293,12 @@ Phases, one JSON line each; any failure exits non-zero:
                from the plain routing only on near-ties.  Run at block
                128, top_k 8, again at block 32, top_k 32, and on the
                kconv3 model (the ``key_conv`` leaves among the checked).
+               Then ``train_moe``: qwen2-moe-a2.7b at full width and 2 of
+               its 24 layers (1.76 B params), batch 1 × 4,096, 3 steps on
+               ``flash`` with remat and on ``xla`` (losses within 2e-2;
+               per step 4 centroids, Flash TopK and ``moba_fwd``, 2
+               ``moba_bwd``), step ms, peak memory; then this phase's
+               fp32 check on that model.
   8. swa     — a tensor-core audit of the ``swa`` library first (as in
                phase 5: every bf16 instantiation has ``HMMA`` in its SASS,
                none has a stack frame at d 64; d 128's registers and
@@ -295,11 +325,13 @@ small-block times and its times alone at top_k 16, 64 and 1024;
 ``swa_attention`` also at d 128 and in fp32; ``launches_also``: each
 kernel's launches on the other paths, ``serve_key_conv``,
 ``serve_qwen3``, ``serve_adaptive`` (its (b) run), ``serve_prefix``
-(each case with the cache on), ``serve_stream`` and ``serve_openloop``
-(each ``dispatch_ahead``) for the decode kernels, whose bf16 entry also
-holds ``with_budgets``; ``serve_fixed``'s prefill,
-``train_small_blocks``, ``train_key_conv`` and ``train_accum``'s two
-accumulating bf16 steps for the training kernels), and as the last line
+(each case with the cache on), ``serve_stream``, ``serve_openloop``
+(each ``dispatch_ahead``) and ``serve_moe`` for the decode kernels,
+whose bf16 entry also holds ``with_budgets`` and its times at
+``g1-d128``; ``serve_fixed``'s prefill, ``train_small_blocks``,
+``train_key_conv``, ``train_accum``'s two accumulating bf16 steps and
+``train_moe`` for the training kernels, each with its times at
+``g1-d128``), and as the last line
 ``{"ok": true, "device": {...}}``.
 
   python3 chip_smoke.py --ab DIR
@@ -714,6 +746,7 @@ def phase_kernel():
                 kv_lens=[0, 1, 128, 100, 1500, 3000, 4224, 2777])
     g2 = dict(b=4, h=16, hkv=8, d=128, ps=128, npg=12, num_pages=64,
               kv_lens=[0, 700, 1536, 129])
+    g1 = dict(main, d=128)          # qwen2-moe-a2.7b: H = Hkv 16, d 128
     k64 = dict(b=4, h=16, hkv=8, d=64, ps=16, npg=512, num_pages=1100,
                kv_lens=[8192, 6000, 2049, 0])
     # G 8 at d 128, top_k 200: the route's lists (44,800 bytes) fit the
@@ -721,6 +754,7 @@ def phase_kernel():
     g8 = dict(b=2, h=16, hkv=2, d=128, ps=16, npg=512, num_pages=900,
               kv_lens=[8192, 5001])
     geoms = (("moba-340m", main, main_cfg), ("g2-d128", g2, main_cfg),
+             ("g1-d128", g1, main_cfg),
              ("page16-k64", k64, MoBAConfig(block_size=16, top_k=64)),
              ("page16-k128", k64, MoBAConfig(block_size=16, top_k=128)),
              ("g8-k200-d128", g8, MoBAConfig(block_size=16, top_k=200)))
@@ -794,6 +828,10 @@ def phase_kernel():
                 if name == "moba-340m" and dtype == torch.bfloat16:
                     timing[kv_dtype] = _time_decode(q, pool, table, kv, cfg,
                                                     args, err, flush)
+                if (name == "g1-d128" and dtype == torch.bfloat16
+                        and kv_dtype == "fp32"):
+                    timing[name] = _time_decode(q, pool, table, kv, cfg,
+                                                args, err, flush)
     # per-head budgets (adaptive routing): G 1 at d 64 (moba-340m), G 2
     # at d 128 (qwen3-0.6b), G 8 at d 128 with budgets 1..200, and G 8
     # over tables shorter than top_k (npg 100 < 200) with a kv_len 0 row
@@ -1173,6 +1211,28 @@ def _recording(eng, gaps: list, n_uniq: list):
     return undo
 
 
+def _moe_drops(drops: list):
+    """Patch ``models/moe.py::expert_slots`` to keep, for every call over
+    more than 64 tokens (a prefill's shared capacity), the count of
+    (token, slot) pairs past the capacity as a device tensor (read after
+    the run, so no step syncs) and the pairs routed.  Returns the
+    undo."""
+    from repro_torch.models import moe as MOE
+    slots = MOE.expert_slots
+
+    def counted(top_e, num_experts, cap):
+        onehot, pos, keep = slots(top_e, num_experts, cap)
+        if top_e.shape[0] > 64:
+            drops.append(((~keep).sum(), keep.numel()))
+        return onehot, pos, keep
+
+    MOE.expert_slots = counted
+
+    def undo():
+        MOE.expert_slots = slots
+    return undo
+
+
 def _gaps_by_token(gaps: list, reqs) -> dict:
     """rid -> {token index j: the top-2 logit gap of the decode step that
     produced token j} (token 0 comes from prefill; the step that produces
@@ -1196,10 +1256,12 @@ def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
     ``kv_dtype`` pools: ``arch`` (with key conv of ``key_conv_width``) at
     full width and depth, ``prompts`` requests of 1024..4095 tokens,
     routed by ``route_policy``.  ``record`` keeps each decode step's
-    top-2 logit gaps and each decode call's union sizes; ``profile``
-    adds the profiled window.  Returns the decode calls and the decode
-    kernels' launches in the measured run, the pools' bytes and the
-    record (with the streams and, if recorded, the gaps by token)."""
+    top-2 logit gaps and each decode call's union sizes; ``profile`` adds
+    the profiled window.  An MoE model's record counts the (token, slot)
+    pairs its prefills dropped past the expert capacity.  Returns the
+    decode calls and the decode kernels' launches in the measured run,
+    the pools' bytes and the record (with the streams and, if recorded,
+    the gaps by token)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import moba_decode as MD
@@ -1225,16 +1287,18 @@ def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
             for n in lens]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gaps, n_uniq = [], []
+    gaps, n_uniq, drops = [], [], []
     undo = _recording(eng, gaps, n_uniq) if record else None
+    undo_drops = _moe_drops(drops) if cfg.family == "moe" else None
     MD.LAUNCHES = MD.KERNEL_LAUNCHES = 0
     t0 = time.perf_counter()
     try:
         eng.run()
         torch.cuda.synchronize()
     finally:
-        if undo is not None:
-            undo()
+        for u in (undo, undo_drops):
+            if u is not None:
+                u()
     wall = time.perf_counter() - t0
     launches, kernel_launches = MD.LAUNCHES, MD.KERNEL_LAUNCHES
     st = dict(eng.stats)           # the profile window below adds steps
@@ -1263,6 +1327,10 @@ def phase_serve(kv_dtype: str = "fp32", new_tokens: int = 64,
                kernel_launches / max(st["decode_steps"], 1)}
     if bf16_pool_bytes:
         rec["pool_bytes_vs_bf16"] = pool_bytes / bf16_pool_bytes
+    if drops:
+        rec["prefill_moe_calls"] = len(drops)
+        rec["prefill_pairs"] = sum(n for _, n in drops)
+        rec["prefill_pairs_dropped"] = int(sum(d for d, _ in drops))
     ring = next((pool["key_conv_state"] for pool in eng.caches.values()
                  if "key_conv_state" in pool), None)
     want = (cfg.num_layers // len(cfg.layer_pattern), 8, cfg.num_kv_heads,
@@ -1367,18 +1435,19 @@ def _profile_summary(prof, wall: float, steps: int) -> dict:
 LOGITS_LENS = (1500, 900, 2000, 300)      # phase 4's four sequences
 
 
-def _logits_case(cfg, kv_dtype: str = "fp32", seed: int = 1):
+def _logits_case(cfg, kv_dtype: str = "fp32", seed: int = 1,
+                 lens=LOGITS_LENS, npg: int = 33):
     """fp32 weights from ``seed`` and the paged-prefill inputs of phase 4:
-    four sequences of :data:`LOGITS_LENS` tokens on shuffled 128-token
-    pages, each at the sequence slot of its row.  Returns (params,
-    empty caches with one key-conv ring row a sequence, device inputs,
-    host tokens, a caches factory)."""
+    sequences of ``lens`` tokens (default :data:`LOGITS_LENS`) on
+    shuffled 128-token pages, ``npg`` a table, each at the sequence slot
+    of its row.  Returns (params, device inputs, host tokens, a factory
+    of empty caches with one key-conv ring row a sequence)."""
     import torch
     from repro_torch.models import transformer as T
     dev = torch.device("cuda")
     params = T.init_lm(torch.Generator(device=dev).manual_seed(seed), cfg)
-    ps, npg = 128, 33
-    lens = np.array(LOGITS_LENS, np.int32)
+    ps = 128
+    lens = np.array(lens, np.int32)
     b = len(lens)
     rng = np.random.default_rng(seed)
     pages = rng.permutation(b * npg)
@@ -1403,14 +1472,15 @@ def _logits_case(cfg, kv_dtype: str = "fp32", seed: int = 1):
 
 
 def _decode_flash_vs_xla(cfg, params, caches, t, first,
-                         route_map=None) -> dict:
+                         route_map=None, keep_logits: bool = False) -> dict:
     """One decode step under ``flash`` and one under ``xla`` from clones
     of the prefilled ``caches`` (per-head budgets from ``route_map``, if
     given).  The flash run records the route kernel's selections in every
     MoBA layer; the xla run replays them, each held to xla's own routing
     by the near-tie rule (the kernel sums its fp32 dot products in
     another order than the plain einsum, so a near-tie can flip a page).
-    Returns the record's fields and ``ok``."""
+    Returns the record's fields and ``ok`` (``keep_logits``: also each
+    run's last logits and tokens, under ``_logits`` and ``_tokens``)."""
     import torch
     from repro_torch.core import moba as CM
     from repro_torch.kernels import moba_decode as MD
@@ -1478,12 +1548,15 @@ def _decode_flash_vs_xla(cfg, params, caches, t, first,
     same = bool(torch.equal(toks["flash"], toks["xla"])
                 and torch.equal(toks["flash"],
                                 logits["flash"].argmax(-1).to(torch.int32)))
-    return {"vocab": cfg.vocab_size, "max_abs_diff": diff, "tol": 2e-3,
-            "allclose": close, "finite": finite, "greedy_equal": same,
-            "routing_rows_differing_per_layer": [r for r, _, _ in audit],
-            "routing_max_gap": max((g for _, g, _ in audit), default=0.0),
-            "routing_near_ties_ok": routing_ok,
-            "ok": close and finite and same and routing_ok}
+    rec = {"vocab": cfg.vocab_size, "max_abs_diff": diff, "tol": 2e-3,
+           "allclose": close, "finite": finite, "greedy_equal": same,
+           "routing_rows_differing_per_layer": [r for r, _, _ in audit],
+           "routing_max_gap": max((g for _, g, _ in audit), default=0.0),
+           "routing_near_ties_ok": routing_ok,
+           "ok": close and finite and same and routing_ok}
+    if keep_logits:
+        rec.update(_logits=logits, _tokens=toks)
+    return rec
 
 
 def phase_logits(kv_dtype: str = "fp32", arch: str = "moba-340m",
@@ -2961,6 +3034,295 @@ def phase_serve_http():
         raise SystemExit("serve_http: " + "; ".join(bad))
 
 
+# ----------------------------------------- the MoE, SSM and hybrid families
+MOE_ARCH = "qwen2-moe-a2.7b"         # 14,315,587,584 fp32 params, 53.33 GiB
+MOE_NEW_TOKENS = 32
+MOE_LOGITS_LENS = (1500, 700)        # the fp32 decode check's two rows
+ROUTER_GAP_TOL = 1e-5                # an expert choice may flip only here
+MOE_TRAIN = dict(arch=MOE_ARCH, layers=2, seq=4096)
+MOE_TRAIN_STEPS = 3
+SSM_ARCHS = ("mamba2-780m", "zamba2-1.2b")
+SSM_CASE = dict(batch=8, prompt_len=2048, gen=32)
+SSM_FP32_CASE = dict(batch=2, prompt_len=512, gen=8)
+
+
+def _router_records(records: list):
+    """Patch ``models/moe.py::route`` to keep every call's router
+    probabilities and experts.  Returns the undo."""
+    from repro_torch.models import moe as MOE
+    route = MOE.route
+
+    def rec(router, xf, k):
+        probs, top_p, top_e = route(router, xf, k)
+        records.append((probs, top_e))
+        return probs, top_p, top_e
+
+    MOE.route = rec
+
+    def undo():
+        MOE.route = route
+    return undo
+
+
+def _expert_flips(flash: list, xla: list, k: int) -> dict:
+    """Rows whose expert choice differs between two runs' router records
+    (one per layer, in order), the layer where each row's choice first
+    differs and the router's top-k gap there (its k-th largest
+    probability less the next, on the flash run's probabilities): a flip
+    must start at a near-tie; later layers of a row that already flipped
+    see other inputs and are counted, not gated."""
+    import torch
+    first, gaps, counts = {}, [], []
+    for layer, ((pf, ef), (_, ex)) in enumerate(zip(flash, xla)):
+        differ = (ef.sort(-1).values != ex.sort(-1).values).any(-1)
+        counts.append(int(differ.sum()))
+        top = pf.sort(-1, descending=True).values
+        gap = top[:, k - 1] - top[:, k]
+        for row in torch.nonzero(differ).flatten().tolist():
+            if row not in first:
+                first[row] = layer
+                gaps.append(float(gap[row]))
+    return {"expert_choices_differing_per_layer": counts,
+            "rows_flipped": sorted(first),
+            "first_flip_router_gaps": gaps,
+            "flips_near_ties_ok": all(g <= ROUTER_GAP_TOL for g in gaps)}
+
+
+def phase_moe_logits() -> dict:
+    """qwen2-moe-a2.7b at full width and depth in fp32 (TF32 off): a
+    shared paged prefill of :data:`MOE_LOGITS_LENS` (on ``xla``), then
+    :func:`_decode_flash_vs_xla`'s decode step under ``flash`` and
+    ``xla``, xla replaying flash's block selections in all 24 layers.  Any
+    expert choice that differs between the two runs is counted and must
+    start at a router top-k gap of at most :data:`ROUTER_GAP_TOL`; the
+    logits (2e-3) and greedy tokens are held on the rows where no choice
+    differs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), dtype="float32")
+    npg = -(-(max(MOE_LOGITS_LENS) + 1) // 128)
+    params, t, _, new_caches = _logits_case(cfg, lens=MOE_LOGITS_LENS,
+                                            npg=npg)
+    first, caches = S.make_paged_prefill_step(cfg, "xla", chunked=True)(
+        params, t["tokens"], new_caches(), t["table"], t["kv0"], t["lens"],
+        t["slots"], t["active"])
+    records = []
+    undo = _router_records(records)
+    try:
+        rec = _decode_flash_vs_xla(cfg, params, caches, t, first,
+                                   keep_logits=True)
+    finally:
+        undo()
+    logits, toks = rec.pop("_logits"), rec.pop("_tokens")
+    n = cfg.num_layers          # runs: flash step, flash S, xla, xla S
+    flips = _expert_flips(records[:n], records[2 * n:3 * n],
+                          cfg.moe.top_k)
+    again = _expert_flips(records[n:2 * n], records[3 * n:], cfg.moe.top_k)
+    rows = torch.ones(len(MOE_LOGITS_LENS), dtype=torch.bool, device="cuda")
+    rows[sorted(set(flips["rows_flipped"]) | set(again["rows_flipped"]))] \
+        = False
+    a, b = logits["flash"][rows], logits["xla"][rows]
+    close = bool(torch.allclose(a, b, atol=2e-3, rtol=2e-3))
+    same = bool(torch.equal(toks["flash"][rows], toks["xla"][rows])
+                and torch.equal(toks["flash"][rows],
+                                a.argmax(-1).to(torch.int32)))
+    out = {"phase": "serve_moe_logits", "arch": cfg.name, "dtype": "float32",
+           "kv_lens": list(MOE_LOGITS_LENS), "rows_compared": int(rows.sum()),
+           **rec, **flips,
+           "rows_max_abs_diff": float((a - b).abs().max()) if len(a) else 0.0,
+           "rows_allclose": close, "rows_greedy_equal": same}
+    out["ok"] = (rec["finite"] and rec["routing_near_ties_ok"] and close
+                 and same and flips["flips_near_ties_ok"]
+                 and again["flips_near_ties_ok"] and bool(rows.any()))
+    emit(out)
+    del params, caches, records, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not out["ok"]:
+        raise SystemExit("serve_moe_logits: flash and xla decode logits "
+                         "disagree on rows with equal expert choices, or a "
+                         "block or expert choice differs off a near-tie")
+    return out
+
+
+def phase_serve_moe():
+    """qwen2-moe-a2.7b at full width and depth (bf16 compute on fp32
+    weights, seed 0) through ``Engine`` on ``flash`` from bf16 pools:
+    phase 3's 8 prompts, 32 new tokens, 8 slots, 2 prompts a prefill.
+    Every request finishes; 24 decode calls and 72 kernel launches a
+    step (phase 3's gates, through :func:`phase_serve`); the record
+    counts the (token, slot) pairs the prefills dropped.  Then the fp32
+    decode check (:func:`phase_moe_logits`).  Returns the decode calls
+    and kernel launches of the measured run."""
+    calls, kernels, _, _ = phase_serve(
+        arch=MOE_ARCH, new_tokens=MOE_NEW_TOKENS, phase="serve_moe")
+    phase_moe_logits()
+    return calls, kernels
+
+
+def _ssm_fp32(arch: str) -> dict:
+    """``arch`` at full width and depth in fp32 (TF32 off, seed-0
+    weights): a dense-cache prefill of :data:`SSM_FP32_CASE` prompts and
+    its recurrent greedy decode, against one ``lm_apply`` over each
+    prompt and the tokens fed back: logits within 2e-3, greedy tokens
+    equal."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    b, n, gen = (SSM_FP32_CASE[k] for k in ("batch", "prompt_len", "gen"))
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, n)), dtype=torch.int32, device="cuda")
+    caches = T.init_caches(cfg, b, n + gen, dtype=torch.float32,
+                           device="cuda")
+    with torch.no_grad():
+        logits, caches = T.prefill(params, prompts, cfg, caches,
+                                   backend="flash")
+        steps = [logits[:, -1]]
+        toks = [steps[-1].argmax(-1).to(torch.int32)]
+        for _ in range(gen - 1):
+            logits, caches = T.decode_step(params, toks[-1][:, None], cfg,
+                                           caches, backend="flash")
+            steps.append(logits[:, -1])
+            toks.append(steps[-1].argmax(-1).to(torch.int32))
+        fed = torch.cat([prompts, torch.stack(toks[:-1], 1)], 1)
+        want = T.lm_apply(params, fed, cfg, backend="flash")[0][:, n - 1:]
+    got = torch.stack(steps, 1)
+    rec = {"batch": b, "prompt_len": n, "gen": gen,
+           "max_abs_diff": float((got - want).abs().max()), "tol": 2e-3,
+           "allclose": bool(torch.allclose(got, want, atol=2e-3,
+                                           rtol=2e-3)),
+           "greedy_equal": bool(torch.equal(torch.stack(toks, 1),
+                                            want.argmax(-1).to(
+                                                torch.int32))),
+           "finite": bool(torch.isfinite(got).all())}
+    rec["ok"] = rec["allclose"] and rec["greedy_equal"] and rec["finite"]
+    return rec
+
+
+def phase_serve_ssm():
+    """mamba2-780m and zamba2-1.2b at full width and depth (bf16 compute,
+    seed-0 weights) through ``serve()``, which falls back to the
+    fixed-batch loop (the engine refuses ``ssm`` slots): 8 prompts of
+    2,048 tokens, 32 new tokens, ``flash``.  Each step call timed between
+    syncs (:func:`_timed_steps`): prefill s, decode step ms, tokens/s,
+    peak memory; no MoBA kernel may launch (zamba2's shared block runs
+    dense attention, as JAX resolves it).  Then :func:`_ssm_fp32`."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as TS
+    from repro_torch.serving.engine import engine_supported
+
+    bad = []
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch)
+        times, counts = [], []
+        undo = _timed_steps(times, counts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            toks = TS.serve(arch, smoke=False, attn_backend="flash",
+                            device="cuda", **SSM_CASE)
+        finally:
+            undo()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        gc.collect()
+        torch.cuda.empty_cache()
+        launched = {k: sum(c[k] for c in counts) for k in counts[0]}
+        dec_s = sum(times[1:])
+        b, g = SSM_CASE["batch"], SSM_CASE["gen"]
+        rec = {"phase": "serve_ssm", "arch": cfg.name, "family": cfg.family,
+               "dtype": cfg.dtype, "backend": "flash", **SSM_CASE,
+               "engine_supported": engine_supported(cfg), "wall_s": wall,
+               "prefill_s": times[0],
+               "prefill_tok_s": b * SSM_CASE["prompt_len"] / times[0],
+               "decode_steps": len(times) - 1,
+               "decode_step_ms": dec_s / (len(times) - 1) * 1e3,
+               "decode_tok_s": b * (len(times) - 1) / dec_s,
+               "peak_mem_gib": peak, "kernel_launches": launched,
+               "fp32": _ssm_fp32(arch)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(rec)
+        what = f"serve_ssm ({cfg.name})"
+        if rec["engine_supported"] or len(times) != g:
+            bad.append(f"{what}: took {len(times)} fixed-loop steps, "
+                       f"expected {g} (engine_supported "
+                       f"{rec['engine_supported']})")
+        if any(launched.values()):
+            bad.append(f"{what}: a MoBA kernel launched: {launched}")
+        if toks.shape != (b, g) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            bad.append(f"{what}: tokens of shape {toks.shape}")
+        if not rec["fp32"]["ok"]:
+            bad.append(f"{what}: fp32 recurrent decode disagrees with "
+                       f"lm_apply: {rec['fp32']}")
+    if bad:
+        raise SystemExit("; ".join(bad))
+
+
+def phase_train_moe():
+    """qwen2-moe-a2.7b at full width, 2 of its 24 layers (1.76 B params,
+    AdamW), batch 1 × 4,096: 3 steps on ``flash`` with remat (counts
+    zeroed just before, read just after), then on ``xla`` from the same
+    weights and batches (losses within 2e-2); exact launches a step (4
+    centroids, Flash TopK and ``moba_fwd``, forward and recompute, and 2
+    ``moba_bwd``); step ms and peak memory.  Then the fp32 loss and
+    gradients, flash against xla (:func:`phase_train_grads`).  Returns
+    the flash run's launches."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    cfg, state, losses, step_s = _train_run("flash", MOE_TRAIN_STEPS,
+                                            **MOE_TRAIN)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, state, xla_losses, xla_s = _train_run("xla", MOE_TRAIN_STEPS,
+                                             **MOE_TRAIN)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    ml = _moba_layers(cfg)
+    want = {"block_centroids": 2 * ml, "flash_topk": 2 * ml,
+            "moba_fwd": 2 * ml, "moba_bwd": ml}
+    gap = max(abs(a - b) for a, b in zip(losses, xla_losses))
+    steady = float(np.median(step_s[1:]))
+    rec = {"phase": "train_moe", "arch": cfg.name, "dtype": cfg.dtype,
+           "layers": cfg.num_layers, "batch": 1, "seq": MOE_TRAIN["seq"],
+           "remat": True, "backend": "flash", "losses": losses,
+           "step_ms": [t * 1e3 for t in step_s],
+           "median_step_ms_steps_2_3": steady * 1e3,
+           "tokens_per_s": MOE_TRAIN["seq"] / steady, "peak_mem_gib": peak,
+           "launches": launches, "expected_per_step": want,
+           "xla_losses": xla_losses, "xla_step_ms": [t * 1e3 for t in xla_s],
+           "flash_vs_xla_max_loss_gap": gap,
+           "flash_vs_xla_loss_tol": TRAIN_LOSS_TOL}
+    emit(rec)
+    if not all(np.isfinite(losses + xla_losses)):
+        raise SystemExit(f"train_moe: a loss is not finite: {losses} / "
+                         f"{xla_losses}")
+    for k, per_step in want.items():
+        if launches[k] != per_step * MOE_TRAIN_STEPS:
+            raise SystemExit(f"train_moe: {k} launched {launches[k]} times "
+                             f"in {MOE_TRAIN_STEPS} steps, expected "
+                             f"{per_step} per step")
+    if gap > TRAIN_LOSS_TOL:
+        raise SystemExit(f"train_moe: flash and xla losses differ by {gap} "
+                         f"> {TRAIN_LOSS_TOL}: {losses} / {xla_losses}")
+    phase_train_grads(arch=MOE_ARCH, layers=MOE_TRAIN["layers"],
+                      phase="train_moe_grads")
+    return launches
+
+
 def _bound(nbytes: float, flops: float, flops_rate: float) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / flops_rate * 1e3
@@ -3394,6 +3756,8 @@ def phase_train_kernels():
                                 d=64), (torch.bfloat16, torch.float32)),
              ("g2-d128", dict(h=16, hkv=8, n=4096, nq=4096, d=128),
               (torch.bfloat16, torch.float32)),
+             ("g1-d128", dict(h=16, hkv=16, n=4096, nq=4096, d=128),
+              (torch.bfloat16, torch.float32)),
              ("ragged-n", dict(h=16, hkv=16, n=8000, nq=8000, d=64),
               (torch.bfloat16,)),
              ("suffix-nq", dict(h=16, hkv=16, n=TRAIN_SEQ, nq=1000, d=64),
@@ -3424,6 +3788,8 @@ def phase_train_kernels():
                 main_err = {k: r["max_abs_err"] for k, r in rec.items()}
                 timing = _time_train_kernels(c, flush)
                 timing["flash_moba"] = _time_flash_moba(c, flush)
+            if name == "g1-d128" and dtype == torch.bfloat16:
+                g1 = _time_train_kernels(c, flush)
             if name == "small-blocks" and dtype == torch.bfloat16:
                 small_topk = _time_flash_topk(c, flush)
             if name.startswith("top_k-") and dtype == torch.bfloat16:
@@ -3453,6 +3819,7 @@ def phase_train_kernels():
     torch.cuda.empty_cache()
     timing["flash_topk_small_blocks"] = small_topk
     timing["flash_topk_more"] = topk_more
+    timing["g1-d128"] = g1
     emit({"phase": "train_kernels", "tensor_core_audit": audit,
           "checks": checks, "flash_vs_xla": vs_xla, "timing": timing})
     return timing, main_err
@@ -3472,14 +3839,16 @@ def _zero_counts():
         mod.LAUNCHES = 0
 
 
-def _train_run(backend: str, steps: int = TRAIN_STEPS, **moba):
-    """moba-340m at full width and depth (bf16, random weights from a
-    seeded torch.Generator), batch 1, seq 8192: ``steps`` steps of
-    ``make_train_step`` with remat on ``backend``, from the same weights
-    and batches on every call; ``moba`` (block_size, top_k,
-    key_conv_width) overrides the config's MoBA settings.  Returns the
-    state for one more step, each step's loss and seconds (each loss
-    read waits for its step)."""
+def _train_run(backend: str, steps: int = TRAIN_STEPS, *,
+               arch: str = "moba-340m", layers: int = 0,
+               seq: int = TRAIN_SEQ, **moba):
+    """``arch`` (moba-340m) at full width and depth, or ``layers`` deep
+    (bf16, random weights from a seeded torch.Generator), batch 1, seq
+    ``seq`` (8192): ``steps`` steps of ``make_train_step`` with remat on
+    ``backend``, from the same weights and batches on every call;
+    ``moba`` (block_size, top_k, key_conv_width) overrides the config's
+    MoBA settings.  Returns the state for one more step, each step's loss
+    and seconds (each loss read waits for its step)."""
     import torch
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -3487,13 +3856,15 @@ def _train_run(backend: str, steps: int = TRAIN_STEPS, **moba):
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
 
-    cfg = get_config("moba-340m", **moba)
-    tcfg = TrainConfig(global_batch_size=1, seq_len=TRAIN_SEQ,
+    cfg = get_config(arch, **moba)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    tcfg = TrainConfig(global_batch_size=1, seq_len=seq,
                        total_steps=TRAIN_STEPS + 1, warmup_steps=1)
     params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
     opt = adamw.adamw_init(params)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                  seq_len=TRAIN_SEQ, global_batch=1, seed=0))
+                                  seq_len=seq, global_batch=1, seed=0))
     batches = [{"tokens": torch.as_tensor(data.batch_at(i)["tokens"],
                                           device="cuda")}
                for i in range(TRAIN_STEPS + 1)]
@@ -3933,8 +4304,10 @@ def phase_train_resume(steps: int = 4):
 
 # ------------------------------------------------------------------ phase 7
 def phase_train_grads(block_size: int = 128, top_k: int = 8,
-                      key_conv_width: int = 0):
-    """flash against xla through the whole model in fp32.  The xla run
+                      key_conv_width: int = 0, *, arch: str = "moba-340m",
+                      layers: int = 0, phase: str = "train_grads"):
+    """flash against xla through the whole model in fp32 (``arch``,
+    ``layers`` deep when nonzero).  The xla run
     replays the flash run's block selections layer by layer, so both
     sides compute the same function; each replayed selection is held to
     the plain routing of the xla run's own q and k by the near-tie rule
@@ -3950,8 +4323,10 @@ def phase_train_grads(block_size: int = 128, top_k: int = 8,
 
     seq = 2048
     cfg = dataclasses.replace(get_config(
-        "moba-340m", block_size=block_size, top_k=top_k,
+        arch, block_size=block_size, top_k=top_k,
         key_conv_width=key_conv_width), dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
     tokens = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                     global_batch=1, seed=1)).batch_at(0)
@@ -3984,9 +4359,11 @@ def phase_train_grads(block_size: int = 128, top_k: int = 8,
                                                  out["xla"][1])}
     worst = max(rels, key=rels.get)
     loss_rel = abs(out["flash"][0] - out["xla"][0]) / abs(out["xla"][0])
-    routing_ok = len(audit) == MOBA_LAYERS and all(ok for _, _, ok in audit)
+    routing_ok = len(audit) == _moba_layers(cfg) and all(
+        ok for _, _, ok in audit)
     ok = loss_rel <= 2e-4 and rels[worst] <= 5e-3 and routing_ok
-    emit({"phase": "train_grads", "arch": cfg.name, "dtype": "float32",
+    emit({"phase": phase, "arch": cfg.name, "dtype": "float32",
+          "layers": cfg.num_layers,
           "seq": seq, "block_size": block_size, "top_k": top_k,
           "key_conv_width": key_conv_width,
           "loss_flash": out["flash"][0], "loss_xla": out["xla"][0],
@@ -3999,8 +4376,9 @@ def phase_train_grads(block_size: int = 128, top_k: int = 8,
           "routing_max_gap": max((g for _, g, _ in audit), default=0.0),
           "routing_near_ties_ok": routing_ok, "ok": ok})
     if not ok:
-        raise SystemExit("train_grads: flash and xla losses or gradients "
-                         "disagree, or a routing difference is no near-tie")
+        raise SystemExit(f"{phase}: flash and xla losses or gradients "
+                         f"disagree, or a routing difference is no "
+                         f"near-tie")
 
 
 # ------------------------------------------------------------------ phase 8
@@ -4385,6 +4763,8 @@ def main() -> int:
     decode_also["serve_stream"] = timed("serve_stream", phase_serve_stream)
     decode_also.update(timed("serve_openloop", phase_serve_openloop))
     timed("serve_http", phase_serve_http)
+    decode_also["serve_moe"] = timed("serve_moe", phase_serve_moe)
+    timed("serve_ssm", phase_serve_ssm)
     train_timing, train_err = timed("train_kernels", phase_train_kernels)
     train_launches, train_rec = timed("train", phase_train)
     small_blocks = timed("train_small_blocks", phase_train_small_blocks)
@@ -4400,6 +4780,7 @@ def main() -> int:
     timed("train_grads", phase_train_grads, block_size=32, top_k=32)
     timed("train_key_conv", phase_train_grads,
           key_conv_width=KEY_CONV_WIDTH)
+    train_also["train_moe"] = timed("train_moe", phase_train_moe)
     swa_launches, swa_timing = timed("swa", phase_swa)
     emit({"phase_seconds": seconds,
           "total_s": time.perf_counter() - t_start})
@@ -4434,6 +4815,11 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "library_device_ms": t["library_device_ms"], **budgets,
+            **({"also_at": {"g1-d128": {
+                k: timing["g1-d128"][k] for k in (
+                    "ms", "device_ms", "kernel_only_ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "max_abs_err")}}}
+               if kv_dtype == "fp32" else {}),
             "checked": True})
     for name, (_, source, replaces) in TRAIN_KERNELS.items():
         t = train_timing[name]
@@ -4458,6 +4844,10 @@ def main() -> int:
                                           "bound_by", "shape")}
                     for g, r in train_timing["flash_topk_more"].items()}}
                if name == "flash_topk" else {}),
+            "also_at": {"g1-d128": {
+                k: train_timing["g1-d128"][name][k] for k in (
+                    "ms", "kernel_only_ms", "plain_ms", "bound_ms",
+                    "bound_by")}},
             "checked": True})
     name, source, replaces = SWA_KERNEL
     t = swa_timing["moba-340m:bfloat16"]

@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` ids → config modules.
 
 The port runs the paper's own models (moba-340m, moba-1b) and the
-dense-family architectures; the other families of ``repro.configs``
-(MoE, SSM, encoder-decoder, vision) join as their layer kinds are
-ported (ROADMAP.md).
+dense, MoE, SSM and hybrid architectures; the encoder-decoder and vision
+families of ``repro.configs`` join as their layer kinds are ported
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -19,6 +19,10 @@ ARCHS = {
     "qwen3-14b": "qwen3_14b",
     "codeqwen1.5-7b": "codeqwen1_5_7b",
     "internlm2-1.8b": "internlm2_1_8b",
+    "mamba2-780m": "mamba2_780m",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "zamba2-1.2b": "zamba2_1_2b",
     "moba-340m": "moba_340m",
     "moba-1b": "moba_1b",
 }

@@ -1,16 +1,27 @@
-"""Decoder-only LM over attention blocks (dense | swa | moba).
+"""Decoder-only LM over a repeating pattern of block kinds.
 
 Layer layout is a repeating ``cfg.layer_pattern`` of slot kinds with
-``num_layers == len(pattern) * n_groups``.  Params and caches keep the
-reference's stacked layout — ``blocks/slot_i`` leaves carry a leading
-layer-group axis — so one set of weights feeds both packages.  The
-reference scans over groups; here a Python loop indexes group ``g`` of
-every leaf (a view, so cache writes land in the stacked pools).
+``num_layers == len(pattern) * n_groups``:
 
-Caches are paged pools (the serving engine) or dense per-sequence
-caches (the fixed serving loop, :func:`init_caches`).  Other families
-(MoE, SSM, enc-dec, VLM) and the shared-attention slot come with later
-slices (ROADMAP.md).
+  dense | swa | moba   attention block (+ SwiGLU MLP, or MoE for the
+                       ``moe`` family)
+  ssm                  Mamba-2 block
+  shared_attn          zamba2-style shared-weight attention block: one
+                       unstacked ``params["shared"]`` copy read in every
+                       group, run as dense attention (the reference's
+                       resolution, whatever ``attention.kind`` says)
+
+Params and caches keep the reference's stacked layout — ``blocks/slot_i``
+leaves carry a leading layer-group axis — so one set of weights feeds
+both packages.  The reference scans over groups; here a Python loop
+indexes group ``g`` of every leaf (a view, so cache writes land in the
+stacked pools).
+
+Caches are paged pools (the serving engine; attention slots only) or
+dense per-sequence caches (the fixed serving loop, :func:`init_caches`;
+Mamba-2 state for ``ssm`` slots).  The encoder-decoder and vision
+families (the ``decoder`` and ``cross`` kinds) come with a later slice
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -21,8 +32,13 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MOE
 
 ATTN_KINDS = ("dense", "swa", "moba")
+PAGED_KINDS = ATTN_KINDS + ("shared_attn",)     # the pageable slots
+KINDS = PAGED_KINDS + ("ssm",)
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _block_kinds(cfg: ModelConfig):
@@ -30,18 +46,32 @@ def _block_kinds(cfg: ModelConfig):
     if cfg.num_layers % len(pattern):
         raise ValueError(f"num_layers {cfg.num_layers} is not a multiple "
                          f"of the layer pattern {pattern}")
-    bad = [k for k in pattern if k not in ATTN_KINDS]
-    if bad or cfg.family != "dense":
-        raise ValueError(f"the port runs dense-family attention patterns "
-                         f"{ATTN_KINDS}; got family {cfg.family!r}, "
-                         f"pattern {pattern}")
+    bad = [k for k in pattern if k not in KINDS]
+    if bad or cfg.family not in FAMILIES:
+        raise ValueError(f"the port runs families {FAMILIES} over the "
+                         f"block kinds {KINDS}; got family "
+                         f"{cfg.family!r}, pattern {pattern}")
     return pattern, cfg.num_layers // len(pattern)
 
 
 # ------------------------------------------------------------------ params
+def _block_shapes(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
+    """Leaf shapes of one ``kind`` block (the reference's ``init_block``):
+    an ssm block holds ``norm1`` and ``mamba``; an attention block its
+    attention, two norms and ``moe`` (the MoE family) or ``mlp``."""
+    d = cfg.d_model
+    if kind == "ssm":
+        return {"norm1": (d,), "mamba": M.mamba2_shapes(cfg)}
+    ffn = ({"moe": MOE.moe_shapes(cfg)} if cfg.family == "moe"
+           else {"mlp": L.mlp_shapes(d, cfg.d_ff)})
+    return {"norm1": (d,), "attn": L.attention_shapes(cfg, kind),
+            "norm2": (d,), **ffn}
+
+
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """Nested dict of leaf shapes, the reference ``init_lm``'s tree
-    (``blocks/slot_i`` leaves with the leading group axis)."""
+    (``blocks/slot_i`` leaves with the leading group axis; one unstacked
+    ``shared`` block, a dense one, for ``shared_attn`` slots)."""
     pattern, n_groups = _block_kinds(cfg)
     d = cfg.d_model
     tree: Dict[str, Any] = {"embed": (cfg.vocab_size, d),
@@ -54,36 +84,55 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
                 else (n_groups,) + t)
 
     for i, kind in enumerate(pattern):
-        tree["blocks"][f"slot_{i}"] = stack({
-            "norm1": (d,), "attn": L.attention_shapes(cfg, kind),
-            "norm2": (d,), "mlp": L.mlp_shapes(d, cfg.d_ff)})
+        if kind == "shared_attn":
+            tree["shared"] = _block_shapes(cfg, "dense")
+        else:
+            tree["blocks"][f"slot_{i}"] = stack(_block_shapes(cfg, kind))
     return tree
+
+
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                lead) -> dict:
+    """One ``kind`` block's params, each leaf drawn whole with the
+    ``lead`` axes (never stacked from per-group copies)."""
+    d, dev = cfg.d_model, gen.device
+    p: Dict[str, Any] = {"norm1": torch.ones(lead + (d,), device=dev)}
+    if kind == "ssm":
+        p["mamba"] = M.init_mamba2(gen, cfg, lead)
+        return p
+    p["attn"] = L.init_attention(gen, cfg, kind, lead)
+    p["norm2"] = torch.ones(lead + (d,), device=dev)
+    if cfg.family == "moe":
+        p["moe"] = MOE.init_moe(gen, cfg, lead)
+    else:
+        p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, lead)
+    return p
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random fp32 params on ``gen.device``, with the reference's leaves
     and scales: embed ~ N(0, 0.02²), matrices ~ N(0, 1/fan_in), norm
-    scales 1.  The draws differ from ``jax.random``; tests share weights
-    through ``repro_torch.convert.from_jax``."""
+    scales 1 (Mamba-2's own leaves as ``mamba2.init_mamba2``).  The
+    draws differ from ``jax.random``; tests share weights through
+    ``repro_torch.convert.from_jax``."""
     pattern, n_groups = _block_kinds(cfg)
     d, dev = cfg.d_model, gen.device
     params: Dict[str, Any] = {
         "embed": torch.randn((cfg.vocab_size, d), generator=gen,
-                             device=dev) * 0.02,
+                             device=dev).mul_(0.02),
         "final_norm": torch.ones((d,), device=dev),
         "blocks": {},
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = torch.randn((d, cfg.vocab_size), generator=gen,
-                                        device=dev) * d ** -0.5
-    lead = (n_groups,)
+                                        device=dev).mul_(d ** -0.5)
     for i, kind in enumerate(pattern):
-        params["blocks"][f"slot_{i}"] = {
-            "norm1": torch.ones(lead + (d,), device=dev),
-            "attn": L.init_attention(gen, cfg, kind, lead),
-            "norm2": torch.ones(lead + (d,), device=dev),
-            "mlp": L.init_mlp(gen, d, cfg.d_ff, lead),
-        }
+        if kind == "shared_attn":
+            if "shared" not in params:
+                params["shared"] = _init_block(gen, cfg, "dense", ())
+        else:
+            params["blocks"][f"slot_{i}"] = _init_block(gen, cfg, kind,
+                                                        (n_groups,))
     return params
 
 
@@ -99,17 +148,28 @@ def _group(tree, gi: int):
 def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 positions=None, cache=None, backend="reference",
                 page_state=None, head_top_k=None):
-    """Pre-LN block.  Returns (x, cache); the reference's auxiliary loss
-    belongs to MoE blocks, which the port does not have yet.
-    ``head_top_k``: optional (H,) int32 per-head routing budgets for this
-    layer's MoBA attention (an adaptive routing profile)."""
+    """Pre-LN block.  Returns (x, aux, cache): ``aux`` is an MoE block's
+    load-balance loss (a 0-d fp32 tensor), None for any other block.
+    ``shared_attn`` runs dense attention.  ``head_top_k``: optional (H,)
+    int32 per-head routing budgets for this layer's MoBA attention (an
+    adaptive routing profile)."""
+    if kind == "ssm":
+        h, cache = M.apply_mamba2(p["mamba"], L.rms_norm(
+            x, p["norm1"], cfg.rms_norm_eps), cfg, cache)
+        return x + h, None, cache
+    attn_kind = "dense" if kind == "shared_attn" else kind
     h, cache = L.apply_attention(
-        p["attn"], L.rms_norm(x, p["norm1"], cfg.rms_norm_eps), cfg, kind,
-        positions=positions, cache=cache, backend=backend,
+        p["attn"], L.rms_norm(x, p["norm1"], cfg.rms_norm_eps), cfg,
+        attn_kind, positions=positions, cache=cache, backend=backend,
         page_state=page_state, head_top_k=head_top_k)
     x = x + h
-    h = L.apply_mlp(p["mlp"], L.rms_norm(x, p["norm2"], cfg.rms_norm_eps))
-    return x + h, cache
+    aux = None
+    y = L.rms_norm(x, p["norm2"], cfg.rms_norm_eps)
+    if "moe" in p:
+        h, aux = MOE.apply_moe(p["moe"], y, cfg)
+    else:
+        h = L.apply_mlp(p["mlp"], y)
+    return x + h, aux, cache
 
 
 def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -119,8 +179,8 @@ def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
              route_map: Optional[dict] = None):
     """tokens (B, S) -> (logits (B, S, V), aux, caches).  Caches are
     updated in place and returned (a dense cache's host-int ``len``
-    advanced by S); ``aux`` (the reference's MoE loss) is zero for the
-    dense family.
+    advanced by S); ``aux`` is the MoE blocks' load-balance loss summed
+    over layers (zero without MoE blocks).
 
     ``route_map``: optional ``{"slot_i": (n_groups, H) int32}`` per-head
     MoBA routing budgets from a routing profile; group ``g``'s layer of
@@ -139,26 +199,29 @@ def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
     lens = {}
 
-    def group_body(x, gi: int):
+    def group_body(x, aux, gi: int):
         for i, kind in enumerate(pattern):
             name = f"slot_{i}"
-            p_i = _group(params["blocks"][name], gi)
+            p_i = (params["shared"] if kind == "shared_attn"
+                   else _group(params["blocks"][name], gi))
             cache_i = None if caches is None else _group(caches[name], gi)
             rt = None if route_map is None else route_map.get(name)
-            x, c = apply_block(p_i, x, cfg, kind, positions=positions,
-                               cache=cache_i, backend=backend,
-                               page_state=page_state,
-                               head_top_k=None if rt is None else rt[gi])
+            x, a, c = apply_block(p_i, x, cfg, kind, positions=positions,
+                                  cache=cache_i, backend=backend,
+                                  page_state=page_state,
+                                  head_top_k=None if rt is None else rt[gi])
+            if a is not None:
+                aux = aux + a
             if c is not None and "len" in c:
                 lens[name] = c["len"]
-        return x
+        return x, aux
 
     for gi in range(n_groups):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(group_body, x, gi,
-                                                  use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(
+                group_body, x, aux, gi, use_reentrant=False)
         else:
-            x = group_body(x, gi)
+            x, aux = group_body(x, aux, gi)
     for name, n in lens.items():           # dense caches: every group
         caches[name]["len"] = n            # wrote the same positions
     x = L.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -190,14 +253,22 @@ def lm_loss(params, batch: dict, cfg: ModelConfig,
 # -------------------------------------------------------------------- cache
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device="cuda") -> dict:
-    """Stacked dense per-sequence caches ``{"slot_i": cache}``
-    (``layers.init_cache``), each tensor leaf with the leading layer-group
-    axis of the params; ``len`` is one host int per slot."""
+    """Stacked dense per-sequence caches ``{"slot_i": cache}``, each
+    tensor leaf with the leading layer-group axis of the params:
+    ``layers.init_cache`` for attention slots (``shared_attn`` as
+    dense), ``mamba2.init_mamba2_cache`` for ``ssm`` slots; ``len`` is one
+    host int per slot."""
     pattern, n_groups = _block_kinds(cfg)
-    return {f"slot_{i}": L.init_cache(cfg, kind, batch, max_len,
-                                      dtype=dtype, device=device,
-                                      groups=n_groups)
-            for i, kind in enumerate(pattern)}
+
+    def one(kind):
+        if kind == "ssm":
+            return M.init_mamba2_cache(cfg, batch, dtype=dtype,
+                                       device=device, groups=n_groups)
+        return L.init_cache(cfg, "dense" if kind == "shared_attn" else kind,
+                            batch, max_len, dtype=dtype, device=device,
+                            groups=n_groups)
+
+    return {f"slot_{i}": one(kind) for i, kind in enumerate(pattern)}
 
 
 def _cache_len(caches) -> int:
@@ -213,10 +284,16 @@ def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
     leading layer-group axis of the params.  ``max_seqs`` sizes the
     per-slot key-conv rings of MoBA slots of key-conv models (0 skips
     them); ``prefix_tails`` adds their per-page raw-key tails, which the
-    prefix cache loads rings from."""
+    prefix cache loads rings from.  Only attention slots are pageable
+    (``shared_attn`` included); an ``ssm`` slot raises."""
     from repro_torch.serving import paged_cache as PC
 
     pattern, n_groups = _block_kinds(cfg)
+    for kind in pattern:
+        if kind not in PAGED_KINDS:
+            raise ValueError(
+                f"paged caches support attention-only layer patterns; "
+                f"got {kind!r} in {pattern}")
     return {f"slot_{i}": PC.init_page_pool(
                 cfg, num_pages, page_size, with_centroids=(kind == "moba"),
                 dtype=dtype, device=device, kv_dtype=kv_dtype,

@@ -27,8 +27,9 @@ eagerly and write the pools in place.  Host arrays reach the card
 through pinned buffers with ``non_blocking`` copies, so uploading a
 step's tables does not wait for the steps already enqueued.
 
-Supported: attention-only dense-family layer patterns, key convolution
-(per-slot raw-key rings), whole-prompt and chunked prefill, preemption
+Supported: attention-only layer patterns (``shared_attn`` included) of
+the dense and MoE families, key convolution (per-slot raw-key rings),
+whole-prompt and chunked prefill, preemption
 by recompute and by host swap, dispatch-ahead, unquantized and int8/fp8
 pools, static or SNR-guided adaptive routing (``route_policy``: a
 per-(layer, head) top_k profile calibrated or loaded once at
@@ -62,8 +63,6 @@ from repro_torch.serving import paged_cache as PC
 from repro_torch.serving.scheduler import (Request, Scheduler, ServingError,
                                            UnsupportedFeatureError)
 
-_LATER = "not ported yet; ROADMAP.md lists it among the remaining engine " \
-         "features"
 
 
 def prefill_bucket(n: int, page_size: int) -> int:
@@ -302,14 +301,18 @@ def drain_cache_ops(caches, sched: Scheduler, swap_store, page_size: int):
 
 
 def unsupported_reason(cfg: ModelConfig) -> Optional[Tuple[str, str]]:
-    """(feature, reason) the paged engine cannot serve, or None."""
-    bad = [k for k in cfg.layer_pattern if k not in T.ATTN_KINDS]
+    """(feature, reason) the paged engine cannot serve, or None: the
+    reference's rule, recurrent and cross-attention slots and families
+    other than dense and MoE go to the fixed-batch loop."""
+    bad = [k for k in cfg.layer_pattern if k not in T.PAGED_KINDS]
     if bad:
         return ("layer_pattern",
-                f"slots {bad} are not ported yet (the port serves "
-                f"{T.ATTN_KINDS} layers)")
-    if cfg.family != "dense":
-        return ("family", f"family {cfg.family!r} is {_LATER}")
+                f"slots {bad} have no paging granularity; use the "
+                f"fixed-batch loop")
+    if cfg.family not in ("dense", "moe"):
+        return ("family",
+                f"family {cfg.family!r} is not engine-supported; use "
+                f"the fixed-batch loop")
     return None
 
 
