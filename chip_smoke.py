@@ -204,14 +204,39 @@ Phases, one JSON line each; any failure exits non-zero:
                memory, no MoBA kernel launched; in fp32 at 2 × 512, 8
                new, the recurrent decode's logits against one
                ``lm_apply`` over prompt and tokens within 2e-3, greedy
-               tokens equal).
+               tokens equal).  Then the encoder-decoder and vision
+               families through ``serve()``'s fallback to the fixed loop
+               on ``flash``, bf16 on fp32 seed-0 weights, the stub
+               inputs drawn by the entry point after its prompts:
+               ``serve_encdec`` (seamless-m4t-medium at full width and
+               depth, 12 + 12 layers, 0.978 B params; 8 × 2,048 decoder
+               tokens, 1,024 frames, 32 new) and ``serve_vlm``
+               (llama-3.2-vision-90b at full width, cut to 10 of 100
+               layers: 8 MoBA and 2 cross, 10.66 B params; 4 × 2,048
+               tokens, 1,601 image tokens, 16 new).  Each: prefill s,
+               decode step ms, tokens/s, peak memory; exact launches of
+               centroids, Flash TopK and ``moba_fwd`` in the prefill (one
+               each per MoBA layer of encoder and decoder) and in every
+               decode step (one each per encoder layer: the stub encoder
+               reruns in each, as in the reference; no decode kernel);
+               a profiled decode step (idle share; the encoder profiled
+               alone, and its share of the step's device time); the
+               served streams teacher-forced through the fixed loop
+               against ``lm_apply`` (the ``serve_fixed`` gate); in fp32
+               at 2 × 2,048, 8 new (llama-vision 5 layers deep), flash
+               against xla (xla replaying flash's selections, the
+               encoder's too) and the cached decode against one
+               ``lm_apply`` onto the same memory, logits within 2e-3 and
+               greedy tokens equal.
   5. train_kernels — the four FlashMoBA training kernels (centroids, Flash
                TopK, forward, backward) against their plain PyTorch
                versions at the moba-340m training shapes (B=1, H=Hkv=16,
                N=Nq=8192, d=64, block 128, top_k 8, q tile 128) in bf16
                and fp32, plus G=2/d=128, G=1/d=128 (``g1-d128``,
                qwen2-moe-a2.7b's MoBA at N 4096, its bf16 kernels timed
-               as the main ones), a ragged N=8000, a query suffix
+               as the main ones), G=8/d=128 (``g8-d128``: 64 query heads
+               on 8 KV heads, llama-3.2-vision's MoBA, at N 4096, bf16,
+               timed likewise), a ragged N=8000, a query suffix
                Nq=1000, the paper's small blocks (``small-blocks``: block
                32, top_k 32, bf16 and fp32) and original MoBA's blocks
                (``block-512``: block 512, top_k 2, bf16: the forward's
@@ -298,7 +323,17 @@ Phases, one JSON line each; any failure exits non-zero:
                ``flash`` with remat and on ``xla`` (losses within 2e-2;
                per step 4 centroids, Flash TopK and ``moba_fwd``, 2
                ``moba_bwd``), step ms, peak memory; then this phase's
-               fp32 check on that model.
+               fp32 check on that model.  Then ``train_encdec``:
+               seamless-m4t-medium at full width and depth, batch 2 ×
+               4,096 decoder tokens plus 1,024 frames, 3 steps on
+               ``flash`` with remat and on ``xla`` (losses within 2e-2;
+               per step 36 centroids, Flash TopK and ``moba_fwd`` — the
+               decoder's 12 forward and recomputed, the encoder's 12,
+               which is not rematted — and 24 ``moba_bwd``), step ms,
+               peak memory; then this phase's fp32 check on that model
+               (the encoder's leaves among the checked).
+               llama-3.2-vision-90b is not trained on the card: 5 layers
+               at full width already need about 102 GB with AdamW.
   8. swa     — a tensor-core audit of the ``swa`` library first (as in
                phase 5: every bf16 instantiation has ``HMMA`` in its SASS,
                none has a stack frame at d 64; d 128's registers and
@@ -329,9 +364,10 @@ kernel's launches on the other paths, ``serve_key_conv``,
 (each ``dispatch_ahead``) and ``serve_moe`` for the decode kernels,
 whose bf16 entry also holds ``with_budgets`` and its times at
 ``g1-d128``; ``serve_fixed``'s prefill, ``train_small_blocks``,
-``train_key_conv``, ``train_accum``'s two accumulating bf16 steps and
-``train_moe`` for the training kernels, each with its times at
-``g1-d128``), and as the last line
+``train_key_conv``, ``train_accum``'s two accumulating bf16 steps,
+``train_moe``, ``serve_encdec``, ``serve_vlm`` and ``train_encdec`` for
+the training kernels, each with its times at ``g1-d128`` and
+``g8-d128``), and as the last line
 ``{"ok": true, "device": {...}}``.
 
   python3 chip_smoke.py --ab DIR
@@ -360,6 +396,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1177,8 +1214,11 @@ def _signed_zero_checks(negative, q_shape, pool, table, kv, cfg) -> list:
 
 # ------------------------------------------------------------------ phase 3
 def _moba_layers(cfg) -> int:
-    return cfg.num_layers // len(cfg.layer_pattern) * \
-        cfg.layer_pattern.count("moba")
+    """MoBA self-attention layers of the decoder stack: ``moba`` slots,
+    and ``decoder`` slots of a MoBA model."""
+    from repro_torch.models import transformer as T
+    return cfg.num_layers // len(cfg.layer_pattern) * sum(
+        T._self_kind(cfg, k) == "moba" for k in cfg.layer_pattern)
 
 
 def _recording(eng, gaps: list, n_uniq: list):
@@ -2318,11 +2358,11 @@ def _timed_steps(times: list, counts: list):
         def build(*a, **kw):
             fn = builder(*a, **kw)
 
-            def call(*args):
+            def call(*args, **kw):
                 torch.cuda.synchronize()
                 c0, d0 = _counts(), MD.LAUNCHES
                 t0 = time.perf_counter()
-                out = fn(*args)
+                out = fn(*args, **kw)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
                 c1 = _counts()
@@ -2356,11 +2396,14 @@ def _decode_gate(what: str, calls: int, kernels: int, steps: int,
     return []
 
 
-def _replay_selection(recorded: list, audit: list, plain_selection):
+def _replay_selection(recorded: list, audit: list, plain_selection,
+                      compare=None, own: bool = False):
     """A stand-in for ``core/moba.py::moba_selection`` that returns the
-    next of Flash TopK's ``recorded`` selections (B·H, Nq_p, k), first
-    holding it to the plain routing of its own q and k by the near-tie
-    rule (``audit`` gets (rows differing, largest gap, ok))."""
+    next of ``recorded``'s selections (B·H, Nq_p, k), or with ``own`` the
+    plain routing of its own q and k, first holding the one to the other
+    by ``compare(masked scores, recorded, plain)`` (:func:`_near_ties` by
+    default), whose result ``audit`` gets."""
+    compare = compare or _near_ties
     from repro_torch.core import routing
     from repro_torch.kernels import ref
 
@@ -2375,38 +2418,24 @@ def _replay_selection(recorded: list, audit: list, plain_selection):
         masked = _masked_scores(q.reshape(b * h, nq, d),
                                 cents.reshape(b * hkv, -1, d)[kv], n,
                                 moba_cfg.block_size)
-        audit.append(_near_ties(masked, sel, mine.reshape(b * h, nq, -1)))
-        return sel.reshape(b, h, nq, -1)
+        audit.append(compare(masked, sel, mine.reshape(b * h, nq, -1)))
+        return mine if own else sel.reshape(b, h, nq, -1)
     return replay
 
 
-def _fixed_flash_vs_xla() -> dict:
-    """The fixed loop in fp32 (TF32 off) at full width, batch 2, a
-    2,048-token prompt, 8 new tokens: ``flash`` then ``xla`` from the
-    entry points' seed-0 weights and prompts.  The prefill's last logits
-    and each decode step's logits within 2e-3, greedy tokens equal.  The
-    xla run replays the flash run's selections, each held to its own
-    routing by the near-tie rule: Flash TopK's in the prefill, and the
-    dense-cache decode route's (the same plain function on both
-    backends, whose inputs differ in the last bits).  Then the paged
-    engine on ``flash``, built as ``serve()`` builds it, on the same
-    prompts: its streams equal the flash fixed loop's up to the first
-    teacher-forced top-2 gap <= :data:`GAP_TOL`."""
+def _flash_then_xla(run) -> dict:
+    """``run(backend)`` under ``flash``, recording each Flash TopK
+    selection and each dense-cache decode route it makes, then under
+    ``xla``, replaying them in the same order; each replayed selection is
+    held to the xla run's own routing of its q and k by the near-tie rule
+    (Flash TopK's and the plain decode route's inputs differ in the last
+    bits between the runs).  Returns each run's output, the audits
+    ((rows differing, largest gap, ok) per replay), what was recorded
+    (``rec_sel``, ``rec_route``) and its counts."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import moba as CM
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as T
-    from repro_torch.serving.engine import Engine, EngineConfig
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    c = FIXED_FP32_CASE
-    cfg = dataclasses.replace(get_config("moba-340m"), dtype="float32")
-    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
-    host_prompts = list(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (c["batch"], c["prompt_len"])).astype(np.int32))
-    prompts = torch.as_tensor(np.stack(host_prompts), device="cuda")
     flash_topk, plain_selection = ops.flash_topk, CM.moba_selection
     decode_route = CM.moba_decode_route
     rec_sel, rec_route, audit, route_audit = [], [], [], []
@@ -2434,43 +2463,90 @@ def _fixed_flash_vs_xla() -> dict:
             torch.where(own_valid, own_idx, nb).reshape(-1, 1, k)))
         return idx, valid
 
-    runs = {}
+    out = {}
     try:
-        for backend in ("flash", "xla"):
-            if backend == "flash":
-                ops.flash_topk, CM.moba_decode_route = (record_topk,
-                                                        record_route)
-            else:
-                ops.flash_topk = flash_topk
-                CM.moba_selection = _replay_selection(rec_sel, audit,
-                                                      plain_selection)
-                CM.moba_decode_route = replay_route
-            caches = T.init_caches(cfg, c["batch"],
-                                   c["prompt_len"] + c["gen"],
-                                   dtype=torch.float32, device="cuda")
-            with torch.no_grad():
-                lg, caches = T.prefill(params, prompts, cfg, caches,
-                                       backend=backend)
-                logits = [lg[:, -1]]
-                for _ in range(c["gen"] - 1):
-                    tok = logits[-1].argmax(-1)[:, None].to(torch.int32)
-                    lg, caches = T.decode_step(params, tok, cfg, caches,
-                                               backend=backend)
-                    logits.append(lg[:, -1])
-            runs[backend] = torch.stack(logits, 1)          # (B, gen, V)
-            del caches
+        ops.flash_topk, CM.moba_decode_route = record_topk, record_route
+        out["flash"] = run("flash")
+        ops.flash_topk = flash_topk
+        CM.moba_selection = _replay_selection(rec_sel, audit,
+                                              plain_selection)
+        CM.moba_decode_route = replay_route
+        out["xla"] = run("xla")
     finally:
         ops.flash_topk, CM.moba_selection = flash_topk, plain_selection
         CM.moba_decode_route = decode_route
     torch.cuda.synchronize()
+    out.update(audit=audit, route_audit=route_audit, rec_sel=rec_sel,
+               rec_route=rec_route, selections=len(rec_sel),
+               routes=len(rec_route))
+    return out
+
+
+def _routing_record(runs: dict) -> dict:
+    """What :func:`_flash_then_xla`'s audits found: every recorded
+    selection replayed, each differing only on a near-tie."""
+    audit, route_audit = runs["audit"], runs["route_audit"]
+    return {"prefill_routing_rows_differing_per_layer":
+            [r for r, _, _ in audit],
+            "decode_routing_rows_differing":
+                sum(r for r, _, _ in route_audit),
+            "routing_max_gap": max((g for _, g, _ in audit + route_audit),
+                                   default=0.0),
+            "routing_near_ties_ok": (
+                len(audit) == runs["selections"]
+                and len(route_audit) == runs["routes"]
+                and all(ok for _, _, ok in audit + route_audit))}
+
+
+def _fixed_flash_vs_xla() -> dict:
+    """The fixed loop in fp32 (TF32 off) at full width, batch 2, a
+    2,048-token prompt, 8 new tokens: ``flash`` then ``xla`` from the
+    entry points' seed-0 weights and prompts.  The prefill's last logits
+    and each decode step's logits within 2e-3, greedy tokens equal.  The
+    xla run replays the flash run's selections (:func:`_flash_then_xla`):
+    Flash TopK's in the prefill, and the dense-cache decode route's (the
+    same plain function on both backends, whose inputs differ in the last
+    bits).  Then the paged engine on ``flash``, built as ``serve()``
+    builds it, on the same prompts: its streams equal the flash fixed
+    loop's up to the first teacher-forced top-2 gap <= :data:`GAP_TOL`."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = FIXED_FP32_CASE
+    cfg = dataclasses.replace(get_config("moba-340m"), dtype="float32")
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    host_prompts = list(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (c["batch"], c["prompt_len"])).astype(np.int32))
+    prompts = torch.as_tensor(np.stack(host_prompts), device="cuda")
+
+    def run(backend):
+        caches = T.init_caches(cfg, c["batch"], c["prompt_len"] + c["gen"],
+                               dtype=torch.float32, device="cuda")
+        with torch.no_grad():
+            lg, caches = T.prefill(params, prompts, cfg, caches,
+                                   backend=backend)
+            logits = [lg[:, -1]]
+            for _ in range(c["gen"] - 1):
+                tok = logits[-1].argmax(-1)[:, None].to(torch.int32)
+                lg, caches = T.decode_step(params, tok, cfg, caches,
+                                           backend=backend)
+                logits.append(lg[:, -1])
+        return torch.stack(logits, 1)                        # (B, gen, V)
+
+    runs = _flash_then_xla(run)
     fl, xl = runs["flash"], runs["xla"]
     ml = _moba_layers(cfg)
     diffs = (fl - xl).abs().amax(dim=(0, 2)).tolist()
     close = bool(torch.allclose(fl, xl, atol=2e-3, rtol=2e-3))
     same = bool(torch.equal(fl.argmax(-1), xl.argmax(-1)))
-    routing_ok = (len(audit) == ml and all(ok for _, _, ok in audit)
-                  and len(route_audit) == ml * (c["gen"] - 1)
-                  and all(ok for _, _, ok in route_audit))
+    routing = _routing_record(runs)
+    routing_ok = (routing["routing_near_ties_ok"]
+                  and runs["selections"] == ml
+                  and runs["routes"] == ml * (c["gen"] - 1))
     finite = bool(torch.isfinite(fl).all())
     fixed_streams = fl.argmax(-1).tolist()
     del runs, fl, xl
@@ -2492,44 +2568,49 @@ def _fixed_flash_vs_xla() -> dict:
             "max_abs_diff_prefill": diffs[0],
             "max_abs_diff_decode_steps": diffs[1:],
             "allclose": close, "greedy_equal": same, "finite": finite,
-            "prefill_routing_rows_differing_per_layer":
-                [r for r, _, _ in audit],
-            "decode_routing_rows_differing":
-                sum(r for r, _, _ in route_audit),
-            "routing_max_gap": max((g for _, g, _ in audit + route_audit),
-                                   default=0.0),
-            "routing_near_ties_ok": routing_ok,
+            **routing, "routing_near_ties_ok": routing_ok,
             "streams_vs_engine": vs_engine,
             "ok": close and same and finite and routing_ok
             and vs_engine["ok"]}
 
 
-def _record_first_flash_moba():
-    """Patch ``kernels/ops.py`` so that the first FlashMoBA forward (layer
-    0 of a prefill) keeps copies of its inputs and of what its centroids
-    kernel, Flash TopK and the whole forward returned.  Returns (the dict
-    they go into, the undo)."""
+def _record_flash_moba(at=(0,)):
+    """Patch ``kernels/ops.py`` so that the FlashMoBA forwards numbered
+    ``at`` (0: the first, layer 0 of a prefill) keep copies of their
+    inputs and of what their centroids kernel, Flash TopK and the whole
+    forward returned (each forward calls each kernel once, so the n-th
+    calls belong together).  Returns (a dict of one such dict per number,
+    the undo)."""
     from repro_torch.kernels import ops
     fm, bc, ft = ops.flash_moba, ops.block_centroids_kernel, ops.flash_topk
-    kept = {}
+    kept, seen = {i: {} for i in at}, {"out": 0, "cents": 0, "sel": 0}
+
+    def mine(key):
+        i = seen[key]
+        seen[key] += 1
+        return kept.get(i)
 
     def moba(q, k, v, mcfg, **kw):
         out = fm(q, k, v, mcfg, **kw)
-        if "out" not in kept:
-            kept.update(q=q.clone(), k=k.clone(), v=v.clone(), cfg=mcfg,
-                        scale=kw.get("scale"), out=out.detach().clone())
+        rec = mine("out")
+        if rec is not None:
+            rec.update(q=q.detach().clone(), k=k.detach().clone(),
+                       v=v.detach().clone(), cfg=mcfg,
+                       scale=kw.get("scale"), out=out.detach().clone())
         return out
 
     def cents(*a, **kw):
         out = bc(*a, **kw)
-        if "cents" not in kept:
-            kept["cents"] = out.clone()
+        rec = mine("cents")
+        if rec is not None:
+            rec["cents"] = out.clone()
         return out
 
     def topk(*a, **kw):
         out = ft(*a, **kw)
-        if "sel" not in kept:
-            kept["sel"] = out.clone()
+        rec = mine("sel")
+        if rec is not None:
+            rec["sel"] = out.clone()
         return out
 
     ops.flash_moba, ops.block_centroids_kernel, ops.flash_topk = \
@@ -2541,9 +2622,9 @@ def _record_first_flash_moba():
     return kept, undo
 
 
-def _check_fixed_prefill_kernels(kept: dict) -> dict:
-    """The three kernels of the bf16 fixed loop's prefill, each on the
-    inputs it got in layer 0 (:func:`_record_first_flash_moba`): the
+def _check_forward_kernels(kept: dict) -> dict:
+    """The three kernels of one bf16 FlashMoBA forward of a model, each on
+    the inputs it got there (:func:`_record_flash_moba`): the
     centroids against ``ref.centroids_ref`` (both bf16, 1e-2 as phase 6);
     Flash TopK's selection against ``ref.flash_topk_ref`` on the same q
     and centroids by the near-tie rule; the forward's output against
@@ -2555,6 +2636,8 @@ def _check_fixed_prefill_kernels(kept: dict) -> dict:
     import torch
     from repro_torch.core import moba as CM
     from repro_torch.kernels import ops, ref
+    if set(kept) != {"q", "k", "v", "cfg", "scale", "out", "cents", "sel"}:
+        return {"kept": sorted(kept), "ok": False}
     q, k, v, mcfg = kept["q"], kept["k"], kept["v"], kept["cfg"]
     b, h, nq, d = q.shape
     hkv, n = k.shape[1], k.shape[2]
@@ -2607,7 +2690,16 @@ def _check_fixed_prefill_kernels(kept: dict) -> dict:
     return rec
 
 
-def _fixed_teacher_forced(cfg, params, prompts, streams) -> dict:
+def _memory(cfg, params, extras: dict, backend: str):
+    """The cross-attention memory of the stub inputs ``extras``, as a
+    step computes it (``launch/steps.py::_cross_kv``)."""
+    from repro_torch.launch import steps as S
+    return S._cross_kv(params, cfg, backend, extras.get("cross_kv"),
+                       extras.get("src_embeds"))
+
+
+def _fixed_teacher_forced(cfg, params, prompts, streams,
+                          extras=None) -> dict:
     """The engine's ``streams`` teacher-forced through the fixed loop's
     bf16 path: one dense-cache prefill and a plain decode step per token
     on ``flash``, as ``serve_fixed`` runs them.  Each position's logits
@@ -2620,10 +2712,13 @@ def _fixed_teacher_forced(cfg, params, prompts, streams) -> dict:
     block short (top_k - 1) must fail that median bound: the gate's
     power, measured in the same run.  Where the fixed loop's argmax is
     not the engine's token, the logit gap between the two is
-    reported."""
+    reported.  ``extras``: the stub inputs of the vision and
+    encoder-decoder families (:func:`_memory`), the same in every
+    step."""
     import torch
     from repro_torch.core import backends as B
     from repro_torch.models import transformer as T
+    extras = extras or {}
     b, p, gen = len(prompts), len(prompts[0]), len(streams[0])
     toks = torch.as_tensor(np.asarray(streams, np.int32), device="cuda")
     pt = torch.as_tensor(np.stack(prompts), device="cuda")
@@ -2633,11 +2728,14 @@ def _fixed_teacher_forced(cfg, params, prompts, streams) -> dict:
                                dtype=getattr(torch, cfg.dtype),
                                device="cuda")
         with torch.no_grad():
-            lg, caches = T.prefill(params, pt, cfg, caches, backend="flash")
+            mem = _memory(cfg, params, extras, "flash")
+            lg, caches = T.prefill(params, pt, cfg, caches, backend="flash",
+                                   cross_kv=mem)
             out = [lg[:, -1].float()]
             for j in range(gen - 1):
                 lg, caches = T.decode_step(params, toks[:, j:j + 1], cfg,
-                                           caches, backend="flash")
+                                           caches, backend="flash",
+                                           cross_kv=mem)
                 out.append(lg[:, -1].float())
         return torch.stack(out, 1)                           # (B, gen, V)
 
@@ -2654,7 +2752,9 @@ def _fixed_teacher_forced(cfg, params, prompts, streams) -> dict:
     one = {}
     for backend in ("flash", "reference"):
         with torch.no_grad():
-            lg, _, _ = T.lm_apply(params, seq, cfg, backend=backend)
+            lg, _, _ = T.lm_apply(params, seq, cfg, backend=backend,
+                                  cross_kv=_memory(cfg, params, extras,
+                                                   backend))
         one[backend] = lg[:, p - 1:].float()
         del lg
         gc.collect()
@@ -2698,7 +2798,7 @@ def phase_serve_fixed():
     must launch 12 each of centroids, Flash TopK and ``moba_fwd`` (and
     no backward or decode kernel), each decode step none; layer 0's
     three kernels are held against their plain versions on the inputs
-    the prefill gave them (:func:`_check_fixed_prefill_kernels`).  Then
+    the prefill gave them (:func:`_check_forward_kernels`).  Then
     ``serve()`` on the same prompts and weights (the paged engine), whose
     streams are teacher-forced through the fixed loop's bf16 prefill and
     decode steps and held against ``lm_apply``
@@ -2718,7 +2818,7 @@ def phase_serve_fixed():
     kw = dict(smoke=False, attn_backend="flash", device="cuda", **FIXED_CASE)
     times, counts, bad = [], [], []
     undo = _timed_steps(times, counts)
-    kept, unrecord = _record_first_flash_moba()
+    kept, unrecord = _record_flash_moba()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2753,7 +2853,7 @@ def phase_serve_fixed():
         and bool(((fixed >= 0) & (fixed < cfg.vocab_size)).all())
     if not ok_shape:
         bad.append(f"tokens of shape {fixed.shape} {fixed.dtype}")
-    rec["prefill_kernels"] = _check_fixed_prefill_kernels(kept)
+    rec["prefill_kernels"] = _check_forward_kernels(kept[0])
     del kept
     gc.collect()
     torch.cuda.empty_cache()
@@ -3044,6 +3144,26 @@ MOE_TRAIN_STEPS = 3
 SSM_ARCHS = ("mamba2-780m", "zamba2-1.2b")
 SSM_CASE = dict(batch=8, prompt_len=2048, gen=32)
 SSM_FP32_CASE = dict(batch=2, prompt_len=512, gen=8)
+ENCDEC_ARCH = "seamless-m4t-medium"   # 0.978 B params, 3.64 GiB in fp32
+VLM_ARCH = "llama-3.2-vision-90b"     # 87.7 B params at full depth
+VLM_LAYERS = 10                       # of 100: two pattern groups (8 MoBA,
+#                                       2 cross), 10.66 B params, 39.7 GiB
+# the bf16 serving cells (layers 0: full depth) and the fp32 gates' smaller
+# size (2 rows; llama-vision one pattern group deep)
+SERVE_CROSS = {ENCDEC_ARCH: dict(layers=0, batch=8, prompt_len=2048, gen=32),
+               VLM_ARCH: dict(layers=VLM_LAYERS, batch=4, prompt_len=2048,
+                              gen=16)}
+CROSS_FP32 = {ENCDEC_ARCH: dict(layers=0, batch=2, prompt_len=2048, gen=8),
+              VLM_ARCH: dict(layers=5, batch=2, prompt_len=2048, gen=8)}
+# a routing near-tie between two whole-model paths (a cached decode and a
+# one-shot lm_apply): their q and k differ by the rounding of every layer
+# before, not by one kernel's.  On an H100, llama-vision's (5 layers,
+# fp32) differ at gaps up to 2.46e-5, which the kernel rule (1e-5·max(1,
+# |s|)) fails; one wrong block fails this rule in every decoder layer
+# (_cross_fp32 reports both)
+CROSS_PATH_TIE_TOL = 1e-4
+ENCDEC_TRAIN = dict(arch=ENCDEC_ARCH, batch=2, seq=4096)
+ENCDEC_TRAIN_STEPS = 3
 
 
 def _router_records(records: list):
@@ -3267,6 +3387,465 @@ def phase_serve_ssm():
         raise SystemExit("; ".join(bad))
 
 
+@contextlib.contextmanager
+def _depth(arch: str, layers: int):
+    """``repro_torch.configs.get_config`` with ``arch`` cut to ``layers``
+    (0: as published), so the entry points build the cut model; yields
+    its config."""
+    from repro_torch import configs
+    get = configs.get_config
+
+    def cut(a, **kw):
+        cfg = get(a, **kw)
+        if a == arch and layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        return cfg
+
+    configs.get_config = cut
+    try:
+        yield cut(arch)
+    finally:
+        configs.get_config = get
+
+
+def _encoder_moba_layers(cfg) -> int:
+    from repro_torch.models import transformer as T
+    return (cfg.num_encoder_layers
+            if cfg.num_encoder_layers and T._encoder_kind(cfg) == "moba"
+            else 0)
+
+
+def _n_params(cfg) -> int:
+    from repro_torch.models import transformer as T
+
+    def count(t):
+        return (sum(count(v) for v in t.values()) if isinstance(t, dict)
+                else int(np.prod(t)))
+    return count(T.param_shapes(cfg))
+
+
+def _profile_fixed_decode(cfg, params, prompts, extras: dict,
+                          steps: int = 2) -> dict:
+    """A fixed-loop decode step under torch.profiler, as ``serve_fixed``
+    runs it (the step builders, bf16, ``flash``): a prefill and one warm
+    step, then ``steps`` profiled steps (:func:`_profile_summary`).  With
+    frame embeddings, also one ``apply_encoder`` profiled alone, and its
+    device busy time over a step's: the share of a decode step's device
+    time that goes to rerunning the encoder."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    b, p = prompts.shape
+    caches = T.init_caches(cfg, b, p + steps + 2,
+                           dtype=getattr(torch, cfg.dtype), device="cuda")
+    prefill = S.make_prefill_step(cfg, backend="flash")
+    decode = S.make_decode_step(cfg, backend="flash")
+    lg, caches = prefill(params, prompts, caches, **extras)
+    tok = lg[:, -1].argmax(-1)[:, None].to(torch.int32)
+    tok, caches = decode(params, tok, caches, **extras)
+    torch.cuda.synchronize()
+
+    def window(fn, n):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return _profile_summary(prof, wall, n)
+
+    state = {"tok": tok, "caches": caches}
+
+    def step():
+        state["tok"], state["caches"] = decode(params, state["tok"],
+                                               state["caches"], **extras)
+
+    rec = window(step, steps)
+    del state, caches
+    if "src_embeds" in extras:
+        with torch.no_grad():
+            enc = window(lambda: T.apply_encoder(
+                params, extras["src_embeds"], cfg, backend="flash"), 1)
+        rec["encoder_alone"] = {k: enc[k] for k in (
+            "step_ms", "device_busy_ms_per_step", "kernels_per_step",
+            "launch_calls_per_step")}
+        busy = rec["device_busy_ms_per_step"]
+        rec["encoder_share_of_device_time"] = (
+            enc["device_busy_ms_per_step"] / busy if busy else None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _cross_fp32(arch: str) -> dict:
+    """``arch`` in fp32 (TF32 off) at :data:`CROSS_FP32`'s smaller size,
+    seed-0 weights, prompts then stub inputs from ``default_rng(0)``: the
+    fixed loop's prefill and greedy decode on ``flash`` and on ``xla``,
+    xla replaying flash's selections (:func:`_flash_then_xla`; the
+    encoder's too), decode logits within 2e-3 and greedy tokens equal;
+    then the flash run's logits against one ``lm_apply`` on
+    ``reference`` over each prompt and the tokens fed back, the encoder
+    rerun over the frames: within 2e-3, greedy tokens equal.  The
+    one-shot run replays the flash run's selections (the encoder's and
+    the prefill's from Flash TopK, each decode position's from its
+    decode route), each held to the one-shot's own routing by the
+    near-tie rule at :data:`CROSS_PATH_TIE_TOL` and, reported beside it,
+    at the kernel rule's 1e-5; the rule's power is shown on each decoder
+    layer by one wrong block (:func:`_swap_one_block`), which it must
+    fail.  Then the one-shot on its own routing: its logits may leave
+    2e-3 of the flash run's only at and after the first position whose
+    routing differs (a flipped near-tie moves every later position)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import moba as CM
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+
+    c = dict(CROSS_FP32[arch])
+    layers = c.pop("layers")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    b, n, gen = c["batch"], c["prompt_len"], c["gen"]
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, n)),
+                              dtype=torch.int32, device="cuda")
+    extras = S.stub_frontend_inputs(cfg, rng, b, "cuda")
+
+    def run(backend):
+        caches = T.init_caches(cfg, b, n + gen, dtype=torch.float32,
+                               device="cuda")
+        with torch.no_grad():
+            mem = _memory(cfg, params, extras, backend)
+            lg, caches = T.prefill(params, prompts, cfg, caches,
+                                   backend=backend, cross_kv=mem)
+            logits = [lg[:, -1]]
+            for _ in range(gen - 1):
+                tok = logits[-1].argmax(-1)[:, None].to(torch.int32)
+                lg, caches = T.decode_step(params, tok, cfg, caches,
+                                           backend=backend, cross_kv=mem)
+                logits.append(lg[:, -1])
+        return torch.stack(logits, 1)                        # (B, gen, V)
+
+    runs = _flash_then_xla(run)
+    fl, xl = runs["flash"], runs["xla"]
+    toks = fl.argmax(-1).to(torch.int32)
+    routing = _routing_record(runs)
+    moba, enc = _moba_layers(cfg), _encoder_moba_layers(cfg)
+    routing["routing_near_ties_ok"] = (
+        routing["routing_near_ties_ok"]
+        and runs["selections"] == moba + enc
+        and runs["routes"] == moba * (gen - 1))
+    # the one-shot's selections: the encoder's as recorded; a decoder
+    # layer's prefill rows, then each decode step's route
+    sel, routes = runs.pop("rec_sel"), runs.pop("rec_route")
+    rows, k = b * cfg.num_heads, cfg.attention.moba.top_k
+    replayed = sel[:enc] + [torch.cat([sel[enc + li][:, :n], torch.stack(
+        [routes[st * moba + li][0].reshape(rows, k)
+         for st in range(gen - 1)], 1).to(sel[enc + li].dtype)], 1)
+        for li in range(moba)]
+    routes_valid = all(bool(v.all()) for _, v in routes)
+    del sel, routes
+    plain = CM.moba_selection
+    fed = torch.cat([prompts, toks[:, :-1]], 1)
+
+    def one_shot(audit, compare, own=False):
+        CM.moba_selection = _replay_selection(replayed, audit, plain,
+                                              compare, own)
+        try:
+            with torch.no_grad():
+                return T.lm_apply(params, fed, cfg, backend="reference",
+                                  cross_kv=_memory(cfg, params, extras,
+                                                   "reference")
+                                  )[0][:, n - 1:]
+        finally:
+            CM.moba_selection = plain
+
+    def judge(masked, got, mine):
+        rows_, gap, kernel_ok = _near_ties(masked, got, mine)
+        path_ok = _near_ties(masked, got, mine, tol=CROSS_PATH_TIE_TOL)[2]
+        wrong = _swap_one_block(masked, got)
+        return {"rows": rows_, "gap": gap, "kernel_rule_ok": kernel_ok,
+                "path_rule_ok": path_ok,
+                "wrong_block_passes": None if wrong is None else
+                _near_ties(masked, wrong, mine, tol=CROSS_PATH_TIE_TOL)[2]}
+
+    def differing(masked, got, mine):                        # (B, Nq)
+        d = (_canonical(masked, got) != _canonical(masked, mine)).any(-1)
+        return d.reshape(b, -1, d.shape[-1]).any(1)
+
+    audit, where = [], []
+    want = one_shot(audit, judge)
+    own = one_shot(where, differing, own=True)
+    # each batch row's first position whose routing differs in any layer
+    # (anywhere in the encoder: every position reads its output)
+    first = torch.full((b,), n + gen, device="cuda")
+    for li, d in enumerate(where):
+        pos = torch.where(d, torch.arange(d.shape[1], device="cuda"), n + gen)
+        first = torch.minimum(first, torch.where(
+            d.any(1), 0, n + gen) if li < enc else pos.amin(1))
+    off = ~torch.isclose(own, fl, atol=2e-3, rtol=2e-3).all(-1)  # (B, gen)
+    after = (torch.arange(gen, device="cuda")[None] + n - 1) >= first[:, None]
+    before = (~after)[..., None].expand_as(fl)
+    one_shot_ok = (routes_valid and len(audit) == enc + moba
+                   and all(a["path_rule_ok"] for a in audit)
+                   and all(a["wrong_block_passes"] is False
+                           for a in audit[enc:]))
+    rec = {"dtype": "float32", "layers": cfg.num_layers, **c,
+           "tol": 2e-3,
+           "flash_vs_xla_max_abs_diff": float((fl - xl).abs().max()),
+           "flash_vs_xla_allclose": bool(torch.allclose(
+               fl, xl, atol=2e-3, rtol=2e-3)),
+           "flash_vs_xla_greedy_equal": bool(torch.equal(
+               fl.argmax(-1), xl.argmax(-1))),
+           **routing,
+           "cached_vs_lm_apply_max_abs_diff": float((fl - want).abs().max()),
+           "cached_vs_lm_apply_allclose": bool(torch.allclose(
+               fl, want, atol=2e-3, rtol=2e-3)),
+           "cached_vs_lm_apply_greedy_equal": bool(torch.equal(
+               toks, want.argmax(-1).to(torch.int32))),
+           "one_shot_routing_rows_differing_per_layer":
+               [a["rows"] for a in audit],
+           "one_shot_routing_max_gap_per_layer": [a["gap"] for a in audit],
+           "one_shot_tie_tol": CROSS_PATH_TIE_TOL,
+           "one_shot_near_ties_at_kernel_rule_1e-5":
+               all(a["kernel_rule_ok"] for a in audit),
+           "one_shot_wrong_block_passes_per_decoder_layer":
+               [a["wrong_block_passes"] for a in audit[enc:]],
+           "one_shot_routing_near_ties_ok": one_shot_ok,
+           "own_routing_rows_differing_per_layer":
+               [int(d.sum()) for d in where],
+           "own_routing_first_differing_position":
+               [int(x) if x < n + gen else None for x in first.tolist()],
+           "own_routing_max_abs_diff": float((own - fl).abs().max()),
+           "own_routing_max_abs_diff_before_first_difference":
+               float(((own - fl).abs() * before).max()),
+           "own_routing_off_only_after_a_difference":
+               not bool((off & ~after).any()),
+           "finite": bool(torch.isfinite(fl).all())}
+    rec["ok"] = all(rec[key] for key in (
+        "flash_vs_xla_allclose", "flash_vs_xla_greedy_equal",
+        "routing_near_ties_ok", "cached_vs_lm_apply_allclose",
+        "cached_vs_lm_apply_greedy_equal", "one_shot_routing_near_ties_ok",
+        "own_routing_off_only_after_a_difference", "finite"))
+    del params, runs, fl, xl, want, own, replayed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve_cross(arch: str) -> dict:
+    """``arch`` (seamless-m4t-medium at full width and depth, or
+    llama-3.2-vision-90b at full width cut to :data:`VLM_LAYERS` layers)
+    in bf16 compute on fp32 seed-0 weights through ``serve()``, which
+    falls back to the fixed loop (the engine refuses ``decoder`` and
+    ``cross`` slots, as in JAX), on ``flash``, :data:`SERVE_CROSS`'s
+    traffic.  The stub inputs come from the entry point's own generator
+    (frames for the encoder, image tokens for the cross layers).  Each
+    step call timed between syncs with the kernels it launched
+    (:func:`_timed_steps`): the prefill must launch one centroids, Flash
+    TopK and ``moba_fwd`` per MoBA layer of the encoder and the decoder,
+    each decode step one each per encoder MoBA layer (the stub encoder
+    reruns in every step, as in the reference) and no decode kernel (the
+    dense-cache decode is the plain gather).  The three kernels of the
+    prefill's first MoBA layer of the encoder and of the decoder are held
+    to their plain versions on the inputs they got there
+    (:func:`_check_forward_kernels`).  Then a profiled decode
+    step (:func:`_profile_fixed_decode`), the bf16 gate on the served
+    streams teacher-forced through the fixed loop against ``lm_apply``
+    (:func:`_fixed_teacher_forced`), and the fp32 gates
+    (:func:`_cross_fp32`).  Returns the run's launches of the four
+    training kernels."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as TS
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import engine_supported
+
+    case = dict(SERVE_CROSS[arch])
+    layers = case.pop("layers")
+    b, p, g = case["batch"], case["prompt_len"], case["gen"]
+    full_layers = get_config(arch).num_layers
+    bad = []
+    with _depth(arch, layers) as cfg:
+        phase = "serve_encdec" if cfg.family == "encdec" else "serve_vlm"
+        enc, dec = _encoder_moba_layers(cfg), _moba_layers(cfg)
+        times, counts = [], []
+        undo = _timed_steps(times, counts)
+        # the prefill's first forward of the encoder (if any) and of the
+        # decoder: their kernels held to their plain versions below
+        first = {"decoder_layer_0": enc}
+        if enc:
+            first["encoder_layer_0"] = 0
+        kept, unrecord = _record_flash_moba(tuple(first.values()))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            toks = TS.serve(arch, smoke=False, attn_backend="flash",
+                            device="cuda", **case)
+        finally:
+            unrecord()
+            undo()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        gc.collect()
+        torch.cuda.empty_cache()
+        want_prefill = {"block_centroids": enc + dec, "flash_topk": enc + dec,
+                        "moba_fwd": enc + dec, "moba_bwd": 0,
+                        "moba_paged_decode": 0}
+        want_decode = {k: (enc if v else 0) for k, v in want_prefill.items()}
+        if counts[0] != want_prefill:
+            bad.append(f"prefill launched {counts[0]}, expected "
+                       f"{want_prefill}")
+        if any(c != want_decode for c in counts[1:]):
+            bad.append(f"decode steps launched {counts[1:]}, expected "
+                       f"{want_decode} each")
+        if engine_supported(cfg) or len(times) != g:
+            bad.append(f"took {len(times)} fixed-loop steps, expected {g}")
+        if toks.shape != (b, g) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            bad.append(f"tokens of shape {toks.shape}")
+        dec_s = sum(times[1:])
+        rec = {"phase": phase, "arch": cfg.name, "family": cfg.family,
+               "dtype": cfg.dtype, "backend": "flash", **case,
+               "layers": cfg.num_layers,
+               "encoder_layers": cfg.num_encoder_layers,
+               "params": _n_params(cfg),
+               "weights_gib_fp32": _n_params(cfg) * 4 / 2 ** 30,
+               "memory_tokens": cfg.num_audio_frames or cfg.num_image_tokens,
+               "engine_supported": engine_supported(cfg), "wall_s": wall,
+               "prefill_s": times[0], "prefill_tok_s": b * p / times[0],
+               "decode_steps": len(times) - 1,
+               "decode_step_ms": dec_s / (len(times) - 1) * 1e3,
+               "decode_step_ms_median": float(np.median(times[1:])) * 1e3,
+               "decode_tok_s": b * (len(times) - 1) / dec_s,
+               "peak_mem_gib": peak, "prefill_launches": counts[0],
+               "decode_step_launches": counts[1],
+               "expected_prefill": want_prefill,
+               "expected_decode_step": want_decode}
+        if layers:
+            rec["reduced"] = (f"depth cut to {layers} of {full_layers} "
+                              f"layers (full width): the full model does "
+                              f"not fit one card")
+        rec["prefill_kernels"] = {
+            name: _check_forward_kernels(kept[i]) for name, i in first.items()}
+        del kept
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, r in rec["prefill_kernels"].items():
+            if not r["ok"]:
+                bad.append(f"{name}'s prefill kernels disagree with their "
+                           f"plain versions: {r}")
+        params = T.init_lm(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+        rng = np.random.default_rng(0)      # as serve_fixed draws them
+        prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, p)),
+                                  dtype=torch.int32, device="cuda")
+        extras = S.stub_frontend_inputs(cfg, rng, b, "cuda")
+        rec["profile"] = _profile_fixed_decode(cfg, params, prompts, extras)
+        rec["teacher_forced_vs_lm_apply"] = _fixed_teacher_forced(
+            cfg, params, list(prompts.cpu().numpy()), toks.tolist(), extras)
+        if not rec["teacher_forced_vs_lm_apply"]["ok"]:
+            bad.append("bf16: the fixed loop's teacher-forced logits are "
+                       "not within tolerance of lm_apply's")
+        del params, extras
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["fp32"] = _cross_fp32(arch)
+    if not rec["fp32"]["ok"]:
+        bad.append(f"fp32: {rec['fp32']}")
+    rec["ok"], rec["failures"] = not bad, bad
+    emit(rec)
+    if bad:
+        raise SystemExit(f"{phase}: " + "; ".join(bad))
+    return {k: sum(c[k] for c in counts) for k in _counts()}
+
+
+def phase_train_encdec():
+    """seamless-m4t-medium at full width and depth (AdamW, about 15.6 GB
+    of weights, grads and moments), batch 2 × 4,096 decoder tokens plus
+    1,024 stub frames a row (``train()``'s ``default_rng(0)`` draw): 3
+    steps on ``flash`` with remat (counts zeroed just before, read just
+    after), then on ``xla`` from the same weights and batches (losses
+    within 2e-2); exact launches a step: the decoder's 12 MoBA layers
+    launch centroids, Flash TopK and ``moba_fwd`` twice (forward and
+    remat's recompute) and ``moba_bwd`` once, the encoder's 12 (not
+    rematted, as in the reference) once each; the forward kernels of
+    decoder layer 0 in step 1 held to their plain versions on its inputs
+    (:func:`_check_forward_kernels`).  Then the fp32 loss and
+    gradients, flash against xla, every leaf (the encoder's too) within
+    5e-3 of its max (:func:`phase_train_grads`).  Returns the flash run's
+    launches."""
+    import torch
+    from repro_torch.configs import get_config
+    enc = _encoder_moba_layers(get_config(ENCDEC_ARCH))
+    kept, unrecord = _record_flash_moba((enc,))   # decoder layer 0, step 1
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    try:
+        cfg, state, losses, step_s = _train_run("flash", ENCDEC_TRAIN_STEPS,
+                                                **ENCDEC_TRAIN)
+    finally:
+        unrecord()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    forward_kernels = _check_forward_kernels(kept[enc])
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, state, xla_losses, xla_s = _train_run("xla", ENCDEC_TRAIN_STEPS,
+                                             **ENCDEC_TRAIN)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    dec, enc = _moba_layers(cfg), _encoder_moba_layers(cfg)
+    want = {"block_centroids": 2 * dec + enc, "flash_topk": 2 * dec + enc,
+            "moba_fwd": 2 * dec + enc, "moba_bwd": dec + enc}
+    gap = max(abs(a - b) for a, b in zip(losses, xla_losses))
+    steady = float(np.median(step_s[1:]))
+    tokens = ENCDEC_TRAIN["batch"] * ENCDEC_TRAIN["seq"]
+    rec = {"phase": "train_encdec", "arch": cfg.name, "dtype": cfg.dtype,
+           "layers": cfg.num_layers,
+           "encoder_layers": cfg.num_encoder_layers,
+           "params": _n_params(cfg), "batch": ENCDEC_TRAIN["batch"],
+           "seq": ENCDEC_TRAIN["seq"], "frames": cfg.num_audio_frames,
+           "remat": True, "backend": "flash", "losses": losses,
+           "step_ms": [t * 1e3 for t in step_s],
+           "median_step_ms_steps_2_3": steady * 1e3,
+           "decoder_tokens_per_s": tokens / steady, "peak_mem_gib": peak,
+           "launches": launches, "expected_per_step": want,
+           "xla_losses": xla_losses, "xla_step_ms": [t * 1e3 for t in xla_s],
+           "flash_vs_xla_max_loss_gap": gap,
+           "flash_vs_xla_loss_tol": TRAIN_LOSS_TOL,
+           "decoder_layer_0_forward_kernels": forward_kernels}
+    emit(rec)
+    if not forward_kernels["ok"]:
+        raise SystemExit("train_encdec: decoder layer 0's forward kernels "
+                         "disagree with their plain versions")
+    if not all(np.isfinite(losses + xla_losses)):
+        raise SystemExit(f"train_encdec: a loss is not finite: {losses} / "
+                         f"{xla_losses}")
+    for k, per_step in want.items():
+        if launches[k] != per_step * ENCDEC_TRAIN_STEPS:
+            raise SystemExit(f"train_encdec: {k} launched {launches[k]} "
+                             f"times in {ENCDEC_TRAIN_STEPS} steps, "
+                             f"expected {per_step} per step")
+    if gap > TRAIN_LOSS_TOL:
+        raise SystemExit(f"train_encdec: flash and xla losses differ by "
+                         f"{gap} > {TRAIN_LOSS_TOL}: {losses} / "
+                         f"{xla_losses}")
+    phase_train_grads(arch=ENCDEC_ARCH, phase="train_encdec_grads")
+    return launches
+
+
 def phase_train_moe():
     """qwen2-moe-a2.7b at full width, 2 of its 24 layers (1.76 B params,
     AdamW), batch 1 × 4,096: 3 steps on ``flash`` with remat (counts
@@ -3398,16 +3977,49 @@ def _masked_scores(q_rows, cent_rows, n: int, bs: int):
                                               routing.NEG_INF)], dim=-1)
 
 
-def _near_ties(masked, sel, ref_sel):
-    """Rows where selection ``sel`` differs from the plain ``ref_sel``, and
-    the largest gap between the two rows' sorted selected scores.  A
-    difference is a near-tie when every gap is <= 1e-5·max(1, |s|)."""
-    got = masked.gather(-1, sel.long()).sort(-1, descending=True).values
-    want = masked.gather(-1, ref_sel.long()).sort(-1,
-                                                  descending=True).values
+def _canonical(masked, sel):
+    """Selection ``sel`` as a sorted set of block ids, each id that
+    ``masked`` scores -1e30 (a block in the query's future: padding,
+    whose id depends on the key count) taken as the sentinel column."""
+    import torch
+    from repro_torch.core import routing
+    x = sel.long()
+    x = torch.where(masked.gather(-1, x) <= routing.NEG_INF / 2,
+                    masked.shape[-1] - 1, x)
+    return x.sort(-1).values
+
+
+def _near_ties(masked, sel, ref_sel, tol: float = 1e-5):
+    """Rows where selection ``sel`` differs from the plain ``ref_sel`` as a
+    set (:func:`_canonical`), and the largest gap between the two rows'
+    sorted selected scores.  A difference is a near-tie when every gap is
+    <= tol·max(1, |s|)."""
+    a, b = _canonical(masked, sel), _canonical(masked, ref_sel)
+    got = masked.gather(-1, a).sort(-1, descending=True).values
+    want = masked.gather(-1, b).sort(-1, descending=True).values
     gap = (got - want).abs()
-    return (int((sel != ref_sel).any(-1).sum()), float(gap.max()),
-            bool((gap <= 1e-5 * want.abs().clamp(min=1.0)).all()))
+    return (int((a != b).any(-1).sum()), float(gap.max()),
+            bool((gap <= tol * want.abs().clamp(min=1.0)).all()))
+
+
+def _swap_one_block(masked, sel):
+    """``sel`` (rows, Nq, k) with one routing fault in the last query of
+    row 0: its best-scoring selected block other than its own swapped for
+    the worst-scoring unselected block of its past; None where that query
+    selects every past block."""
+    import torch
+    from repro_torch.core import routing
+    s, row = masked[0, -1], sel[0, -1].long()
+    picked = torch.zeros_like(s, dtype=torch.bool)
+    picked[row] = True
+    past = (s > routing.NEG_INF / 2) & (s < routing.POS_INF / 2)
+    if not bool((past & picked).any()) or not bool((past & ~picked).any()):
+        return None
+    best = int(torch.where(past & picked, s, -float("inf")).argmax())
+    worst = int(torch.where(past & ~picked, s, float("inf")).argmin())
+    out = sel.clone()
+    out[0, -1, int((row == best).nonzero()[0, 0])] = worst
+    return out
 
 
 def _topk_near_ties(c, s_k):
@@ -3758,6 +4370,8 @@ def phase_train_kernels():
               (torch.bfloat16, torch.float32)),
              ("g1-d128", dict(h=16, hkv=16, n=4096, nq=4096, d=128),
               (torch.bfloat16, torch.float32)),
+             ("g8-d128", dict(h=64, hkv=8, n=4096, nq=4096, d=128),
+              (torch.bfloat16,)),
              ("ragged-n", dict(h=16, hkv=16, n=8000, nq=8000, d=64),
               (torch.bfloat16,)),
              ("suffix-nq", dict(h=16, hkv=16, n=TRAIN_SEQ, nq=1000, d=64),
@@ -3790,6 +4404,8 @@ def phase_train_kernels():
                 timing["flash_moba"] = _time_flash_moba(c, flush)
             if name == "g1-d128" and dtype == torch.bfloat16:
                 g1 = _time_train_kernels(c, flush)
+            if name == "g8-d128":
+                g8 = _time_train_kernels(c, flush)
             if name == "small-blocks" and dtype == torch.bfloat16:
                 small_topk = _time_flash_topk(c, flush)
             if name.startswith("top_k-") and dtype == torch.bfloat16:
@@ -3820,6 +4436,7 @@ def phase_train_kernels():
     timing["flash_topk_small_blocks"] = small_topk
     timing["flash_topk_more"] = topk_more
     timing["g1-d128"] = g1
+    timing["g8-d128"] = g8
     emit({"phase": "train_kernels", "tensor_core_audit": audit,
           "checks": checks, "flash_vs_xla": vs_xla, "timing": timing})
     return timing, main_err
@@ -3841,14 +4458,16 @@ def _zero_counts():
 
 def _train_run(backend: str, steps: int = TRAIN_STEPS, *,
                arch: str = "moba-340m", layers: int = 0,
-               seq: int = TRAIN_SEQ, **moba):
+               seq: int = TRAIN_SEQ, batch: int = 1, **moba):
     """``arch`` (moba-340m) at full width and depth, or ``layers`` deep
-    (bf16, random weights from a seeded torch.Generator), batch 1, seq
-    ``seq`` (8192): ``steps`` steps of ``make_train_step`` with remat on
-    ``backend``, from the same weights and batches on every call;
-    ``moba`` (block_size, top_k, key_conv_width) overrides the config's
-    MoBA settings.  Returns the state for one more step, each step's loss
-    and seconds (each loss read waits for its step)."""
+    (bf16, random weights from a seeded torch.Generator), ``batch`` rows
+    (1) of seq ``seq`` (8192), with the stub inputs ``train()`` draws for
+    the vision and encoder-decoder families: ``steps`` steps of
+    ``make_train_step`` with remat on ``backend``, from the same weights
+    and batches on every call; ``moba`` (block_size, top_k,
+    key_conv_width) overrides the config's MoBA settings.  Returns the
+    state for one more step, each step's loss and seconds (each loss read
+    waits for its step)."""
     import torch
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -3859,14 +4478,16 @@ def _train_run(backend: str, steps: int = TRAIN_STEPS, *,
     cfg = get_config(arch, **moba)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
-    tcfg = TrainConfig(global_batch_size=1, seq_len=seq,
+    tcfg = TrainConfig(global_batch_size=batch, seq_len=seq,
                        total_steps=TRAIN_STEPS + 1, warmup_steps=1)
     params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
     opt = adamw.adamw_init(params)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                  seq_len=seq, global_batch=1, seed=0))
+                                  seq_len=seq, global_batch=batch, seed=0))
+    extras = S.stub_frontend_inputs(cfg, np.random.default_rng(0), batch,
+                                    "cuda")
     batches = [{"tokens": torch.as_tensor(data.batch_at(i)["tokens"],
-                                          device="cuda")}
+                                          device="cuda"), **extras}
                for i in range(TRAIN_STEPS + 1)]
     step_fn = S.make_train_step(cfg, tcfg, backend=backend, remat=True)
     torch.cuda.synchronize()
@@ -4318,6 +4939,7 @@ def phase_train_grads(block_size: int = 128, top_k: int = 8,
     from repro_torch.core import moba as CM
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
 
@@ -4330,7 +4952,9 @@ def phase_train_grads(block_size: int = 128, top_k: int = 8,
     params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
     tokens = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                     global_batch=1, seed=1)).batch_at(0)
-    batch = {"tokens": torch.as_tensor(tokens["tokens"], device="cuda")}
+    batch = {"tokens": torch.as_tensor(tokens["tokens"], device="cuda"),
+             **S.stub_frontend_inputs(cfg, np.random.default_rng(0), 1,
+                                      "cuda")}
     flash_topk, plain_selection = ops.flash_topk, CM.moba_selection
     recorded, audit = [], []
 
@@ -4359,8 +4983,8 @@ def phase_train_grads(block_size: int = 128, top_k: int = 8,
                                                  out["xla"][1])}
     worst = max(rels, key=rels.get)
     loss_rel = abs(out["flash"][0] - out["xla"][0]) / abs(out["xla"][0])
-    routing_ok = len(audit) == _moba_layers(cfg) and all(
-        ok for _, _, ok in audit)
+    routing_ok = len(audit) == _moba_layers(cfg) + _encoder_moba_layers(
+        cfg) and all(ok for _, _, ok in audit)
     ok = loss_rel <= 2e-4 and rels[worst] <= 5e-3 and routing_ok
     emit({"phase": phase, "arch": cfg.name, "dtype": "float32",
           "layers": cfg.num_layers,
@@ -4371,6 +4995,9 @@ def phase_train_grads(block_size: int = 128, top_k: int = 8,
           "worst_leaf": worst, "worst_leaf_rel_err": rels[worst],
           "key_conv_leaf_rel_err": {n: r for n, r in rels.items()
                                     if n.endswith("key_conv")},
+          "encoder_leaf_worst_rel_err": max(
+              (r for n, r in rels.items() if n.startswith("encoder/")),
+              default=None),
           "grad_tol": 5e-3, "leaves": len(rels),
           "routing_rows_differing_per_layer": [r for r, _, _ in audit],
           "routing_max_gap": max((g for _, g, _ in audit), default=0.0),
@@ -4765,6 +5392,9 @@ def main() -> int:
     timed("serve_http", phase_serve_http)
     decode_also["serve_moe"] = timed("serve_moe", phase_serve_moe)
     timed("serve_ssm", phase_serve_ssm)
+    cross = {"serve_encdec": timed("serve_encdec", phase_serve_cross,
+                                   ENCDEC_ARCH),
+             "serve_vlm": timed("serve_vlm", phase_serve_cross, VLM_ARCH)}
     train_timing, train_err = timed("train_kernels", phase_train_kernels)
     train_launches, train_rec = timed("train", phase_train)
     small_blocks = timed("train_small_blocks", phase_train_small_blocks)
@@ -4781,6 +5411,8 @@ def main() -> int:
     timed("train_key_conv", phase_train_grads,
           key_conv_width=KEY_CONV_WIDTH)
     train_also["train_moe"] = timed("train_moe", phase_train_moe)
+    train_also.update(cross)
+    train_also["train_encdec"] = timed("train_encdec", phase_train_encdec)
     swa_launches, swa_timing = timed("swa", phase_swa)
     emit({"phase_seconds": seconds,
           "total_s": time.perf_counter() - t_start})
@@ -4844,10 +5476,11 @@ def main() -> int:
                                           "bound_by", "shape")}
                     for g, r in train_timing["flash_topk_more"].items()}}
                if name == "flash_topk" else {}),
-            "also_at": {"g1-d128": {
-                k: train_timing["g1-d128"][name][k] for k in (
-                    "ms", "kernel_only_ms", "plain_ms", "bound_ms",
-                    "bound_by")}},
+            "also_at": {g: {
+                k: train_timing[g][name][k] for k in (
+                    "ms", "kernel_only_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by")}
+                for g in ("g1-d128", "g8-d128")},
             "checked": True})
     name, source, replaces = SWA_KERNEL
     t = swa_timing["moba-340m:bfloat16"]

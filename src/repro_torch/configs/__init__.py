@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` ids → config modules.
 
-The port runs the paper's own models (moba-340m, moba-1b) and the
-dense, MoE, SSM and hybrid architectures; the encoder-decoder and vision
-families of ``repro.configs`` join as their layer kinds are ported
-(ROADMAP.md).
+The port runs every architecture of ``repro.configs``: the paper's own
+models (moba-340m, moba-1b) and the dense, MoE, SSM, hybrid,
+encoder-decoder (seamless-m4t-medium) and vision (llama-3.2-vision-90b)
+families.
 """
 from __future__ import annotations
 
@@ -22,6 +22,8 @@ ARCHS = {
     "mamba2-780m": "mamba2_780m",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
     "zamba2-1.2b": "zamba2_1_2b",
     "moba-340m": "moba_340m",
     "moba-1b": "moba_1b",

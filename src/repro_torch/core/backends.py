@@ -110,6 +110,10 @@ class AttentionBackend:
         (``kv_len`` marks the valid prefix of a dense cache; MoBA callers
         pass only the valid prefix, see ``models/layers.py``)."""
         if kind == "moba":
+            # ``causal`` reaches dense attention only: MoBA's mask is
+            # ``MoBAConfig.causal``, as in the reference, so the
+            # encoder-decoder family's ``causal=False`` encoder still runs
+            # causal MoBA (ROADMAP.md §C)
             return self.moba_prefill(cfg, q, k, v, q_positions=q_positions)
         return dense_attention(q, k, v, causal=causal,
                                q_positions=q_positions, kv_len=kv_len,

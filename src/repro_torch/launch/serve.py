@@ -375,7 +375,14 @@ def serve_fixed(arch: str, batch: int = 4, prompt_len: int = 64,
     """Legacy synchronous loop: one dense-cache prefill + lockstep greedy
     decode.  The paged engine's token oracle, and the fallback for
     configs the engine does not cover.  Returns int32 tokens of shape
-    (batch, gen)."""
+    (batch, gen).
+
+    After the prompts, the same ``default_rng(seed)`` draws the stub
+    frontends' inputs, as the reference's does: N(0, 1) image embeddings
+    ``cross_kv`` (batch, num_image_tokens, d_model) for the ``vlm``
+    family, frame embeddings ``src_embeds`` (batch, num_audio_frames,
+    d_model) for ``encdec``, both in ``cfg.dtype`` and handed to every
+    step (the encoder reruns in each)."""
     from repro_torch.core import backends as B
     dev = resolve_device(device)
     attn_backend = B.resolve_backend_spec(attn_backend, default="reference")
@@ -384,20 +391,21 @@ def serve_fixed(arch: str, batch: int = 4, prompt_len: int = 64,
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                            (batch, prompt_len)),
                               dtype=torch.int32, device=dev)
+    extras = S.stub_frontend_inputs(cfg, rng, batch, dev)
     caches = T.init_caches(cfg, batch, prompt_len + gen,
                            dtype=getattr(torch, cfg.dtype), device=dev)
     prefill_fn = S.make_prefill_step(cfg, backend=attn_backend)
     decode_fn = S.make_decode_step(cfg, backend=attn_backend)
 
     t0 = time.perf_counter()
-    logits, caches = prefill_fn(params, prompts, caches)
+    logits, caches = prefill_fn(params, prompts, caches, **extras)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
     out = [tok.cpu()]                 # waits for the prefill
     t_prefill = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     for _ in range(gen - 1):
-        tok, caches = decode_fn(params, tok, caches)
+        tok, caches = decode_fn(params, tok, caches, **extras)
         out.append(tok)
     toks = torch.cat([t.cpu() for t in out], dim=1).numpy()
     t_decode = time.perf_counter() - t0

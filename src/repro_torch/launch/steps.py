@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 
@@ -22,18 +23,19 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     accum_in_loss: bool = False):
     """One optimizer step: ``train_step(params, opt_state, batch) ->
     (params, opt_state, {'loss', 'lr', 'grad_norm'})`` with ``batch``
-    {'tokens': (B, S+1)}.  Gradients come from torch autograd through
-    :func:`repro_torch.models.transformer.lm_loss` (``remat`` checkpoints
-    each layer group), then one :func:`repro_torch.optim.adamw.
-    adamw_update`.
+    {'tokens': (B, S+1)} and, for the vision and encoder-decoder
+    families, 'cross_kv' or 'src_embeds' (B, M, d_model).  Gradients
+    come from torch autograd through :func:`repro_torch.models.
+    transformer.lm_loss` (``remat`` checkpoints each layer group), then
+    one :func:`repro_torch.optim.adamw.adamw_update`.
 
     Gradient accumulation, as in the reference: ``tcfg.microbatch`` m > 1
-    splits the batch along dim 0 into m chunks of B/m rows (chunk i holds
-    rows [i·B/m, (i+1)·B/m), the reference's reshape) and runs one
-    backward a chunk, summing the fp32 gradients with weight 1/m.  With
-    ``accum_in_loss`` the loss is instead the 1/m-weighted sum over the
-    chunks, each chunk's loss under ``torch.utils.checkpoint`` (only its
-    inputs are kept; the backward recomputes it), and one
+    splits every entry of the batch along dim 0 into m chunks of B/m rows
+    (chunk i holds rows [i·B/m, (i+1)·B/m), the reference's reshape) and
+    runs one backward a chunk, summing the fp32 gradients with weight
+    1/m.  With ``accum_in_loss`` the loss is instead the 1/m-weighted sum
+    over the chunks, each chunk's loss under ``torch.utils.checkpoint``
+    (only its inputs are kept; the backward recomputes it), and one
     ``autograd.grad`` differentiates the whole; the reference expresses
     this as a scan over rematted chunks so the gradient reduction happens
     once a step.  Either way one chunk's activations are live at a time
@@ -85,14 +87,48 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     return train_step
 
 
+def stub_frontend_inputs(cfg: ModelConfig, rng: np.random.Generator,
+                         batch: int, device) -> Dict[str, torch.Tensor]:
+    """The stub frontends' inputs, drawn as the reference's entry points
+    draw them: N(0, 1) image embeddings ``cross_kv`` (batch,
+    num_image_tokens, d_model) for the ``vlm`` family, frame embeddings
+    ``src_embeds`` (batch, num_audio_frames, d_model) for ``encdec``, in
+    ``cfg.dtype``; nothing for the other families."""
+    dt = getattr(torch, cfg.dtype)
+    extras = {}
+    if cfg.family == "vlm":
+        extras["cross_kv"] = torch.as_tensor(rng.normal(
+            0, 1, (batch, cfg.num_image_tokens, cfg.d_model)), dtype=dt,
+            device=device)
+    if cfg.family == "encdec":
+        extras["src_embeds"] = torch.as_tensor(rng.normal(
+            0, 1, (batch, cfg.num_audio_frames, cfg.d_model)), dtype=dt,
+            device=device)
+    return extras
+
+
+def _cross_kv(params, cfg: ModelConfig, backend: str, cross_kv,
+              src_embeds):
+    """The cross-attention memory of a step: the encoder's output over
+    ``src_embeds`` for an encoder-decoder model given them, else
+    ``cross_kv`` (image embeddings, or None)."""
+    if cfg.num_encoder_layers and src_embeds is not None:
+        return T.apply_encoder(params, src_embeds, cfg, backend=backend)
+    return cross_kv
+
+
 def make_prefill_step(cfg: ModelConfig, backend: str = "sparse"):
-    """Dense-cache prefill: ``prefill_step(params, tokens (B, S), caches)
-    -> (logits of the last position (B, 1, V), caches)``."""
+    """Dense-cache prefill: ``prefill_step(params, tokens (B, S), caches,
+    cross_kv=None, src_embeds=None) -> (logits of the last position (B, 1,
+    V), caches)``.  An encoder-decoder model runs its encoder over
+    ``src_embeds`` first, and the decoder attends onto its output."""
 
     @torch.no_grad()
-    def prefill_step(params, tokens, caches):
+    def prefill_step(params, tokens, caches, cross_kv=None,
+                     src_embeds=None):
+        ck = _cross_kv(params, cfg, backend, cross_kv, src_embeds)
         logits, caches = T.prefill(params, tokens, cfg, caches,
-                                   backend=backend)
+                                   backend=backend, cross_kv=ck)
         return logits[:, -1:], caches
 
     return prefill_step
@@ -100,12 +136,16 @@ def make_prefill_step(cfg: ModelConfig, backend: str = "sparse"):
 
 def make_decode_step(cfg: ModelConfig, backend: str = "reference"):
     """Dense-cache greedy decode: ``decode_step(params, token (B, 1),
-    caches) -> (next token (B, 1) int32, caches)``."""
+    caches, cross_kv=None, src_embeds=None) -> (next token (B, 1) int32,
+    caches)``.  As in the reference, the stub encoder runs again over
+    ``src_embeds`` in every step (its output is not cached), and cross
+    attention projects its K/V from the memory in every step."""
 
     @torch.no_grad()
-    def decode_step(params, token, caches):
+    def decode_step(params, token, caches, cross_kv=None, src_embeds=None):
+        ck = _cross_kv(params, cfg, backend, cross_kv, src_embeds)
         logits, caches = T.decode_step(params, token, cfg, caches,
-                                       backend=backend)
+                                       backend=backend, cross_kv=ck)
         next_tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         return next_tok.to(torch.int32), caches
 

@@ -34,6 +34,7 @@ import sys
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import configs
@@ -130,6 +131,10 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 512,
     # apply process-wide to the named backend instance
     backend = B.resolve_backend_spec(attn_backend, default="sparse")
     step_fn = S.make_train_step(cfg, tcfg, backend=backend, remat=remat)
+    # the stub frontends' inputs, as the reference draws them: one
+    # default_rng(0) draw handed to every step
+    extras = S.stub_frontend_inputs(cfg, np.random.default_rng(0), batch,
+                                    dev)
 
     losses = []
     t0 = time.time()
@@ -141,7 +146,7 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 512,
     for step in range(start_step, end):
         tokens = torch.as_tensor(data.batch_at(step)["tokens"], device=dev)
         params, opt_state, metrics = step_fn(params, opt_state,
-                                             {"tokens": tokens})
+                                             {"tokens": tokens, **extras})
         loss = float(metrics["loss"])
         losses.append(loss)
         monitor.beat(step)

@@ -135,7 +135,7 @@ def _split_heads(x, n_heads, dh):
 
 def _uses_rope(cfg: ModelConfig, kind: str) -> bool:
     a = cfg.attention
-    if not a.use_rope:
+    if not a.use_rope or kind == "cross":
         return False
     if kind == "moba":
         return a.rope_on_moba
@@ -146,10 +146,20 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                     *, positions: Optional[torch.Tensor] = None,
                     cache: Optional[dict] = None,
                     backend: str = "reference",
+                    cross_kv: Optional[torch.Tensor] = None,
+                    causal: bool = True,
                     page_state: Optional[dict] = None,
                     head_top_k: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Self attention layer.  Returns (out, cache).
+    """Self (or cross) attention layer.  Returns (out, cache).
+
+    ``cross_kv`` (B, M, d_model): keys and values are projected from it
+    instead of ``x``, take no RoPE, and attend without a causal mask or a
+    cache.  The ``cross`` kind takes no RoPE on its queries either and
+    runs as dense attention; ``causal=False`` lifts the causal mask of
+    dense attention (a bidirectional encoder).  MoBA's mask is
+    ``MoBAConfig.causal``'s, whatever ``causal`` says
+    (``core/backends.py``).
 
     ``backend`` names a registered attention backend (``core.backends``).
     ``cache`` is None (cache-free), the dense per-sequence cache of
@@ -170,8 +180,9 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
 
     q = _split_heads(x @ wcast(p["wq"], dt), h, dh)
-    k = _split_heads(x @ wcast(p["wk"], dt), hkv, dh)
-    v = _split_heads(x @ wcast(p["wv"], dt), hkv, dh)
+    src = x if cross_kv is None else cross_kv
+    k = _split_heads(src @ wcast(p["wk"], dt), hkv, dh)
+    v = _split_heads(src @ wcast(p["wv"], dt), hkv, dh)
     if a.qk_norm and "q_norm_scale" in p:
         q = rms_norm(q, p["q_norm_scale"], cfg.rms_norm_eps)
         k = rms_norm(k, p["k_norm_scale"], cfg.rms_norm_eps)
@@ -180,10 +191,18 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         positions = torch.arange(n, device=x.device)
     if _uses_rope(cfg, kind):
         q = apply_rope(q, positions, a.rope_theta)
-        k = apply_rope(k, positions, a.rope_theta)
+        if cross_kv is None:
+            k = apply_rope(k, positions, a.rope_theta)
 
     conv_w = p.get("key_conv") if kind == "moba" else None
-    if cache is not None and "pages_k" in cache:
+    if cross_kv is not None or kind == "cross":
+        # cross attention: dense, no cache (K/V recomputed every step)
+        o = attention_dispatch(a, "dense" if kind == "cross" else kind,
+                               q, k, v, q_positions=positions,
+                               backend=backend,
+                               causal=causal and cross_kv is None)
+        cache = None
+    elif cache is not None and "pages_k" in cache:
         o, cache = _paged_attend(q, k, v, cache, page_state, cfg, kind,
                                  positions, backend, conv_w, head_top_k)
     elif cache is not None:
@@ -193,7 +212,7 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         if conv_w is not None:     # routing and attention see conv'd keys
             k = apply_key_conv(conv_w, k)
         o = attention_dispatch(a, kind, q, k, v, q_positions=positions,
-                               backend=backend)
+                               backend=backend, causal=causal)
     o = o.permute(0, 2, 1, 3).reshape(b, n, h * dh)
     return o @ wcast(p["wo"], dt), cache
 

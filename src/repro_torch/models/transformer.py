@@ -1,4 +1,5 @@
-"""Decoder-only LM over a repeating pattern of block kinds.
+"""Decoder-only LM, encoder-decoder and VLM backbones over a repeating
+pattern of block kinds.
 
 Layer layout is a repeating ``cfg.layer_pattern`` of slot kinds with
 ``num_layers == len(pattern) * n_groups``:
@@ -10,6 +11,12 @@ Layer layout is a repeating ``cfg.layer_pattern`` of slot kinds with
                        unstacked ``params["shared"]`` copy read in every
                        group, run as dense attention (the reference's
                        resolution, whatever ``attention.kind`` says)
+  cross                VLM cross-attention block: dense attention from
+                       the text onto ``cross_kv`` (image embeddings),
+                       no RoPE, no cache (+ MLP, never MoE)
+  decoder              encoder-decoder layer: self attention (MoBA when
+                       ``attention.kind`` is, else dense; no key conv),
+                       cross attention onto the encoder's output, MLP
 
 Params and caches keep the reference's stacked layout — ``blocks/slot_i``
 leaves carry a leading layer-group axis — so one set of weights feeds
@@ -17,11 +24,17 @@ both packages.  The reference scans over groups; here a Python loop
 indexes group ``g`` of every leaf (a view, so cache writes land in the
 stacked pools).
 
+The encoder-decoder family adds ``params["encoder"]``: blocks stacked
+over ``num_encoder_layers`` and a final norm, run by
+:func:`apply_encoder` over stub frame embeddings.  Its kind is ``moba``
+when the model's is and ``encoder_bidirectional_moba`` is set, else
+``dense``; it passes ``causal=False``, which lifts the dense mask but not
+MoBA's (ROADMAP.md §C).
+
 Caches are paged pools (the serving engine; attention slots only) or
 dense per-sequence caches (the fixed serving loop, :func:`init_caches`;
-Mamba-2 state for ``ssm`` slots).  The encoder-decoder and vision
-families (the ``decoder`` and ``cross`` kinds) come with a later slice
-(ROADMAP.md).
+Mamba-2 state for ``ssm`` slots, a ``decoder`` slot's self-attention
+cache under ``"self"``, none for ``cross`` slots).
 """
 from __future__ import annotations
 
@@ -37,8 +50,8 @@ from repro_torch.models import moe as MOE
 
 ATTN_KINDS = ("dense", "swa", "moba")
 PAGED_KINDS = ATTN_KINDS + ("shared_attn",)     # the pageable slots
-KINDS = PAGED_KINDS + ("ssm",)
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+KINDS = PAGED_KINDS + ("ssm", "cross", "decoder")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def _block_kinds(cfg: ModelConfig):
@@ -54,24 +67,46 @@ def _block_kinds(cfg: ModelConfig):
     return pattern, cfg.num_layers // len(pattern)
 
 
+def _encoder_kind(cfg: ModelConfig) -> str:
+    return ("moba" if cfg.attention.kind == "moba"
+            and cfg.encoder_bidirectional_moba else "dense")
+
+
+def _self_kind(cfg: ModelConfig, kind: str) -> str:
+    """The attention a slot's self attention runs: ``shared_attn`` dense;
+    ``decoder`` MoBA or dense as the model's ``attention.kind``."""
+    if kind == "shared_attn":
+        return "dense"
+    if kind == "decoder":
+        return "moba" if cfg.attention.kind == "moba" else "dense"
+    return kind
+
+
 # ------------------------------------------------------------------ params
 def _block_shapes(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     """Leaf shapes of one ``kind`` block (the reference's ``init_block``):
     an ssm block holds ``norm1`` and ``mamba``; an attention block its
-    attention, two norms and ``moe`` (the MoE family) or ``mlp``."""
+    attention, two norms and ``moe`` (the MoE family, but never on a
+    ``cross`` block) or ``mlp``; a ``decoder`` block also ``cross``
+    attention and ``norm_cross``."""
     d = cfg.d_model
     if kind == "ssm":
         return {"norm1": (d,), "mamba": M.mamba2_shapes(cfg)}
-    ffn = ({"moe": MOE.moe_shapes(cfg)} if cfg.family == "moe"
+    ffn = ({"moe": MOE.moe_shapes(cfg)}
+           if cfg.family == "moe" and kind != "cross"
            else {"mlp": L.mlp_shapes(d, cfg.d_ff)})
+    cross = ({"cross": L.attention_shapes(cfg, "cross"), "norm_cross": (d,)}
+             if kind == "decoder" else {})
     return {"norm1": (d,), "attn": L.attention_shapes(cfg, kind),
-            "norm2": (d,), **ffn}
+            "norm2": (d,), **cross, **ffn}
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """Nested dict of leaf shapes, the reference ``init_lm``'s tree
     (``blocks/slot_i`` leaves with the leading group axis; one unstacked
-    ``shared`` block, a dense one, for ``shared_attn`` slots)."""
+    ``shared`` block, a dense one, for ``shared_attn`` slots; with
+    encoder layers, ``encoder`` holds ``blocks`` stacked over them and
+    ``final_norm``)."""
     pattern, n_groups = _block_kinds(cfg)
     d = cfg.d_model
     tree: Dict[str, Any] = {"embed": (cfg.vocab_size, d),
@@ -79,15 +114,21 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         tree["lm_head"] = (d, cfg.vocab_size)
 
-    def stack(t):
-        return ({k: stack(v) for k, v in t.items()} if isinstance(t, dict)
-                else (n_groups,) + t)
+    def stack(t, n):
+        return ({k: stack(v, n) for k, v in t.items()}
+                if isinstance(t, dict) else (n,) + t)
 
     for i, kind in enumerate(pattern):
         if kind == "shared_attn":
             tree["shared"] = _block_shapes(cfg, "dense")
         else:
-            tree["blocks"][f"slot_{i}"] = stack(_block_shapes(cfg, kind))
+            tree["blocks"][f"slot_{i}"] = stack(_block_shapes(cfg, kind),
+                                                n_groups)
+    if cfg.num_encoder_layers:
+        tree["encoder"] = {
+            "blocks": stack(_block_shapes(cfg, _encoder_kind(cfg)),
+                            cfg.num_encoder_layers),
+            "final_norm": (d,)}
     return tree
 
 
@@ -102,7 +143,10 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
         return p
     p["attn"] = L.init_attention(gen, cfg, kind, lead)
     p["norm2"] = torch.ones(lead + (d,), device=dev)
-    if cfg.family == "moe":
+    if kind == "decoder":
+        p["cross"] = L.init_attention(gen, cfg, "cross", lead)
+        p["norm_cross"] = torch.ones(lead + (d,), device=dev)
+    if cfg.family == "moe" and kind != "cross":
         p["moe"] = MOE.init_moe(gen, cfg, lead)
     else:
         p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, lead)
@@ -133,6 +177,11 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
         else:
             params["blocks"][f"slot_{i}"] = _init_block(gen, cfg, kind,
                                                         (n_groups,))
+    if cfg.num_encoder_layers:
+        params["encoder"] = {
+            "blocks": _init_block(gen, cfg, _encoder_kind(cfg),
+                                  (cfg.num_encoder_layers,)),
+            "final_norm": torch.ones((d,), device=dev)}
     return params
 
 
@@ -147,22 +196,41 @@ def _group(tree, gi: int):
 # ------------------------------------------------------------------ blocks
 def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 positions=None, cache=None, backend="reference",
-                page_state=None, head_top_k=None):
+                cross_kv=None, causal: bool = True, page_state=None,
+                head_top_k=None):
     """Pre-LN block.  Returns (x, aux, cache): ``aux`` is an MoE block's
     load-balance loss (a 0-d fp32 tensor), None for any other block.
-    ``shared_attn`` runs dense attention.  ``head_top_k``: optional (H,)
+    ``shared_attn`` runs dense attention.  A ``cross`` block attends onto
+    ``cross_kv`` and keeps no cache; a ``decoder`` block runs its self
+    attention on the ``"self"`` sub-cache, then cross attention onto
+    ``cross_kv`` after ``norm_cross``.  ``causal=False`` lifts dense
+    attention's causal mask (the encoder).  ``head_top_k``: optional (H,)
     int32 per-head routing budgets for this layer's MoBA attention (an
     adaptive routing profile)."""
     if kind == "ssm":
         h, cache = M.apply_mamba2(p["mamba"], L.rms_norm(
             x, p["norm1"], cfg.rms_norm_eps), cfg, cache)
         return x + h, None, cache
-    attn_kind = "dense" if kind == "shared_attn" else kind
-    h, cache = L.apply_attention(
-        p["attn"], L.rms_norm(x, p["norm1"], cfg.rms_norm_eps), cfg,
-        attn_kind, positions=positions, cache=cache, backend=backend,
-        page_state=page_state, head_top_k=head_top_k)
+    y = L.rms_norm(x, p["norm1"], cfg.rms_norm_eps)
+    if kind == "cross":
+        h, cache = L.apply_attention(p["attn"], y, cfg, "cross",
+                                     positions=positions, backend=backend,
+                                     cross_kv=cross_kv)
+    else:
+        self_cache = (cache["self"] if kind == "decoder"
+                      and cache is not None else cache)
+        h, cache = L.apply_attention(
+            p["attn"], y, cfg, _self_kind(cfg, kind), positions=positions,
+            cache=self_cache, backend=backend, causal=causal,
+            page_state=page_state, head_top_k=head_top_k)
     x = x + h
+    if kind == "decoder":
+        h, _ = L.apply_attention(
+            p["cross"], L.rms_norm(x, p["norm_cross"], cfg.rms_norm_eps),
+            cfg, "cross", positions=positions, backend=backend,
+            cross_kv=cross_kv)
+        x = x + h
+        cache = None if cache is None else {"self": cache}
     aux = None
     y = L.rms_norm(x, p["norm2"], cfg.rms_norm_eps)
     if "moe" in p:
@@ -172,15 +240,38 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     return x + h, aux, cache
 
 
+def apply_encoder(params, src_embeds: torch.Tensor, cfg: ModelConfig,
+                  backend: str = "reference") -> torch.Tensor:
+    """The encoder over stub frontend embeddings (B, T, d_model): cast to
+    ``cfg.dtype``, ``num_encoder_layers`` blocks with ``causal=False``
+    and no cache, then the encoder's final norm.  Its MoBA kind stays
+    causal (``MoBAConfig.causal``), as in the reference's code."""
+    kind = _encoder_kind(cfg)
+    x = src_embeds.to(getattr(torch, cfg.dtype))
+    for li in range(cfg.num_encoder_layers):
+        x, _, _ = apply_block(_group(params["encoder"]["blocks"], li), x,
+                              cfg, kind, causal=False, backend=backend)
+    return L.rms_norm(x, params["encoder"]["final_norm"], cfg.rms_norm_eps)
+
+
+def _self_cache(cache: dict) -> dict:
+    """The dict holding a slot cache's ``len``: a ``decoder`` slot's
+    ``"self"`` sub-cache, else the cache itself."""
+    return cache.get("self", cache)
+
+
 def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
              caches: Optional[dict] = None, backend: str = "reference",
+             cross_kv: Optional[torch.Tensor] = None,
              positions: Optional[torch.Tensor] = None,
              page_state: Optional[dict] = None, remat: bool = False,
              route_map: Optional[dict] = None):
     """tokens (B, S) -> (logits (B, S, V), aux, caches).  Caches are
     updated in place and returned (a dense cache's host-int ``len``
     advanced by S); ``aux`` is the MoE blocks' load-balance loss summed
-    over layers (zero without MoE blocks).
+    over layers (zero without MoE blocks).  ``cross_kv`` (B, M, d_model),
+    the image embeddings or the encoder's output, reaches the ``cross``
+    and ``decoder`` slots only.
 
     ``route_map``: optional ``{"slot_i": (n_groups, H) int32}`` per-head
     MoBA routing budgets from a routing profile; group ``g``'s layer of
@@ -204,16 +295,18 @@ def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             name = f"slot_{i}"
             p_i = (params["shared"] if kind == "shared_attn"
                    else _group(params["blocks"][name], gi))
-            cache_i = None if caches is None else _group(caches[name], gi)
+            cache_i = (None if caches is None or name not in caches
+                       else _group(caches[name], gi))
             rt = None if route_map is None else route_map.get(name)
-            x, a, c = apply_block(p_i, x, cfg, kind, positions=positions,
-                                  cache=cache_i, backend=backend,
-                                  page_state=page_state,
-                                  head_top_k=None if rt is None else rt[gi])
+            x, a, c = apply_block(
+                p_i, x, cfg, kind, positions=positions, cache=cache_i,
+                backend=backend, page_state=page_state,
+                head_top_k=None if rt is None else rt[gi],
+                cross_kv=cross_kv if kind in ("cross", "decoder") else None)
             if a is not None:
                 aux = aux + a
-            if c is not None and "len" in c:
-                lens[name] = c["len"]
+            if c is not None and "len" in _self_cache(c):
+                lens[name] = _self_cache(c)["len"]
         return x, aux
 
     for gi in range(n_groups):
@@ -223,7 +316,7 @@ def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         else:
             x, aux = group_body(x, aux, gi)
     for name, n in lens.items():           # dense caches: every group
-        caches[name]["len"] = n            # wrote the same positions
+        _self_cache(caches[name])["len"] = n   # wrote the same positions
     x = L.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"]).to(dt)
@@ -232,12 +325,18 @@ def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 def lm_loss(params, batch: dict, cfg: ModelConfig,
             backend: str = "reference", remat: bool = False):
-    """batch: {'tokens': (B, S+1) int, optional 'mask': (B, S)} → (mean
-    next-token CE + aux, {'ce', 'aux'})."""
+    """batch: {'tokens': (B, S+1) int, optional 'mask': (B, S),
+    'cross_kv': (B, M, d_model), 'src_embeds': (B, T, d_model)} → (mean
+    next-token CE + aux, {'ce', 'aux'}).  With encoder layers and
+    ``src_embeds``, the encoder's output replaces ``cross_kv``."""
     tokens = batch["tokens"]
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    cross_kv = batch.get("cross_kv")
+    if cfg.num_encoder_layers and "src_embeds" in batch:
+        cross_kv = apply_encoder(params, batch["src_embeds"], cfg,
+                                 backend=backend)
     logits, aux, _ = lm_apply(params, inp, cfg, backend=backend,
-                              remat=remat)
+                              cross_kv=cross_kv, remat=remat)
     # memory-frugal CE, as in the reference: logsumexp of the compute-dtype
     # logits plus the target gather; no fp32 (B, S, V) copy
     lse = torch.logsumexp(logits, dim=-1)                    # (B, S)
@@ -256,7 +355,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     """Stacked dense per-sequence caches ``{"slot_i": cache}``, each
     tensor leaf with the leading layer-group axis of the params:
     ``layers.init_cache`` for attention slots (``shared_attn`` as
-    dense), ``mamba2.init_mamba2_cache`` for ``ssm`` slots; ``len`` is one
+    dense; a ``decoder`` slot's as ``attention.kind``, under ``"self"``),
+    ``mamba2.init_mamba2_cache`` for ``ssm`` slots, nothing for ``cross``
+    slots (their K/V are recomputed from ``cross_kv``); ``len`` is one
     host int per slot."""
     pattern, n_groups = _block_kinds(cfg)
 
@@ -264,16 +365,17 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
         if kind == "ssm":
             return M.init_mamba2_cache(cfg, batch, dtype=dtype,
                                        device=device, groups=n_groups)
-        return L.init_cache(cfg, "dense" if kind == "shared_attn" else kind,
-                            batch, max_len, dtype=dtype, device=device,
-                            groups=n_groups)
+        c = L.init_cache(cfg, _self_kind(cfg, kind), batch, max_len,
+                         dtype=dtype, device=device, groups=n_groups)
+        return {"self": c} if kind == "decoder" else c
 
-    return {f"slot_{i}": one(kind) for i, kind in enumerate(pattern)}
+    return {f"slot_{i}": one(kind) for i, kind in enumerate(pattern)
+            if kind != "cross"}
 
 
 def _cache_len(caches) -> int:
     """A dense cache tree's length: every slot holds the same count."""
-    return next(iter(caches.values()))["len"]
+    return _self_cache(next(iter(caches.values())))["len"]
 
 
 def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -303,31 +405,34 @@ def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, caches,
-            backend="reference", page_state=None, positions=None,
-            route_map=None):
+            backend="reference", cross_kv=None, page_state=None,
+            positions=None, route_map=None):
     """Prefill into paged pools or dense caches.  ``positions`` defaults
     to [0, S) (fresh prompts; a dense cache starts empty, as in the
     reference); chunked paged prefill passes per-row (B, S) offsets
-    instead.  ``route_map`` as in :func:`lm_apply`."""
+    instead.  ``cross_kv`` and ``route_map`` as in :func:`lm_apply`."""
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     logits, _, caches = lm_apply(params, tokens, cfg, caches=caches,
-                                 backend=backend, page_state=page_state,
-                                 positions=positions, route_map=route_map)
+                                 backend=backend, cross_kv=cross_kv,
+                                 page_state=page_state, positions=positions,
+                                 route_map=route_map)
     return logits, caches
 
 
 def decode_step(params, token: torch.Tensor, cfg: ModelConfig, caches,
-                backend="reference", page_state=None, route_map=None):
+                backend="reference", cross_kv=None, page_state=None,
+                route_map=None):
     """token (B, 1) against caches.  With paged caches the per-sequence
     position is the scheduler's pre-step length; with dense caches it is
-    the shared cache length.  ``route_map`` as in :func:`lm_apply`.
-    Returns (logits (B,1,V), caches)."""
+    the shared cache length.  ``cross_kv`` and ``route_map`` as in
+    :func:`lm_apply`.  Returns (logits (B,1,V), caches)."""
     if page_state is not None:
         pos = page_state["kv_len"][:, None]                  # (B,1) ragged
     else:
         pos = torch.arange(1, device=token.device) + _cache_len(caches)
     logits, _, caches = lm_apply(params, token, cfg, caches=caches,
-                                 backend=backend, positions=pos,
-                                 page_state=page_state, route_map=route_map)
+                                 backend=backend, cross_kv=cross_kv,
+                                 positions=pos, page_state=page_state,
+                                 route_map=route_map)
     return logits, caches

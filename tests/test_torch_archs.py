@@ -3,7 +3,9 @@ the JAX package's: the configs themselves, the full-size parameter
 trees (read through ``jax.eval_shape``, so nothing is allocated), the
 smoke models' loss and gradients on ``flash`` (on CPU tensors its
 kernels' plain versions), and greedy ``flash`` engine tokens; and the
-port's copy of the NIAH data generator.
+port's copy of the NIAH data generator.  The encoder-decoder and vision
+configs join the registry and full-size cases; their models are checked
+in ``test_torch_encdec.py`` and ``test_torch_vlm.py``.
 """
 import dataclasses
 
@@ -25,8 +27,9 @@ from repro_torch.models import transformer as TT
 from repro_torch.optim import adamw
 from repro_torch.serving.engine import Engine, EngineConfig
 
-ARCHS = ("moba-1b", "qwen3-0.6b", "qwen3-14b", "internlm2-1.8b",
-         "codeqwen1.5-7b")
+DENSE_ARCHS = ("moba-1b", "qwen3-0.6b", "qwen3-14b", "internlm2-1.8b",
+               "codeqwen1.5-7b")
+ARCHS = DENSE_ARCHS + ("seamless-m4t-medium", "llama-3.2-vision-90b")
 # get_config variants: the paper's options and the dense baselines
 VARIANTS = {
     "moba-1b": [dict(), dict(key_conv_width=3), dict(dense_baseline=True),
@@ -61,7 +64,7 @@ def test_param_shapes_equal_jax_init_at_full_size(arch):
         assert got == want, kw
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=DENSE_ARCHS)
 def smoke(request):
     arch = request.param
     jcfg = JC.get_smoke_config(arch)

@@ -209,8 +209,8 @@ def test_unsupported_reason_equals_jax(arch):
     for get in ("get_smoke_config", "get_config"):
         want = JE.unsupported_reason(getattr(JC, get)(arch))
         assert TE.unsupported_reason(getattr(TC, get)(arch)) == want
-    assert TE.engine_supported(TC.get_config(arch)) == \
-        (arch not in ARCHS)
+    assert TE.engine_supported(TC.get_config(arch)) == (arch not in ARCHS + (
+        "seamless-m4t-medium", "llama-3.2-vision-90b"))
 
 
 def test_engine_and_paged_caches_refuse_ssm(smoke):
