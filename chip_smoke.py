@@ -184,7 +184,37 @@ Phases, one JSON line each; any failure exits non-zero:
                POST 1,024..2,048-token prompts for 32 tokens each, one
                GETs ``/stats``: each stream equals its final record,
                ``ttft_ms`` present, decode steps counted, exit code 0 on
-               SIGINT).  Then the MoE, SSM and hybrid families:
+               SIGINT).  Then ``serve_sharded``: the sharded engine on
+               ``flash`` with 2 shards sharing cuda:0 (the logic and
+               launch counts of 2 shards; no transfer between cards, no
+               speed-up from more cards).  In fp32, 4 prompts of
+               1,024..2,047 tokens, 16 new, on 2 shards x 2 slots: the
+               streams equal the single-device engine's (4 slots); a
+               6,144-token prompt that no shard's 4,096-token sequences
+               can page goes through the context-parallel fallback (its
+               MoBA K/V and centroids one segment a shard, the ``sp``
+               backend): its stream equals the dense fixed loop's on
+               ``reference``, and each of its decode steps moves between
+               shards exactly ``moba_sp.cp_decode_bytes`` plus the
+               appended token (printed beside ``moba_sp.py``'s
+               (nb + tp·k·(d+2))-floats formula and the dense K/V it
+               does not move), partings allowed only at a teacher-forced
+               top-2 gap <= 1e-3; shard 1's first decode call, recorded,
+               passes phase 2's checks on its own tensors.  In bf16,
+               phase 3's 8 prompts with 32 new tokens on 2 shards x 4
+               slots and on the single-device engine with 8 slots:
+               decode tokens/s, step ms, prefill s, 12 decode calls and
+               36 kernels a shard step (24 a fleet step), a profiled
+               window (launch calls a step, idle share), peak memory,
+               ``shard_stats``, shard 1's first decode call checked
+               again; the pair once more in the other order, timed only
+               (the spread of the step-time ratio); the bf16 streams
+               equal a witness's, the single-device engine at 4 slots (a
+               shard's rows), up to a top-2 gap <= 1e-2; their partings
+               from the 8-slot engine's are reported (not gated: 4-row
+               and 8-row GEMMs round differently in bf16) beside the
+               witness's own.
+               Then the MoE, SSM and hybrid families:
                ``serve_moe`` (qwen2-moe-a2.7b at full width and depth,
                53.33 GiB of fp32 weights, bf16 compute, through
                ``Engine`` on ``flash`` from bf16 pools: phase 3's
@@ -361,7 +391,8 @@ small-block times and its times alone at top_k 16, 64 and 1024;
 kernel's launches on the other paths, ``serve_key_conv``,
 ``serve_qwen3``, ``serve_adaptive`` (its (b) run), ``serve_prefix``
 (each case with the cache on), ``serve_stream``, ``serve_openloop``
-(each ``dispatch_ahead``) and ``serve_moe`` for the decode kernels,
+(each ``dispatch_ahead``), ``serve_sharded`` (its bf16 run) and
+``serve_moe`` for the decode kernels,
 whose bf16 entry also holds ``with_budgets`` and its times at
 ``g1-d128``; ``serve_fixed``'s prefill, ``train_small_blocks``,
 ``train_key_conv``, ``train_accum``'s two accumulating bf16 steps,
@@ -3134,6 +3165,363 @@ def phase_serve_http():
         raise SystemExit("serve_http: " + "; ".join(bad))
 
 
+# ------------------------------------------------------- sharded serving
+SHARDS = 2                   # all on cuda:0: one card rehearses the fleet
+SHARDED_NOTE = ("2 shards on one card (cuda:0): the logic and launch "
+                "counts of 2 shards; no transfer between cards and no "
+                "speed-up from more cards is measured")
+SHARDED_GATE = dict(prompts=4, lens=(1024, 2048), new_tokens=16,
+                    slots=2, max_seq_len=4096)
+SHARDED_CP = dict(prompt_len=6144, new_tokens=16)   # > one shard's 4096
+SHARDED_TIMING = dict(prompts=8, new_tokens=32, slots=4, max_seq_len=4224)
+
+
+def _record_decode_call(eng, shard: int):
+    """Patch ``kernels/moba_decode.py::moba_paged_decode`` so that the
+    first call on shard ``shard``'s pools (told apart by their storage)
+    keeps copies of its inputs and its output.  Returns (the record, the
+    undo)."""
+    from repro_torch.kernels import moba_decode as MD
+    mine = {p["pages_k"].untyped_storage().data_ptr()
+            for p in eng.caches[shard].values()}
+    call, rec = MD.moba_paged_decode, {}
+
+    def kept(q, pages_k, pages_v, centroids, block_table, kv_len, cfg,
+             **kw):
+        out = call(q, pages_k, pages_v, centroids, block_table, kv_len, cfg,
+                   **kw)
+        if not rec and pages_k.untyped_storage().data_ptr() in mine:
+            pool = {"pages_k": pages_k.clone(), "pages_v": pages_v.clone(),
+                    "centroids": centroids.clone()}
+            for k in ("scales_k", "scales_v"):
+                if kw.get(k) is not None:
+                    pool[k] = kw[k].clone()
+            rec.update(q=q.clone(), pool=pool, table=block_table.clone(),
+                       kv=kv_len.clone(), cfg=cfg, out=out.clone(),
+                       scale=kw.get("scale"))
+        return out
+
+    MD.moba_paged_decode = kept
+
+    def undo():
+        MD.moba_paged_decode = call
+    return rec, undo
+
+
+def _check_decode_call(rec: dict) -> dict:
+    """The decode kernels on one recorded call's own tensors, as phase 2
+    checks them: a relaunch returns the recorded output bit for bit; the
+    route's selections against ``moba_paged_route`` (near-ties only);
+    its tables against ``decode_tables``; the attention against
+    ``moba_paged_attend`` on those selections (bf16 3e-2, fp32 1e-3)."""
+    import torch
+    from repro_torch.core.moba import moba_paged_attend, moba_paged_route
+    from repro_torch.kernels import moba_decode as MD
+    if not rec:
+        return {"ok": False, "recorded": False}
+    q, pool, table, kv, cfg = (rec[k] for k in ("q", "pool", "table", "kv",
+                                                "cfg"))
+    sc = _scales(pool)
+    ps = pool["pages_k"].shape[1]
+    out, rt = _decode_launch(q, pool, table, kv, cfg)
+    idx, sel_valid = moba_paged_route(q, pool["centroids"], table, kv, cfg,
+                                      page_size=ps)
+    rows, gap, ties_ok = _route_near_ties(q, pool["centroids"], table, kv,
+                                          ps, rt.sel, idx, sel_valid)
+    k_idx, k_valid = _kernel_selection(rt, q, pool["centroids"])
+    want = MD.decode_tables(q, pool["pages_k"], table, k_idx, k_valid)
+    tables_equal = all(bool(torch.equal(a, b)) for a, b in
+                       zip((rt.phys, rt.base, rt.n_uniq), want))
+    plain = moba_paged_attend(q, pool["pages_k"], pool["pages_v"], table, kv,
+                              k_idx, k_valid, **sc)
+    act = kv > 0
+    tol = 3e-2 if q.dtype == torch.bfloat16 else 1e-3
+    err = float((out[act].float() - plain[act].float()).abs().max())
+    res = {"dtype": str(q.dtype).replace("torch.", ""),
+           "shape": {"B": q.shape[0], "H": q.shape[1], "d": q.shape[-1],
+                     "pages": pool["pages_k"].shape[0],
+                     "table": table.shape[1], "page": ps,
+                     "top_k": cfg.top_k},
+           "active_rows": int(act.sum()),
+           "relaunch_equal": bool(torch.equal(out, rec["out"])),
+           "route_rows_differing": rows, "route_max_gap": gap,
+           "route_near_ties_ok": ties_ok, "tables_equal": tables_equal,
+           "max_abs_err": err, "tol": tol}
+    res["default_scale"] = rec["scale"] is None    # _decode_launch's
+    res["ok"] = (res["relaunch_equal"] and ties_ok and tables_equal
+                 and err <= tol and res["default_scale"])
+    return res
+
+
+def _sharded_gate() -> dict:
+    """fp32 (TF32 off): 4 prompts of 1,024..2,047 tokens, 16 new, on 2
+    shards x 2 slots against the single-device engine with 4 slots, and
+    one 6,144-token prompt that no shard's 4,096-token sequences can page,
+    through the context-parallel fallback, against the dense-cache fixed
+    loop on ``reference``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import moba_sp as SP
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.sharded import ShardedEngine
+    g = SHARDED_GATE
+    cfg = dataclasses.replace(get_config("moba-340m"), dtype="float32")
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n), dtype=np.int32)
+               for n in rng.integers(*g["lens"], g["prompts"])]
+    long_prompt = rng.integers(0, cfg.vocab_size, SHARDED_CP["prompt_len"],
+                               dtype=np.int32)
+    ecfg = EngineConfig(max_seqs=g["slots"], max_prefill_batch=2,
+                        max_seq_len=g["max_seq_len"], attn_backend="flash")
+    sh = ShardedEngine(cfg, params, ecfg, devices=["cuda:0"] * SHARDS)
+    rec, undo = _record_decode_call(sh, 1)
+    try:
+        reqs = [sh.submit(p, g["new_tokens"]) for p in prompts]
+        cp = sh.submit(long_prompt, SHARDED_CP["new_tokens"])
+        sh.run()
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    got = [list(r.out) for r in reqs]
+    one = Engine(cfg, params, dataclasses.replace(
+        ecfg, max_seqs=g["slots"] * SHARDS), device="cuda")
+    base = [one.submit(p, g["new_tokens"]) for p in prompts]
+    one.run()
+    want = [list(r.out) for r in base]
+    del one, base
+    # the oracle: the dense-cache fixed loop on ``reference``
+    n_cp = SHARDED_CP["prompt_len"] + SHARDED_CP["new_tokens"]
+    caches = T.init_caches(cfg, 1, n_cp, dtype=torch.float32, device="cuda")
+    logits, caches = S.make_prefill_step(cfg, backend="reference")(
+        params, torch.as_tensor(long_prompt[None], device="cuda"), caches)
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    oracle = [int(tok)]
+    decode = S.make_decode_step(cfg, backend="reference")
+    while len(oracle) < SHARDED_CP["new_tokens"]:
+        tok, caches = decode(params, tok, caches)
+        oracle.append(int(tok))
+    del caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpr = sh.cp_record
+    steps = max(cpr["decode_steps"], 1)
+    per_step = {k: n / steps for k, n in cpr["decode_bytes"].items()}
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    m = cfg.attention.moba
+    layers = _moba_layers(cfg)
+    formula = {k: n * layers for k, n in SP.cp_decode_bytes(
+        1, h, d, m.top_k, SHARDS, 4).items()}
+    # the token appended at position p >= n_local goes to shard 1
+    formula["append"] = 2 * hkv * d * 4 * layers
+    max_len = cp.cache_len              # the last step's kv_len
+    n_local = -(-(n_cp) // (SHARDS * m.block_size)) * m.block_size
+    nb = -(-(n_local * SHARDS) // m.block_size)
+    out = {"shards": SHARDS, "note": SHARDED_NOTE, "dtype": "float32",
+           "prompt_lens": [len(p) for p in prompts],
+           "new_tokens": g["new_tokens"], "slots_per_shard": g["slots"],
+           "paged_vs_single": _parted(cfg, params, prompts, want, got,
+                                      tol=GAP_TOL),
+           "shard_of_request": [r.shard for r in reqs],
+           "shard_stats": sh.shard_stats,
+           "cp": {"shard": cp.shard, "prompt_len": len(long_prompt),
+                  "cp_requests": sh.stats["cp_requests"],
+                  "cp_tokens": sh.stats["cp_tokens"],
+                  "segment_tokens": n_local,
+                  "prefill_s": cpr["prefill_s"],
+                  "decode_step_ms": cpr["decode_s"] / steps * 1e3,
+                  "decode_steps": cpr["decode_steps"],
+                  "prefill_bytes": dict(cpr["prefill_bytes"]),
+                  "decode_bytes_per_step": per_step,
+                  "decode_bytes_per_step_total": sum(per_step.values()),
+                  "formula_bytes_per_step": formula,
+                  "reference_formula_bytes_per_step":
+                      layers * h * (nb + SHARDS * m.top_k * (d + 2)) * 4,
+                  "dense_kv_bytes_per_step":
+                      layers * 2 * hkv * d * 4 * (max_len - n_local),
+                  "vs_oracle": _parted(cfg, params, [long_prompt], [oracle],
+                                       [list(cp.out)], tol=GAP_TOL)},
+           "decode_call": _check_decode_call(rec)}
+    out["cp"]["bytes_equal_formula"] = per_step == {
+        k: float(v) for k, v in formula.items()}
+    del sh, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_timed(cfg, params, make, prompts, rng,
+                   full: bool = True) -> dict:
+    """One bf16 run of ``prompts`` (32 new tokens) through the engine
+    ``make()`` builds: counts zeroed just before, read just after; with
+    ``full``, shard 1's first decode call recorded and checked, then a
+    profiled window (phase 3's) and the peak memory."""
+    import torch
+    from repro_torch.kernels import moba_decode as MD
+    eng = make()
+    sharded = hasattr(eng, "shard_stats")
+    rec, undo = ((_record_decode_call(eng, 1)) if sharded and full
+                 else ({}, lambda: None))
+    reqs = [eng.submit(p, SHARDED_TIMING["new_tokens"]) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    MD.LAUNCHES = MD.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        eng.run()
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    calls, kernels = MD.LAUNCHES, MD.KERNEL_LAUNCHES
+    st = dict(eng.stats)
+    out = {"wall_s": wall, "requests_done": sum(r.done for r in reqs),
+           "prefill_tokens": st["prefill_tokens"],
+           "prefill_s": st["prefill_s"],
+           "decode_tokens": st["decode_tokens"],
+           "decode_steps": st["decode_steps"],
+           "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+           "decode_step_ms": st["decode_s"] / st["decode_steps"] * 1e3,
+           "decode_calls": calls, "kernel_launches": kernels,
+           "decode_calls_per_step": calls / st["decode_steps"],
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "streams": [list(r.out) for r in reqs]}
+    if sharded:
+        out["shard_stats"] = [dict(s) for s in eng.shard_stats]
+    if full:
+        if sharded:
+            out["decode_call"] = _check_decode_call(rec)
+        out["profile"] = _profile_decode(eng, cfg, rng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_sharded():
+    """The sharded engine at moba-340m's full width and depth (24 layers,
+    d_model 1,024, 16 heads of 64, block 128, top_k 8; seed-0 weights) on
+    ``flash``, 2 shards sharing cuda:0.  Gate in fp32 (:func:`_sharded_gate`):
+    the paged streams equal the single-device engine's and the
+    context-parallel request's the fixed loop's (up to a teacher-forced
+    top-2 gap <= 1e-3); shard 1's first decode call's tensors pass phase
+    2's checks; a context-parallel decode step moves the formula's bytes.
+    Timing in bf16: phase 3's 8 prompts, 32 new tokens, on 2 shards x 4
+    slots and on the single-device engine with 8 slots, each with its
+    decode tokens/s, step ms, prefill s, decode calls a step (12 a shard
+    step), a profiled window (launch calls a step, idle share) and peak
+    memory; shard 1's first decode call again passes phase 2's checks;
+    the pair again in the other order (single, then sharded), timed only,
+    for the spread of the step-time ratio.  The bf16 streams equal those
+    of a witness, the single-device engine at 4 slots (a shard's decode
+    rows), up to a teacher-forced top-2 gap <= 1e-2; their partings from
+    the 8-slot engine's are reported with their gaps, not gated, beside
+    the witness's own partings from it.  Returns the sharded run's
+    decode calls and kernels."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.sharded import ShardedEngine
+    bad = []
+    gate = _sharded_gate()
+    if not gate["paged_vs_single"]["ok"]:
+        bad.append("a sharded stream parted from the single-device "
+                   "engine's off a near-tie")
+    cp = gate["cp"]
+    if cp["shard"] != -1 or cp["cp_requests"] != 1 \
+            or cp["cp_tokens"] != SHARDED_CP["new_tokens"]:
+        bad.append(f"the long request did not take the context-parallel "
+                   f"fallback: {cp['shard']}, {cp['cp_requests']}")
+    if not cp["vs_oracle"]["ok"]:
+        bad.append("the context-parallel stream parted from the fixed "
+                   "loop's off a near-tie")
+    if not cp["bytes_equal_formula"]:
+        bad.append("a context-parallel decode step moved other bytes than "
+                   "the formula's")
+    if not gate["decode_call"]["ok"]:
+        bad.append(f"shard 1's decode call disagrees with the plain "
+                   f"version: {gate['decode_call']}")
+    cfg = get_config("moba-340m")
+    layers = _moba_layers(cfg)
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n), dtype=np.int32)
+               for n in rng.integers(1024, 4096, SHARDED_TIMING["prompts"])]
+    t = SHARDED_TIMING
+    ecfg = EngineConfig(max_seqs=t["slots"], max_prefill_batch=2,
+                        max_seq_len=t["max_seq_len"], attn_backend="flash")
+    runs = {
+        "sharded": _sharded_timed(cfg, params, lambda: ShardedEngine(
+            cfg, params, ecfg, devices=["cuda:0"] * SHARDS), prompts, rng),
+        "single": _sharded_timed(cfg, params, lambda: Engine(
+            cfg, params, dataclasses.replace(
+                ecfg, max_seqs=t["slots"] * SHARDS), device="cuda"),
+            prompts, rng)}
+    sh, one = runs["sharded"], runs["single"]
+    again = {"single": _sharded_timed(cfg, params, lambda: Engine(
+        cfg, params, dataclasses.replace(ecfg, max_seqs=t["slots"] * SHARDS),
+        device="cuda"), prompts, rng, full=False)}
+    again["sharded"] = _sharded_timed(cfg, params, lambda: ShardedEngine(
+        cfg, params, ecfg, devices=["cuda:0"] * SHARDS), prompts, rng,
+        full=False)
+    # the witness: the single-device engine with a shard's 4 decode rows
+    witness = _sharded_timed(cfg, params, lambda: Engine(
+        cfg, params, ecfg, device="cuda"), prompts, rng, full=False)
+    shard_steps = sum(s["decode_steps"] for s in sh["shard_stats"])
+    sh["decode_calls_per_shard_step"] = sh["decode_calls"] / shard_steps
+    for name, r in runs.items():
+        if r["requests_done"] != t["prompts"] or any(
+                len(s) != t["new_tokens"] for s in r["streams"]):
+            bad.append(f"{name}: a request did not finish with its count")
+        steps = shard_steps if name == "sharded" else r["decode_steps"]
+        bad += _decode_gate(name, r["decode_calls"], r["kernel_launches"],
+                            steps, layers)
+    for name, r in (("single again", again["single"]),
+                    ("sharded again", again["sharded"]),
+                    ("witness", witness)):
+        if r["requests_done"] != t["prompts"]:
+            bad.append(f"{name}: a request did not finish")
+    if not sh["decode_call"]["ok"]:
+        bad.append(f"shard 1's bf16 decode call disagrees with the plain "
+                   f"version: {sh['decode_call']}")
+    # against the 8-slot engine reported, not gated: a shard's GEMMs take
+    # 4 rows where its take 8, and bf16 rounds the two differently; the
+    # witness parts from it the same way, and the fleet is gated on the
+    # witness, the single-device engine with a shard's 4 rows
+    vs = _parted(cfg, params, prompts, one["streams"], sh["streams"])
+    w_vs = _parted(cfg, params, prompts, one["streams"], witness["streams"])
+    sh_vs_w = _parted(cfg, params, prompts, witness["streams"],
+                      sh["streams"])
+    if not sh_vs_w["ok"]:
+        bad.append(f"a bf16 sharded stream parted from the 4-slot "
+                   f"single-device engine's off a near-tie: {sh_vs_w}")
+    for r in (*runs.values(), *again.values(), witness):
+        del r["streams"]
+    rec = {"phase": "serve_sharded", "arch": cfg.name, "note": SHARDED_NOTE,
+           "gate_fp32": gate, "timing_bf16": runs,
+           "bf16_streams_vs_single": vs,
+           "bf16_witness_4_vs_8_slots": w_vs,
+           "bf16_sharded_vs_witness": sh_vs_w,
+           "timing_bf16_again": again, "witness_4_slots": witness,
+           "step_ms_ratio": sh["decode_step_ms"] / one["decode_step_ms"],
+           "step_ms_ratio_again": (again["sharded"]["decode_step_ms"]
+                                   / again["single"]["decode_step_ms"]),
+           "launch_calls_ratio": (
+               sh["profile"]["launch_calls_per_step"]
+               / one["profile"]["launch_calls_per_step"])}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["ok"], rec["failures"] = not bad, bad
+    emit(rec)
+    if bad:
+        raise SystemExit("serve_sharded: " + "; ".join(bad))
+    return sh["decode_calls"], sh["kernel_launches"]
+
+
 # ----------------------------------------- the MoE, SSM and hybrid families
 MOE_ARCH = "qwen2-moe-a2.7b"         # 14,315,587,584 fp32 params, 53.33 GiB
 MOE_NEW_TOKENS = 32
@@ -5390,6 +5778,8 @@ def main() -> int:
     decode_also["serve_stream"] = timed("serve_stream", phase_serve_stream)
     decode_also.update(timed("serve_openloop", phase_serve_openloop))
     timed("serve_http", phase_serve_http)
+    decode_also["serve_sharded"] = timed("serve_sharded",
+                                         phase_serve_sharded)
     decode_also["serve_moe"] = timed("serve_moe", phase_serve_moe)
     timed("serve_ssm", phase_serve_ssm)
     cross = {"serve_encdec": timed("serve_encdec", phase_serve_cross,

@@ -14,6 +14,11 @@ Registered backends of the port:
                 attention (``kernels/ops.py::flash_moba``, four CUDA
                 kernels) and the CUDA paged-decode kernel
                 (``kernels/moba_decode.py``) (alias: ``kernel``)
+  sp            sequence-parallel prefill and context-parallel decode
+                over the shards of the active ``distributed/moba_sp.py``
+                group (dense caches only) (alias: ``sp_unrolled``)
+  sharded       the sharded engine's backend: per-shard paged math
+                delegated to a shard-free ``inner`` backend (``xla``)
 
 Dense and sliding-window kinds share one implementation across backends
 (base-class methods); MoBA is where backends differ.  Paged *prefill* is
@@ -68,24 +73,31 @@ class Capabilities:
     dequantize with.  Default is fp32-only, so an unvalidated backend
     fails at admission, not with wrong attention output.
 
+    ``sharded`` declares that the backend's per-shard math needs nothing
+    from the other shards, so the sharded engine may run it once per
+    shard (``serving/sharded.py``).  The ``sp`` backends move data
+    between shards themselves and are refused there.
+
     ``adaptive_topk`` declares that the backend's paged MoBA paths honor
     per-(layer, head) ``head_top_k`` budgets (SNR-guided adaptive
-    routing, ``core/adaptive.py``).  Every backend of the port does; the
-    reference's context-parallel ``sp`` backends do not."""
+    routing, ``core/adaptive.py``).  The context-parallel ``sp``
+    backends' distributed selection has no per-head budgets."""
 
     kinds: Tuple[str, ...] = KINDS
     phases: Tuple[str, ...] = PHASES
     caches: Tuple[str, ...] = CACHES
     key_conv: Tuple[str, ...] = CACHES
+    sharded: bool = True
     kv_dtypes: Tuple[str, ...] = ("fp32",)
     adaptive_topk: bool = True
 
     def supports(self, kind: str, phase: str, cache: str = "dense",
-                 key_conv: bool = False, kv_dtype: str = "fp32",
-                 adaptive: bool = False) -> bool:
+                 key_conv: bool = False, sharded: bool = False,
+                 kv_dtype: str = "fp32", adaptive: bool = False) -> bool:
         return (kind in self.kinds and phase in self.phases
                 and cache in self.caches
                 and (not key_conv or cache in self.key_conv)
+                and (not sharded or self.sharded)
                 and kv_dtype in self.kv_dtypes
                 and (not adaptive or self.adaptive_topk))
 
@@ -268,6 +280,62 @@ class FlashBackend(AttentionBackend):
             scales_v=cache.get("scales_v"), head_top_k=head_top_k)
 
 
+class SPBackend(AttentionBackend):
+    """Sequence-parallel prefill and context-parallel decode
+    (``distributed/moba_sp.py``) over the shards of the active group
+    (``moba_sp.use_group``; none active: the single-device plain paths).
+    Dense caches only, and never inside the sharded engine's per-shard
+    steps, since it moves data between shards itself: the sharded engine
+    runs it around the paged path as the fallback for requests longer
+    than one shard's pool.  ``sp_unrolled`` names the reference's
+    unrolled twin (a Python loop where ``sp`` scans); the port's tile
+    loop is one eager loop either way, so it is an alias."""
+
+    name = "sp"
+    aliases = ("sp_unrolled",)
+    capabilities = Capabilities(caches=("dense",), key_conv=("dense",),
+                                sharded=False, adaptive_topk=False)
+
+    def moba_prefill(self, cfg, q, k, v, *, q_positions=None):
+        from repro_torch.distributed.moba_sp import moba_attention_sp
+        return moba_attention_sp(q, k, v, cfg.moba, scale=cfg.scale,
+                                 q_positions=q_positions)
+
+    def moba_decode(self, cfg, q, k, v, kv_len, *, centroids=None):
+        from repro_torch.distributed.moba_sp import moba_decode_cp
+        return moba_decode_cp(q, k, v, kv_len, cfg.moba, scale=cfg.scale,
+                              centroids=centroids)
+
+
+class ShardedBackend(AttentionBackend):
+    """The backend the sharded engine resolves by default: per-shard
+    attention math delegated to a shard-free ``inner`` backend (default
+    ``xla``).  The sharding lives in the sharded engine (one engine a
+    shard, ``serving/sharded.py``), not in the math, which is why a
+    shard's tokens equal the single-device engine's.  On one device it is just
+    ``inner``."""
+
+    name = "sharded"
+    capabilities = Capabilities(kv_dtypes=KV_DTYPES)
+    inner = "xla"
+
+    def _inner(self) -> AttentionBackend:
+        return get(self.inner)
+
+    def moba_prefill(self, cfg, q, k, v, *, q_positions=None):
+        return self._inner().moba_prefill(cfg, q, k, v,
+                                          q_positions=q_positions)
+
+    def moba_decode(self, cfg, q, k, v, kv_len, *, centroids=None):
+        return self._inner().moba_decode(cfg, q, k, v, kv_len,
+                                         centroids=centroids)
+
+    def moba_paged_decode(self, cfg, q, cache, block_table, kv_len,
+                          head_top_k=None):
+        return self._inner().moba_paged_decode(cfg, q, cache, block_table,
+                                               kv_len, head_top_k=head_top_k)
+
+
 # ---------------------------------------------------------------- registry
 _REGISTRY: Dict[str, AttentionBackend] = {}
 _ALIASES: Dict[str, str] = {}
@@ -285,6 +353,11 @@ def register(backend: AttentionBackend) -> AttentionBackend:
     for key in (backend.name,) + backend.aliases:
         _ALIASES[key] = backend.name
     return backend
+
+
+def names() -> Tuple[str, ...]:
+    """Canonical backend names (aliases excluded), registration order."""
+    return tuple(_REGISTRY)
 
 
 def get(name: str) -> AttentionBackend:
@@ -349,26 +422,64 @@ def resolve_backend_spec(spec, *, default: str = "reference") -> str:
 
 
 def resolve(name: str, *, kind: str, phase: str, cache: str = "dense",
-            key_conv: bool = False, kv_dtype: str = "fp32",
-            adaptive: bool = False) -> AttentionBackend:
+            key_conv: bool = False, sharded: bool = False,
+            kv_dtype: str = "fp32", adaptive: bool = False
+            ) -> AttentionBackend:
     """Name + capability query: the single entry point call sites use.
     ``key_conv=True`` demands key-conv support under ``cache``;
+    ``sharded=True`` per-shard math that needs no other shard;
     ``kv_dtype`` of ``int8``/``fp8`` demands quantized-pool support
     (per-page scale dequantization in every paged path);
     ``adaptive=True`` demands per-head ``head_top_k`` routing support."""
     be = get(name)
-    if not be.capabilities.supports(kind, phase, cache, key_conv, kv_dtype,
-                                    adaptive):
+    query = (kind, phase, cache, key_conv, sharded, kv_dtype, adaptive)
+    if not be.capabilities.supports(*query):
         able = [b.name for b in _REGISTRY.values()
-                if b.capabilities.supports(kind, phase, cache, key_conv,
-                                           kv_dtype, adaptive)]
+                if b.capabilities.supports(*query)]
         raise BackendCapabilityError(
             f"backend {be.name!r} does not support kind={kind!r} "
             f"phase={phase!r} cache={cache!r} key_conv={key_conv} "
-            f"kv_dtype={kv_dtype!r} adaptive={adaptive}; backends that "
-            f"do: {able}")
+            f"sharded={sharded} kv_dtype={kv_dtype!r} adaptive={adaptive}; "
+            f"backends that do: {able}")
     return be
 
 
-for _be in (ReferenceBackend(), XLABackend(), FlashBackend()):
+for _be in (ReferenceBackend(), XLABackend(), FlashBackend(), SPBackend(),
+            ShardedBackend()):
     register(_be)
+
+
+def capability_matrix() -> str:
+    """Human-readable support table, one row a registered backend."""
+    lines = [f"{'backend':<14}{'aliases':<22}{'kinds':<18}"
+             f"{'phases':<18}{'caches':<14}{'key_conv':<14}"
+             f"{'sharded':<10}{'adaptive':<10}kv_dtypes"]
+    for be in _REGISTRY.values():
+        c = be.capabilities
+        lines.append(f"{be.name:<14}{','.join(be.aliases) or '-':<22}"
+                     f"{','.join(c.kinds):<18}{','.join(c.phases):<18}"
+                     f"{','.join(c.caches):<14}{','.join(c.key_conv):<14}"
+                     f"{'yes' if c.sharded else '-':<10}"
+                     f"{'yes' if c.adaptive_topk else '-':<10}"
+                     f"{','.join(c.kv_dtypes)}")
+    return "\n".join(lines)
+
+
+_DOCS_BEGIN = "<!-- capability-matrix:begin (generated) -->"
+_DOCS_END = "<!-- capability-matrix:end -->"
+
+
+def sync_docs(path: str) -> bool:
+    """Rewrite the generated capability-matrix block of the file at
+    ``path`` (between the begin and end markers) from the registry.
+    Returns True when the file changed."""
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    b, e = text.index(_DOCS_BEGIN), text.index(_DOCS_END)
+    new = (text[:b] + f"{_DOCS_BEGIN}\n```\n{capability_matrix()}\n```\n"
+           + text[e:])
+    if new == text:
+        return False
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(new)
+    return True

@@ -32,6 +32,12 @@ shapes, and the fixed-batch loop over dense per-sequence caches.
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --mode batch \
       --device cpu --prefix-cache --prefill-chunk 256
 
+  # the sharded engine: 2 page-pool shards (one a card, cuda:0 and
+  # cuda:1; with --device cpu both on the CPU), --max-seqs and
+  # --num-pages per shard, per-shard counts in the report:
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --shards 2
+
 On the card every kernel builds with ``nvcc`` at its first launch, so a
 cold process's first prefill (and with it the first request's time to
 first token) includes the build, as the reference's includes its jit
@@ -53,6 +59,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serving.engine import Engine, EngineConfig, engine_supported
 from repro_torch.serving.scheduler import (ServingError,
                                            UnsupportedFeatureError)
+from repro_torch.serving.sharded import ShardedEngine
 
 
 def _round_up(n: int, m: int) -> int:
@@ -60,14 +67,29 @@ def _round_up(n: int, m: int) -> int:
 
 
 def _make_engine(cfg, params, ecfg: EngineConfig, shards: int,
-                 device="cuda") -> Engine:
-    """Single-host Engine; the reference's sharded fleet (``shards > 0``)
-    is not ported yet."""
+                 device="cuda"):
+    """Single-device Engine (shards == 0) or the sharded fleet, whose
+    ``ecfg`` sizes are per shard.  On CUDA shard i goes to ``cuda:i``
+    (more shards than cards raises); on the CPU every shard is on it."""
     if shards:
-        raise UnsupportedFeatureError(
-            "shards", "the sharded engine is not ported yet; ROADMAP.md "
-                      "lists it after the remaining engine features")
+        dev = torch.device(device)
+        return ShardedEngine(cfg, params, ecfg, n_shards=shards,
+                             devices=None if dev.type == "cuda"
+                             else [dev] * shards)
     return Engine(cfg, params, ecfg, device=device)
+
+
+def _shard_report(eng, metrics: dict) -> None:
+    """Per-shard decode tokens/s and request counts of a sharded
+    engine into ``metrics``, as the reference's stream mode reports."""
+    dec_s = max(eng.stats["decode_s"], 1e-9)
+    metrics["per_shard_tokens_per_s"] = [
+        st["decode_tokens"] / dec_s for st in eng.shard_stats]
+    metrics["per_shard_requests"] = [st["requests"]
+                                     for st in eng.shard_stats]
+    for s, tps in enumerate(metrics["per_shard_tokens_per_s"]):
+        print(f"  shard {s}: {metrics['per_shard_requests'][s]} "
+              f"requests, {tps:.1f} tok/s")
 
 
 def _model(arch: str, smoke: bool, seed: int, device):
@@ -159,7 +181,8 @@ def serve_stream(arch: str, n_requests: int = 16, rate: float = 8.0,
                  device="cuda") -> dict:
     """Continuous-batching scenario: Poisson arrivals (``rate`` req/s),
     mixed prompt/generation lengths.  Reports tokens/s and p50/p99
-    time-to-first-token + end-to-end latency.
+    time-to-first-token + end-to-end latency (per shard too when
+    ``shards > 0``).
 
     ``realtime=False`` collapses the arrival process (every request is
     queued at t=0) so percentiles stay meaningful as queueing-free
@@ -224,6 +247,8 @@ def serve_stream(arch: str, n_requests: int = 16, rate: float = 8.0,
               f"{metrics['tree_evictions']} evictions, "
               f"{metrics['swap_restores']} swap restores, "
               f"peak {metrics['pages_in_use_peak']} pages")
+    if shards:
+        _shard_report(eng, metrics)
     return metrics
 
 
@@ -239,7 +264,8 @@ def serve_openloop(arch: str, n_requests: int = 16, every: int = 4,
     """Open-loop scenario over the STAGED API: one request arrives every
     ``every`` decode steps whether or not the engine keeps up, driven by
     ``serving.frontend.run_open_loop`` with dispatch-ahead decode.
-    Reports sustained tokens/s plus TTFT/TPOT percentiles."""
+    Reports sustained tokens/s plus TTFT/TPOT percentiles (and per-shard
+    tokens/s and requests when ``shards > 0``)."""
     from repro_torch.serving import frontend as FE
     dev = resolve_device(device)
     cfg, params = _model(arch, smoke, seed, dev)
@@ -270,6 +296,8 @@ def serve_openloop(arch: str, n_requests: int = 16, every: int = 4,
           f"pipeline depth peak {metrics['dispatch_depth_peak']} "
           f"(dispatch_ahead={dispatch_ahead}); "
           f"{metrics['preemptions']} preemptions")
+    if shards:
+        _shard_report(eng, metrics)
     return metrics
 
 
@@ -488,8 +516,10 @@ def main(argv=None):
                          "(bytes; 0 disables swap so preempted requests "
                          "recompute; default %(default)s)")
     ap.add_argument("--shards", type=int, default=0,
-                    help="page-pool shards (not ported yet: any value "
-                         "above 0 exits 2)")
+                    help="page-pool shards (0 = single-device engine): "
+                         "shard i on cuda:i, or all on the CPU with "
+                         "--device cpu; per-shard sizing comes from "
+                         "--max-seqs / --num-pages")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")

@@ -235,7 +235,13 @@ def _dense_cache_attend(q, k, v, cache, cfg: ModelConfig, kind: str,
     assumes.  (The reference hands it the whole cache, and its ``flash``
     path then places the queries at the cache's end.)  Dense and SWA
     layers mask the whole cache by ``kv_len``; MoBA decode routes on the
-    centroid cache."""
+    centroid cache.
+
+    A context-parallel cache (:func:`init_cache` with ``segments``) holds
+    a MoBA slot's k, v and centroids as per-shard sequence segments:
+    each new token goes to the segment that owns its position, and
+    attention runs over the segments through the active
+    ``distributed/moba_sp.py`` group (the ``sp`` backend)."""
     n = q.shape[2]
     start = cache["len"]
     end = start + n
@@ -250,6 +256,9 @@ def _dense_cache_attend(q, k, v, cache, cfg: ModelConfig, kind: str,
             stepped = raw[:, :, raw.shape[2] - depth:]
             k = apply_key_conv(conv_w, k)
         state.copy_(stepped)
+    if isinstance(cache["k"], list):
+        return _segments_attend(q, k, v, cache, cfg, kind, positions,
+                                backend, start), new
     cache["k"][:, :, start:end] = k.to(cache["k"].dtype)
     cache["v"][:, :, start:end] = v.to(cache["v"].dtype)
     if "centroids" in cache:
@@ -276,26 +285,75 @@ def _dense_cache_attend(q, k, v, cache, cfg: ModelConfig, kind: str,
     return o, new
 
 
+def _segments_attend(q, k, v, cache, cfg: ModelConfig, kind: str,
+                     positions, backend: str, start: int):
+    """The context-parallel branch of :func:`_dense_cache_attend`: the
+    new tokens go to the segments that own their positions; a prefill
+    (a fresh sequence) attends its own keys, which the ``sp`` backend
+    copies to every shard, and a decode step attends over the segments
+    in place."""
+    from repro_torch.distributed import moba_sp
+    group = moba_sp.active_group()
+    if group is None or group.size != len(cache["k"]):
+        raise ValueError(f"a cache of {len(cache['k'])} sequence segments "
+                         f"needs an active context-parallel group of as "
+                         f"many shards (distributed/moba_sp.use_group)")
+    n = q.shape[2]
+    if n > 1 and start:
+        raise ValueError("a context-parallel prefill fills an empty cache")
+    moba_sp.append_segments(cache["k"], cache["v"], cache.get("centroids"),
+                            k, v, start, cfg.attention.moba.block_size,
+                            group)
+    if n > 1:
+        return attention_dispatch(cfg.attention, kind, q, k, v,
+                                  q_positions=positions, backend=backend)
+    return attention_dispatch(cfg.attention, kind, q, cache["k"],
+                              cache["v"], q_positions=positions,
+                              kv_len=start + 1, backend=backend,
+                              centroids=cache.get("centroids"))
+
+
 def init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda", groups: int = 0
-               ) -> dict:
+               dtype=torch.bfloat16, device="cuda", groups: int = 0,
+               segments=None) -> dict:
     """Dense per-sequence cache of one ``kind`` slot: ``k``/``v`` (B,
     Hkv, max_len, d) in ``dtype``, ``len`` (a host int, 0), and on MoBA
     slots the fp32 incremental centroid cache (B, Hkv, nb, d) and, with
     key conv, the raw-key state (B, Hkv, W-1, d).  ``groups > 0``
-    prepends the layer-group axis to every tensor leaf."""
+    prepends the layer-group axis to every tensor leaf.
+
+    ``segments`` (a list of S devices, context parallelism): a MoBA
+    slot's ``k``, ``v`` and ``centroids`` become lists of S sequence
+    segments, segment s on ``segments[s]`` holding positions [s·N/S,
+    (s+1)·N/S); ``max_len`` must be a multiple of S times the block
+    size.  The key-conv state and other slots stay on ``device``."""
     hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     lead = (groups,) if groups else ()
 
-    def zeros(*shape, dt=dtype):
-        return torch.zeros(lead + shape, dtype=dt, device=device)
+    def zeros(*shape, dt=dtype, dev=device):
+        return torch.zeros(lead + shape, dtype=dt, device=dev)
 
-    c = {"k": zeros(batch, hkv, max_len, dh),
-         "v": zeros(batch, hkv, max_len, dh), "len": 0}
     m = cfg.attention.moba
+    if kind == "moba" and m is not None and segments:
+        ns = len(segments)
+        if max_len % (ns * m.block_size):
+            raise ValueError(f"max_len {max_len} does not split into {ns} "
+                             f"segments of whole {m.block_size}-token "
+                             f"blocks")
+        n_local = max_len // ns
+        c = {name: [zeros(batch, hkv, n, dh, dt=dt, dev=dev)
+                    for dev in segments]
+             for name, n, dt in (("k", n_local, dtype), ("v", n_local, dtype),
+                                 ("centroids", n_local // m.block_size,
+                                  torch.float32))}
+        c["len"] = 0
+    else:
+        c = {"k": zeros(batch, hkv, max_len, dh),
+             "v": zeros(batch, hkv, max_len, dh), "len": 0}
     if kind == "moba" and m is not None:
-        nb = -(-max_len // m.block_size)
-        c["centroids"] = zeros(batch, hkv, nb, dh, dt=torch.float32)
+        if not segments:
+            nb = -(-max_len // m.block_size)
+            c["centroids"] = zeros(batch, hkv, nb, dh, dt=torch.float32)
         if m.key_conv_width:
             state = key_conv_state_init(m.key_conv_width, batch, hkv, dh,
                                         dtype=dtype, device=device)

@@ -186,10 +186,13 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def _group(tree, gi: int):
-    """Group ``gi`` of a stacked tree: views, so writes reach the stack.
-    Host values (a dense cache's ``len``) are shared by every group."""
+    """Group ``gi`` of a stacked tree: views, so writes reach the stack
+    (a list of tensors, a context-parallel cache's segments, gives the
+    list of their views).  Host values (a dense cache's ``len``) are
+    shared by every group."""
     return {k: _group(v, gi) if isinstance(v, dict)
-            else v[gi] if isinstance(v, torch.Tensor) else v
+            else v[gi] if isinstance(v, torch.Tensor)
+            else [x[gi] for x in v] if isinstance(v, list) else v
             for k, v in tree.items()}
 
 
@@ -351,14 +354,15 @@ def lm_loss(params, batch: dict, cfg: ModelConfig,
 
 # -------------------------------------------------------------------- cache
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                dtype=torch.bfloat16, device="cuda") -> dict:
+                dtype=torch.bfloat16, device="cuda", segments=None) -> dict:
     """Stacked dense per-sequence caches ``{"slot_i": cache}``, each
     tensor leaf with the leading layer-group axis of the params:
     ``layers.init_cache`` for attention slots (``shared_attn`` as
     dense; a ``decoder`` slot's as ``attention.kind``, under ``"self"``),
     ``mamba2.init_mamba2_cache`` for ``ssm`` slots, nothing for ``cross``
     slots (their K/V are recomputed from ``cross_kv``); ``len`` is one
-    host int per slot."""
+    host int per slot.  ``segments`` (devices) holds the MoBA slots as
+    context-parallel sequence segments (``layers.init_cache``)."""
     pattern, n_groups = _block_kinds(cfg)
 
     def one(kind):
@@ -366,7 +370,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
             return M.init_mamba2_cache(cfg, batch, dtype=dtype,
                                        device=device, groups=n_groups)
         c = L.init_cache(cfg, _self_kind(cfg, kind), batch, max_len,
-                         dtype=dtype, device=device, groups=n_groups)
+                         dtype=dtype, device=device, groups=n_groups,
+                         segments=segments)
         return {"self": c} if kind == "decoder" else c
 
     return {f"slot_{i}": one(kind) for i, kind in enumerate(pattern)

@@ -38,12 +38,16 @@ cache (``prefix_cache``): admission maps a request's longest cached
 prefix onto the pages that hold it (refcounted, shared), copies a shared
 partial tail page before the suffix writes into it (COW), and loads a
 key-conv ring from the last matched page's raw-key tail; quantized and
-key-conv pools share whole pages only.  The reference's sharded engine
-is not ported (ROADMAP.md).
+key-conv pools share whole pages only.  ``serving/sharded.py`` scales
+it over several devices: one :class:`Engine` a shard, each with its own
+pool and scheduler on its own device, behind a router, driven through
+the same step halves (``_step_dispatch`` / ``_step_observe`` and
+``_plan_decode`` / ``_settle``) that this engine's own loops use.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
 import time
@@ -91,10 +95,13 @@ def needs_key_conv(cfg: ModelConfig) -> bool:
 
 
 def admission_capability_check(cfg: ModelConfig, backend: str,
+                               sharded: bool = False,
                                kv_dtype: str = "fp32",
                                adaptive: bool = False) -> None:
-    """Every layer kind must resolve for both paged phases (with
-    key-conv where the config carries it, quantized-pool support when
+    """Admission-time capability query shared by the single-device and
+    sharded engines: every layer kind must resolve for both paged phases
+    (with key-conv where the config carries it, per-shard math that
+    needs no other shard when ``sharded``, quantized-pool support when
     ``kv_dtype`` is int8/fp8, per-head ``head_top_k`` routing on MoBA
     layers when ``adaptive``), or the request stream would die inside a
     step."""
@@ -104,7 +111,7 @@ def admission_capability_check(cfg: ModelConfig, backend: str,
             try:
                 B.resolve(backend, kind=kind, phase=phase, cache="paged",
                           key_conv=conv and kind == "moba",
-                          kv_dtype=kv_dtype,
+                          sharded=sharded, kv_dtype=kv_dtype,
                           adaptive=adaptive and kind == "moba")
             except B.BackendCapabilityError as e:
                 raise UnsupportedFeatureError("attn_backend",
@@ -383,8 +390,12 @@ class Prefix:
 
 
 class Engine:
+    """``route_profile``, when given, is a routing profile built already
+    (a sharded engine's, shared by its shards): it stands in for
+    resolving ``ecfg.route_policy``."""
+
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig = None,
-                 device="cuda"):
+                 device="cuda", route_profile=None):
         reason = unsupported_reason(cfg)
         if reason is not None:
             raise UnsupportedFeatureError(*reason)
@@ -397,6 +408,12 @@ class Engine:
             raise ServingError(
                 f"dispatch_ahead must be >= 0, got {ecfg.dispatch_ahead}")
         self.device = resolve_device(device)
+        # the kernels launch on the current CUDA device: make it this
+        # engine's around every step (a sharded engine's shard may not be
+        # on the current one)
+        self._on_device = (torch.cuda.device(self.device)
+                           if self.device.type == "cuda"
+                           else contextlib.nullcontext())
         self.cfg = cfg
         self.params = params
         self.attn_backend = resolve_engine_backend(ecfg.attn_backend,
@@ -410,8 +427,12 @@ class Engine:
         # adaptive routing: calibrate (or load) the per-(layer, head)
         # top_k profile once; its budgets go to the card once, as int32
         # tensors every prefill and decode step (replays included) reads
-        self.route_profile, route_map = build_route_profile(
-            cfg, params, ecfg.route_policy, self.pages_per_seq)
+        if route_profile is None:
+            route_profile, route_map = build_route_profile(
+                cfg, params, ecfg.route_policy, self.pages_per_seq)
+        else:
+            route_map = route_profile.route_map()
+        self.route_profile = route_profile
         route_map = S.as_route_map(route_map, self.device)
         conv = needs_key_conv(cfg)
         if ecfg.prefix_cache and conv \
@@ -511,9 +532,10 @@ class Engine:
         tokens, kv_len, q_len, slots, active, table = (
             self._to_device(a) for a in arrays)
         t0 = time.perf_counter()
-        tok, self.caches = self._prefill(self.params, tokens, self.caches,
-                                         table, kv_len, q_len, slots,
-                                         active)
+        with self._on_device:
+            tok, self.caches = self._prefill(self.params, tokens,
+                                             self.caches, table, kv_len,
+                                             q_len, slots, active)
         tok = tok.cpu().numpy()
         self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefill_tokens"] += int(sum(takes))
@@ -533,10 +555,11 @@ class Engine:
             self._tok_dev = self._to_device(self._cur_tok)   # authoritative
         active_dev = self._to_device(active)
         t0 = time.perf_counter()
-        tok, self.caches = self._decode(
-            self.params, self._tok_dev, self.caches,
-            self._to_device(self.sched.block_table),
-            self._to_device(kv_len), active_dev)
+        with self._on_device:
+            tok, self.caches = self._decode(
+                self.params, self._tok_dev, self.caches,
+                self._to_device(self.sched.block_table),
+                self._to_device(kv_len), active_dev)
         self._tok_dev = torch.where(active_dev, tok, self._tok_dev)
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += 1
@@ -645,8 +668,7 @@ class Engine:
                 # cannot fail, every page was reserved at admission
                 ok = self.sched._cow_tail(req)
                 assert ok, "chunk continuation pages reserved at admission"
-            self.caches = drain_cache_ops(self.caches, self.sched,
-                                          self.swap_store, self.page_size)
+            self._drain_ops()
             self._run_prefill([req], now)
             self.sched.note_cached(req)
             first = False
@@ -680,15 +702,32 @@ class Engine:
         dispatch one decode step, and return the ``(request, token)``
         pairs observed this call (one pipeline-depth late with
         ``dispatch_ahead > 0``)."""
-        preempted = self.sched.plan_decode(now)
-        self.stats["preemptions"] += len(preempted)
-        self.caches = drain_cache_ops(self.caches, self.sched,
-                                      self.swap_store, self.page_size)
-        decodes = [r for r in self.sched.running
-                   if r.state == "running" and not r.budget_spent]
+        decodes = self._plan_decode(now)
         if decodes:
             self._dispatch_decode(decodes)
-        depth = self.ecfg.dispatch_ahead if decodes else 0
+        return self._settle(bool(decodes))
+
+    def _drain_ops(self) -> None:
+        self.caches = drain_cache_ops(self.caches, self.sched,
+                                      self.swap_store, self.page_size)
+
+    def _decodes(self) -> List[Request]:
+        return [r for r in self.sched.running
+                if r.state == "running" and not r.budget_spent]
+
+    def _plan_decode(self, now: float) -> List[Request]:
+        """Stage 3's first half: plan growth/preemption, apply its cache
+        ops, and return the requests to decode."""
+        preempted = self.sched.plan_decode(now)
+        self.stats["preemptions"] += len(preempted)
+        self._drain_ops()
+        return self._decodes()
+
+    def _settle(self, decoded: bool) -> List[Tuple[Request, int]]:
+        """Stage 3's second half: observe down to the pipeline depth
+        (none left in flight when nothing was ``decoded``), retire the
+        finished, and hand over the pairs observed since the last call."""
+        depth = self.ecfg.dispatch_ahead if decoded else 0
         while len(self._inflight) > depth:
             self._observe_one()
         self._finish_done()
@@ -710,30 +749,39 @@ class Engine:
         """One legacy engine iteration: admit + prefill (applying the COW
         copies, swap restores and ring loads the plan scheduled), dispatch
         one decode step over all running, observe it synchronously."""
+        n_pre, prefills, decodes = self._step_dispatch(now)
+        return {"prefilled": len(prefills), "decoded": len(decodes),
+                "finished": self._step_observe(), "preempted": n_pre}
+
+    def _step_dispatch(self, now: float
+                       ) -> Tuple[int, List[Request], List[Request]]:
+        """The legacy step up to its decode dispatch; returns (requests
+        preempted, prefilled, decoded)."""
         self.drain()    # synchronous semantics if stages interleaved
         preempted = self.sched.plan_decode(now)
         self.stats["preemptions"] += len(preempted)
         prefills = self.sched.plan_prefills(now)
-        self.caches = drain_cache_ops(self.caches, self.sched,
-                                      self.swap_store, self.page_size)
+        self._drain_ops()
         if prefills:
             self._run_prefill(prefills, now)
             for r in prefills:            # newly cached full pages join
                 self.sched.note_cached(r)  # the prefix tree immediately
         # recomputed after prefill so every request whose context
         # completed this step joins the decode batch in the same iteration
-        decodes = [r for r in self.sched.running
-                   if r.state == "running" and not r.budget_spent]
+        decodes = self._decodes()
         if decodes:
             self._dispatch_decode(decodes)
-            self.drain()
+        return len(preempted), prefills, decodes
+
+    def _step_observe(self) -> int:
+        """The legacy step's end: observe the decode synchronously and
+        retire the finished; returns how many finished."""
+        self.drain()
         n0 = len(self.finished)
         self._finish_done()
-        n_done = len(self.finished) - n0
         self._emitted.clear()      # step() reports counts, not streams
         self._update_stats()
-        return {"prefilled": len(prefills), "decoded": len(decodes),
-                "finished": n_done, "preempted": len(preempted)}
+        return len(self.finished) - n0
 
     def run(self, realtime: bool = False) -> List[Request]:
         """Drain all submitted requests and return the ones finished by

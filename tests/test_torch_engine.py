@@ -36,6 +36,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.scheduler import (ServingError,
                                            UnsupportedFeatureError)
+from repro_torch.serving.sharded import ShardedEngine
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -175,9 +176,14 @@ def test_out_of_scope_model_and_fleet_raise(model):
         Engine(kconv, kparams, EngineConfig(attn_backend="nope"),
                device="cpu")
     assert ei.value.feature == "attn_backend"
-    with pytest.raises(UnsupportedFeatureError) as ei:
-        _make_engine(cfg, params, EngineConfig(), shards=2, device="cpu")
-    assert ei.value.feature == "shards"
+    # the fleet is ported: shards on the CPU build, and more shards than
+    # visible cards raise rather than share one
+    fleet = _make_engine(cfg, params, EngineConfig(), shards=2, device="cpu")
+    assert isinstance(fleet, ShardedEngine) and fleet.n_shards == 2
+    assert fleet.devices == [torch.device("cpu")] * 2
+    with pytest.raises(ServingError, match="exceeds the"):
+        _make_engine(cfg, params, EngineConfig(),
+                     shards=torch.cuda.device_count() + 1, device="cuda")
     with pytest.raises(ServingError, match="kv_dtype"):
         Engine(cfg, params, EngineConfig(kv_dtype="int4"), device="cpu")
     with pytest.raises(UnsupportedFeatureError) as ei:
@@ -256,7 +262,9 @@ def test_port_imports_neither_jax_nor_reference_package():
             "src/repro_torch/checkpoint/manager.py",
             "src/repro_torch/data/niah.py",
             "src/repro_torch/configs/qwen3_0_6b.py",
-            "src/repro_torch/serving/frontend.py"} <= names
+            "src/repro_torch/serving/frontend.py",
+            "src/repro_torch/serving/sharded.py",
+            "src/repro_torch/distributed/moba_sp.py"} <= names
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, (str(path), hits)
