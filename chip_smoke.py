@@ -340,6 +340,37 @@ Phases, one JSON line each; any failure exits non-zero:
                rest (a temporary directory, 1 checkpoint kept): losses
                and params within rtol 1e-5 (bit-equality reported); the
                snapshot, the write, the bytes and the restore timed.
+               Then multi-device training, each group's shards sharing
+               cuda:0 (the logic, bytes and memory of the shards; no
+               transfer between cards).  ``train_sp``: the ``sp`` backend
+               under a 2-shard ``CPGroup``, 3 steps from phase 6's
+               weights and batches with remat: losses within 2e-2 of
+               phase 6's ``xla`` losses, each step's bytes between
+               shards by kind (forward and ``_grad``) equal to
+               ``moba_sp.sp_attention_bytes`` over the MoBA layers; the
+               params and moments saved after step 2 and restored: step
+               3 on the same group bit-equal, on a 4-shard group through
+               ``restore(devices=...)`` within 2e-2 (its bytes the
+               4-shard formula); step ms and peak memory, peaks at 4
+               layers with remat on and off, one layer's attention
+               forward and backward with and without the per-shard
+               recompute (peak, ms), and the fp32 loss and gradients at
+               full width and 4 layers against ``xla`` (2e-4 / 5e-3 of
+               each leaf's max).  ``train_dp_compressed``: 2 shards each
+               take the ``flash`` gradient of one 8,192-token row, two
+               rounds through ``optim/compression.py::compressed_psum``
+               with carried residuals: both shards' means bit-equal,
+               every element within one scale of the fp64 mean, the
+               error-feedback identity within 1e-5 of 127·s, exact
+               launches of the four training kernels (4 gradients), the
+               bytes by kind against an fp32 star reduce's.
+               ``pipeline``: the 12 (swa, moba) groups over 2 stages
+               (``distributed/pipeline.py::pipeline_forward``, 6 groups a
+               stage through ``apply_block`` on ``flash``), 4
+               microbatches of 1 × 4,096 bf16 hidden states: bit-equal
+               to the stages applied microbatch by microbatch, within
+               3e-2 of the whole batch, 5 ticks and 8 stage calls, exact
+               forward launches (48 each), the activations' bytes.
   7. train_grads — the same weights in fp32 (TF32 off), batch 1, seq
                2048: ``lm_loss`` and every gradient leaf under ``flash``
                against ``xla`` (loss 2e-4 relative, each leaf max |Δ| /
@@ -396,8 +427,8 @@ kernel's launches on the other paths, ``serve_key_conv``,
 whose bf16 entry also holds ``with_budgets`` and its times at
 ``g1-d128``; ``serve_fixed``'s prefill, ``train_small_blocks``,
 ``train_key_conv``, ``train_accum``'s two accumulating bf16 steps,
-``train_moe``, ``serve_encdec``, ``serve_vlm`` and ``train_encdec`` for
-the training kernels, each with its times at ``g1-d128`` and
+``train_dp_compressed``, ``pipeline``, ``train_moe``, ``serve_encdec``,
+``serve_vlm`` and ``train_encdec`` for the training kernels, each with its times at ``g1-d128`` and
 ``g8-d128``), and as the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -4846,13 +4877,14 @@ def _zero_counts():
 
 def _train_run(backend: str, steps: int = TRAIN_STEPS, *,
                arch: str = "moba-340m", layers: int = 0,
-               seq: int = TRAIN_SEQ, batch: int = 1, **moba):
+               seq: int = TRAIN_SEQ, batch: int = 1, remat: bool = True,
+               **moba):
     """``arch`` (moba-340m) at full width and depth, or ``layers`` deep
     (bf16, random weights from a seeded torch.Generator), ``batch`` rows
     (1) of seq ``seq`` (8192), with the stub inputs ``train()`` draws for
     the vision and encoder-decoder families: ``steps`` steps of
-    ``make_train_step`` with remat on ``backend``, from the same weights
-    and batches on every call; ``moba`` (block_size, top_k,
+    ``make_train_step`` with ``remat`` (on) on ``backend``, from the same
+    weights and batches on every call; ``moba`` (block_size, top_k,
     key_conv_width) overrides the config's MoBA settings.  Returns the
     state for one more step, each step's loss and seconds (each loss read
     waits for its step)."""
@@ -4877,7 +4909,7 @@ def _train_run(backend: str, steps: int = TRAIN_STEPS, *,
     batches = [{"tokens": torch.as_tensor(data.batch_at(i)["tokens"],
                                           device="cuda"), **extras}
                for i in range(TRAIN_STEPS + 1)]
-    step_fn = S.make_train_step(cfg, tcfg, backend=backend, remat=True)
+    step_fn = S.make_train_step(cfg, tcfg, backend=backend, remat=remat)
     torch.cuda.synchronize()
     losses, step_s = [], []
     for i in range(steps):
@@ -5309,6 +5341,461 @@ def phase_train_resume(steps: int = 4):
                          "uninterrupted one, or the checkpoints were not "
                          "saved, kept and restored as asked")
     return rec
+
+
+# ------------------------------------------------ multi-device training
+SP_SHARDS = 2                  # all on cuda:0: one card rehearses the group
+SP_TRAIN_STEPS = 3
+SP_GRAD_LAYERS = 4             # the fp32 gradient check: full width
+SP_PEAK_LAYERS = 4             # remat off does not fit at full depth
+SP_GRAD_TOL = 5e-3             # of each leaf's max, tests/test_kernels.py
+EF_TOL = 1e-5                  # of 127·s, the leaf's largest |g + r|
+PIPE_STAGES = 2
+PIPE_MICROBATCHES = 4
+PIPE_SEQ = 4096
+PIPE_TOL = 3e-2                # bf16: the schedule against the whole batch
+
+
+def _sp_step_bytes(cfg, seq: int, shards: int, remat: bool = True) -> dict:
+    """What one ``sp`` training step of batch 1 moves between shards, by
+    kind: ``sp_attention_bytes`` of each MoBA layer (q, k, v in
+    ``cfg.dtype``, int64 positions), the forward's kinds twice under
+    remat (the backward recomputes each layer group, sends included),
+    the gradients' once."""
+    from repro_torch.distributed import moba_sp as SP
+    once = SP.sp_attention_bytes(
+        1, cfg.num_heads, cfg.num_kv_heads, seq, seq, cfg.resolved_head_dim,
+        shards, 2 if cfg.dtype == "bfloat16" else 4, positions_itemsize=8)
+    return {k: n * _moba_layers(cfg) * (2 if remat and not
+                                        k.endswith("_grad") else 1)
+            for k, n in once.items()}
+
+
+def _sp_attention_alone(shards: int) -> dict:
+    """One MoBA layer's attention at moba-340m's training shape (bf16,
+    batch 1, 16 heads, 8,192 tokens, d 64), forward and backward: through
+    ``moba_attention_sp`` (each shard recomputes its tiles in the
+    backward) against the same shards' ``moba_sparse_xla`` calls without
+    the recompute.  Peak GiB above the inputs, ms (host clock around a
+    synchronised run, the second of two), and how far the outputs and
+    gradients of the two are apart."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import moba_sp as SP
+    from repro_torch.kernels import ref as kref
+
+    cfg = get_config("moba-340m")
+    mcfg, d = cfg.attention.moba, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shape = (1, cfg.num_heads, TRAIN_SEQ, d)
+    qkv = [torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(3)]
+    dout = torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    rows = TRAIN_SEQ // shards
+
+    def sp(q, k, v):
+        return SP.moba_attention_sp(q, k, v, mcfg,
+                                    group=SP.CPGroup(["cuda:0"] * shards))
+
+    def no_recompute(q, k, v):
+        return torch.cat([kref.moba_sparse_xla(
+            q[:, :, s * rows:(s + 1) * rows], k, v, mcfg,
+            q_positions=torch.arange(rows, device="cuda") + s * rows)
+            for s in range(shards)], dim=2)
+
+    out = {}
+    for name, fn in (("sp", sp), ("no_recompute", no_recompute)):
+        for _ in range(2):
+            xs = [x.detach().requires_grad_() for x in qkv]
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            o = fn(*xs)
+            grads = torch.autograd.grad(o, xs, dout)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        out[name] = (o.detach(), grads, ms, peak)
+        del o, grads, xs
+    a, b = out["sp"], out["no_recompute"]
+    return {"shape": list(shape), "shards": shards,
+            "sp_ms": a[2], "no_recompute_ms": b[2],
+            "sp_peak_gib": a[3], "no_recompute_peak_gib": b[3],
+            "out_max_abs_diff": float((a[0].float() - b[0].float()).abs()
+                                      .max()),
+            "grad_max_rel_diff": max(_max_rel(x, y)
+                                     for x, y in zip(a[1], b[1]))}
+
+
+def _sp_grads(group) -> dict:
+    """fp32 (TF32 off) loss and every gradient leaf of moba-340m at full
+    width and ``SP_GRAD_LAYERS`` layers, batch 1 × 2,048 with remat,
+    ``sp`` under ``group`` against ``xla``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import moba_sp as SP
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    seq = 2048
+    cfg = dataclasses.replace(get_config("moba-340m"), dtype="float32",
+                              num_layers=SP_GRAD_LAYERS)
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=1, seed=1)).batch_at(0)
+    batch = {"tokens": torch.as_tensor(tokens["tokens"], device="cuda")}
+    out = {}
+    with SP.use_group(group):
+        for backend in ("xla", "sp"):
+            leaves = [leaf.detach().requires_grad_() for _, leaf in
+                      adamw.tree_leaves(params)]
+            loss, _ = T.lm_loss(adamw.tree_like(params, leaves), batch, cfg,
+                                backend=backend, remat=True)
+            out[backend] = (float(loss.detach()),
+                            torch.autograd.grad(loss, leaves))
+    names = [p for p, _ in adamw.tree_leaves(params)]
+    rels = {n: _max_rel(a, b) for n, a, b in zip(names, out["sp"][1],
+                                                 out["xla"][1])}
+    worst = max(rels, key=rels.get)
+    return {"layers": SP_GRAD_LAYERS, "seq": seq, "dtype": "float32",
+            "loss_sp": out["sp"][0], "loss_xla": out["xla"][0],
+            "loss_rel_err": abs(out["sp"][0] - out["xla"][0])
+            / abs(out["xla"][0]), "loss_tol": 2e-4,
+            "worst_leaf": worst, "worst_leaf_rel_err": rels[worst],
+            "grad_tol": SP_GRAD_TOL, "leaves": len(rels)}
+
+
+def phase_train_sp(xla_losses):
+    """Sequence-parallel training through the ``sp`` backend under a
+    2-shard group on cuda:0 (``CPGroup(["cuda:0"] * 2)``: the logic,
+    bytes and memory of 2 shards; no transfer between cards).  moba-340m
+    at full width and depth, bf16, batch 1 × 8,192, remat, 3 steps from
+    the weights and batches of phase 6's ``xla`` run: each loss within
+    ``TRAIN_LOSS_TOL`` of that run's.  The bytes of each step by kind
+    must equal ``_sp_step_bytes``.  After step 2 the params and moments
+    are saved (``CheckpointManager``, a temporary directory); restored
+    into the same group, step 3's loss must be bit-equal; restored with
+    ``restore(devices=...)`` and stepped under a 4-shard group, within
+    ``TRAIN_LOSS_TOL`` (its bytes the 4-shard formula).  Then peaks at 4
+    layers with remat on and off, one layer's attention alone with and
+    without the per-shard recompute, and the fp32 gradient check
+    (``_sp_grads``)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import moba_sp as SP
+    from repro_torch.optim import adamw
+
+    group = SP.CPGroup(["cuda:0"] * SP_SHARDS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="train_sp_")
+    try:
+        with SP.use_group(group):
+            cfg, (step_fn, params, opt, batch), losses, step_s = _train_run(
+                "sp", SP_TRAIN_STEPS - 1)
+            two_steps = dict(group.bytes)
+            mgr = CheckpointManager(tmp, keep=1, async_writes=False)
+            template = {"params": params, "mu": opt.mu, "nu": opt.nu}
+            t0 = time.perf_counter()
+            mgr.save(SP_TRAIN_STEPS - 1, template)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        resumed = {}
+        for shards in (SP_SHARDS, 2 * SP_SHARDS):
+            devices = (None if shards == SP_SHARDS else adamw.tree_like(
+                template, [group.devices[0]] * len(adamw.tree_leaves(
+                    template))))
+            t0 = time.perf_counter()
+            tree, _, ck = mgr.restore(template, devices=devices)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            state = adamw.AdamWState(
+                torch.tensor(ck, dtype=torch.int32, device="cuda"),
+                tree["mu"], tree["nu"])
+            g = SP.CPGroup(["cuda:0"] * shards)
+            with SP.use_group(g):
+                _, _, m = step_fn(tree["params"], state, batch)
+            resumed[shards] = {"loss": float(m["loss"]),
+                               "restore_s": restore_s,
+                               "bytes": dict(g.bytes)}
+            del tree, state, m
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del step_fn, params, opt, batch, template
+    gc.collect()
+    torch.cuda.empty_cache()
+    peaks = {}
+    for remat in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        with SP.use_group(group):
+            _, state, _, s = _train_run("sp", 1, layers=SP_PEAK_LAYERS,
+                                        remat=remat)
+        peaks[f"remat_{str(remat).lower()}"] = {
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "step_ms": s[0] * 1e3}
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    alone = _sp_attention_alone(SP_SHARDS)
+    grads = _sp_grads(group)
+    want = _sp_step_bytes(cfg, TRAIN_SEQ, SP_SHARDS)
+    want4 = _sp_step_bytes(cfg, TRAIN_SEQ, 2 * SP_SHARDS)
+    n = SP_TRAIN_STEPS - 1
+    gap = max(abs(a - b) for a, b in zip(losses, xla_losses))
+    rec = {"phase": "train_sp", "arch": cfg.name, "dtype": cfg.dtype,
+           "batch": 1, "seq": TRAIN_SEQ, "remat": True, "backend": "sp",
+           "shards": SP_SHARDS, "devices": [str(d) for d in group.devices],
+           "losses": losses, "xla_losses": xla_losses[:SP_TRAIN_STEPS],
+           "sp_vs_xla_max_loss_gap": gap, "loss_tol": TRAIN_LOSS_TOL,
+           "step_ms": [t * 1e3 for t in step_s], "peak_mem_gib": peak,
+           "bytes_per_step": {k: v / n for k, v in two_steps.items()},
+           "bytes_per_step_formula": want,
+           "bytes_per_step_total": sum(want.values()),
+           "checkpoint_save_s": save_s,
+           "resume_same_group": resumed[SP_SHARDS],
+           "resume_same_group_bit_equal":
+               resumed[SP_SHARDS]["loss"] == losses[-1],
+           "resume_4_shards": resumed[2 * SP_SHARDS],
+           "resume_4_shards_loss_gap":
+               abs(resumed[2 * SP_SHARDS]["loss"] - losses[-1]),
+           "bytes_4_shards_formula": want4,
+           f"peaks_{SP_PEAK_LAYERS}_layers": peaks,
+           "attention_alone": alone, "grads": grads}
+    emit(rec)
+    if not all(np.isfinite(losses)) or gap > TRAIN_LOSS_TOL:
+        raise SystemExit(f"train_sp: losses {losses} not finite or off "
+                         f"xla's {xla_losses} by more than "
+                         f"{TRAIN_LOSS_TOL}")
+    if two_steps != {k: v * n for k, v in want.items()} \
+            or resumed[2 * SP_SHARDS]["bytes"] != want4:
+        raise SystemExit("train_sp: the bytes between shards are not the "
+                         "formula's")
+    if not rec["resume_same_group_bit_equal"] \
+            or rec["resume_4_shards_loss_gap"] > TRAIN_LOSS_TOL:
+        raise SystemExit("train_sp: a resumed step 3 differs from the "
+                         "uninterrupted one")
+    if grads["loss_rel_err"] > 2e-4 \
+            or grads["worst_leaf_rel_err"] > SP_GRAD_TOL:
+        raise SystemExit("train_sp: sp and xla losses or gradients "
+                         "disagree in fp32")
+    return rec
+
+
+def phase_train_dp_compressed():
+    """The int8 error-feedback gradient reduce at full width: 2 shards on
+    cuda:0 each take the moba-340m gradient (fp32 master weights, bf16
+    compute, remat) on ``flash`` of one 8,192-token row of a batch of 2,
+    in two rounds (batches 0 and 1, the same weights), and
+    ``compressed_psum`` reduces each round with the residuals carried.
+    Gates: both shards' means bit-equal; every element within one scale
+    (the larger of this round's and the last's) of the plain mean (fp64);
+    the error-feedback identity Σ rounds (mean − true mean) = −mean of
+    the final residuals, within ``EF_TOL`` of 127·s per leaf; the four
+    FlashMoBA kernels' exact launches (a training step's per gradient).
+    Reports the bytes by kind against an fp32 star reduce's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import moba_sp as SP
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.optim import compression as C
+
+    cfg = get_config("moba-340m")
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    names = [p for p, _ in adamw.tree_leaves(params)]
+    leaves = [leaf.requires_grad_() for _, leaf in adamw.tree_leaves(params)]
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=2, seed=0))
+    group = SP.CPGroup(["cuda:0"] * 2)
+    rounds = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _zero_counts()
+    for r in range(2):
+        tokens = torch.as_tensor(data.batch_at(r)["tokens"], device="cuda")
+        trees = []
+        for s in range(2):
+            loss, _ = T.lm_loss(params, {"tokens": tokens[s:s + 1]}, cfg,
+                                backend="flash", remat=True)
+            trees.append(adamw.tree_like(params, torch.autograd.grad(
+                loss, leaves)))
+        rounds.append(trees)
+    launches = _counts()
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    res = [C.init_residuals(params) for _ in range(2)]
+    drift = {n: 0.0 for n in names}
+    prev = {n: 0.0 for n in names}
+    top = {n: 0.0 for n in names}
+    psum_ms, bytes_rounds, err_over_scale = [], [], 0.0
+    equal = True
+    for trees in rounds:
+        g = [dict(adamw.tree_leaves(t)) for t in trees]
+        r = [dict(adamw.tree_leaves(t)) for t in res]
+        scale = {n: max(float((g[s][n] + r[s][n]).abs().max())
+                        for s in range(2)) / 127 for n in names}
+        before = dict(group.bytes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        means, res = C.compressed_psum(trees, res, group)
+        torch.cuda.synchronize()
+        psum_ms.append((time.perf_counter() - t0) * 1e3)
+        bytes_rounds.append({k: v - before.get(k, 0)
+                             for k, v in group.bytes.items()})
+        means = [dict(adamw.tree_leaves(t)) for t in means]
+        for n in names:
+            equal &= bool(torch.equal(means[0][n], means[1][n]))
+            err = means[0][n].double() - (g[0][n].double()
+                                          + g[1][n].double()) / 2
+            bound = max(prev[n], scale[n])
+            err_over_scale = max(err_over_scale,
+                                 float(err.abs().max()) / max(bound, 1e-30))
+            drift[n] = drift[n] + err
+            prev[n] = scale[n]
+            top[n] = max(top[n], scale[n])
+        del means, g, r
+    r = [dict(adamw.tree_leaves(t)) for t in res]
+    ef_gap = max(float((drift[n] + (r[0][n].double()
+                                    + r[1][n].double()) / 2).abs().max())
+                 / max(127 * top[n], 1e-30) for n in names)
+    n_params = sum(int(p.numel()) for _, p in adamw.tree_leaves(params))
+    fp32_star = 2 * n_params * 4     # shard 1's fp32 grads in, the mean out
+    want = {"block_centroids": 4 * 2 * MOBA_LAYERS,
+            "flash_topk": 4 * 2 * MOBA_LAYERS,
+            "moba_fwd": 4 * 2 * MOBA_LAYERS, "moba_bwd": 4 * MOBA_LAYERS}
+    rec = {"phase": "train_dp_compressed", "arch": cfg.name,
+           "dtype": cfg.dtype, "shards": 2, "rows_per_shard": 1,
+           "seq": TRAIN_SEQ, "rounds": 2, "params": n_params,
+           "leaves": len(names), "grads_s": grad_s, "psum_ms": psum_ms,
+           "means_bit_equal_across_shards": equal,
+           "max_err_over_scale": err_over_scale,
+           "ef_identity_gap_over_127s": ef_gap, "ef_tol": EF_TOL,
+           "bytes_per_round": bytes_rounds,
+           "bytes_per_round_total": [sum(b.values()) for b in bytes_rounds],
+           "fp32_star_reduce_bytes_per_round": fp32_star,
+           "payload_vs_fp32_in": [b.get("payload", 0) / (n_params * 4)
+                                  for b in bytes_rounds],
+           "launches": launches, "expected_launches": want}
+    emit(rec)
+    if not equal or err_over_scale > 1 + EF_TOL * 127 or ef_gap > EF_TOL:
+        raise SystemExit("train_dp_compressed: the shards' means differ, "
+                         "a mean is off the true mean by more than a "
+                         "scale, or the error-feedback identity fails")
+    if launches != want:
+        raise SystemExit(f"train_dp_compressed: launches {launches}, "
+                         f"expected {want}")
+    return launches
+
+
+def phase_pipeline():
+    """GPipe forward through ``distributed/pipeline.py``: moba-340m's 12
+    (swa, moba) groups (full width, bf16, seed-0 weights) split over 2
+    stages on cuda:0 (6 groups a stage, ``apply_block`` on ``flash``), 4
+    microbatches of 1 × 4,096 hidden states.  Gates: bit-equal to the
+    same stages applied microbatch by microbatch without the schedule,
+    within ``PIPE_TOL`` (max |Δ| / max |y|) of the whole batch through
+    them; 8 stage calls (S·M: the bubble's ticks skipped) over S + M − 1
+    = 5 ticks; exact launches of centroids, Flash TopK and ``moba_fwd``
+    (one each a MoBA layer a microbatch), none of ``moba_bwd``; the
+    activations' bytes between stages."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import moba_sp as SP
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("moba-340m")
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    pattern = cfg.layer_pattern
+    per_stage = cfg.num_layers // len(pattern) // PIPE_STAGES
+
+    def stack(tree):
+        return {k: stack(v) if isinstance(v, dict) else v.reshape(
+            PIPE_STAGES, per_stage, *v.shape[1:]) for k, v in tree.items()}
+
+    stacked = stack(params["blocks"])
+    calls = [0]
+
+    def stage_fn(p, h):
+        calls[0] += 1
+        for gi in range(per_stage):
+            for i, kind in enumerate(pattern):
+                h, _, _ = T.apply_block(T._group(p[f"slot_{i}"], gi), h, cfg,
+                                        kind, backend="flash")
+        return h
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(PIPE_MICROBATCHES, PIPE_SEQ, cfg.d_model, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    group = SP.CPGroup(["cuda:0"] * PIPE_STAGES)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = pipeline_forward(stage_fn, stacked, x, group,
+                               num_microbatches=PIPE_MICROBATCHES)
+        torch.cuda.synchronize()
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+        launches = _counts()
+        stage_calls = calls[0]
+        stages = [T._group(stacked, s) for s in range(PIPE_STAGES)]
+
+        def through(h):
+            for p in stages:
+                h = stage_fn(p, h)
+            return h
+
+        t0 = time.perf_counter()
+        plain = torch.cat([through(x[i:i + 1])
+                           for i in range(PIPE_MICROBATCHES)])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        whole = through(x)
+        torch.cuda.synchronize()
+        whole_ms = (time.perf_counter() - t0) * 1e3
+    per_mb = x[:1].numel() * x.element_size()
+    want = {"block_centroids": PIPE_MICROBATCHES * MOBA_LAYERS,
+            "flash_topk": PIPE_MICROBATCHES * MOBA_LAYERS,
+            "moba_fwd": PIPE_MICROBATCHES * MOBA_LAYERS, "moba_bwd": 0}
+    want_bytes = {"act": (PIPE_STAGES - 1) * PIPE_MICROBATCHES * per_mb,
+                  "out": PIPE_MICROBATCHES * per_mb}
+    rel = _max_rel(out, whole)
+    rec = {"phase": "pipeline", "arch": cfg.name, "dtype": "bfloat16",
+           "stages": PIPE_STAGES, "groups_per_stage": per_stage,
+           "microbatches": PIPE_MICROBATCHES, "microbatch": [1, PIPE_SEQ],
+           "ticks": PIPE_STAGES + PIPE_MICROBATCHES - 1,
+           "stage_calls": stage_calls,
+           "bit_equal_to_microbatch_loop": bool(torch.equal(out, plain)),
+           "max_rel_vs_whole_batch": rel, "tol": PIPE_TOL,
+           "finite": bool(torch.isfinite(out).all()),
+           "pipeline_ms": pipe_ms, "microbatch_loop_ms": plain_ms,
+           "whole_batch_ms": whole_ms, "bytes": dict(group.bytes),
+           "expected_bytes": want_bytes, "launches": launches,
+           "expected_launches": want}
+    emit(rec)
+    if not (rec["bit_equal_to_microbatch_loop"] and rec["finite"]
+            and rel <= PIPE_TOL
+            and stage_calls == PIPE_STAGES * PIPE_MICROBATCHES
+            and dict(group.bytes) == want_bytes and launches == want):
+        raise SystemExit("pipeline: the schedule's output, stage calls, "
+                         "bytes or launches are not as expected")
+    return launches
 
 
 # ------------------------------------------------------------------ phase 7
@@ -5796,6 +6283,10 @@ def main() -> int:
     train_also["train_accum_microbatch"] = accum["microbatch"]
     train_also["train_accum_in_loss"] = accum["accum_in_loss"]
     timed("train_resume", phase_train_resume)
+    timed("train_sp", phase_train_sp, train_rec["xla_losses"])
+    train_also["train_dp_compressed"] = timed("train_dp_compressed",
+                                              phase_train_dp_compressed)
+    train_also["pipeline"] = timed("pipeline", phase_pipeline)
     timed("train_grads", phase_train_grads)
     timed("train_grads", phase_train_grads, block_size=32, top_k=32)
     timed("train_key_conv", phase_train_grads,

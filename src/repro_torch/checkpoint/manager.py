@@ -17,8 +17,12 @@
 Trees are nested dicts of tensors whose dtypes numpy has (the trainer's
 fp32 params and moments).  ``extra`` carries the data-iterator step and
 anything JSON-serialisable beside the arrays, so a restart reproduces
-the exact token stream.  The reference's resharding on restore
-(``shardings``) belongs to the multi-device port and is not here.
+the exact token stream.
+
+* **Elastic**: arrays are stored whole, so a checkpoint restores onto
+  another layout: ``restore(devices=...)`` puts each leaf on the device
+  its tree names (the reference's ``shardings``), and a run saved under
+  one shard group resumes under another.
 """
 from __future__ import annotations
 
@@ -120,19 +124,31 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, step: Optional[int] = None
-                ) -> Tuple[Any, dict, int]:
+    def restore(self, template: Any, step: Optional[int] = None,
+                devices: Any = None) -> Tuple[Any, dict, int]:
         """Restore into the structure of ``template`` (a nested dict of
         tensors): each leaf of the checkpoint at ``step`` (default the
-        latest) with the template leaf's shape, cast to its dtype, on its
-        device.  Returns (tree, extra, step)."""
+        latest) with the template leaf's shape, cast to its dtype, on the
+        device ``devices`` names for it (a tree of the template's
+        structure whose leaves are devices, or None for the template
+        leaf's own device; ``devices=None`` keeps every leaf's).  A
+        ``devices`` tree of another structure raises ValueError.
+        Returns (tree, extra, step)."""
+        pairs = tree_leaves(template)
+        if devices is None:
+            placed = [None] * len(pairs)
+        else:
+            dev_pairs = tree_leaves(devices)
+            if [p for p, _ in dev_pairs] != [p for p, _ in pairs]:
+                raise ValueError("the devices tree does not have the "
+                                 "template's structure")
+            placed = [d for _, d in dev_pairs]
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
-        pairs = tree_leaves(template)
         with np.load(os.path.join(d, "arrays.npz")) as data:
             by_path = {p: data[f"a{i}"]
                        for i, p in enumerate(manifest["paths"])}
@@ -140,11 +156,12 @@ class CheckpointManager:
         if missing:
             raise KeyError(f"checkpoint missing params: {missing[:5]}...")
         restored = []
-        for p, tmpl in pairs:
+        for (p, tmpl), dev in zip(pairs, placed):
             arr = by_path[p]
             if list(arr.shape) != list(tmpl.shape):
                 raise ValueError(f"shape mismatch for {p}: "
                                  f"{arr.shape} vs {tuple(tmpl.shape)}")
             arr = arr.astype(_numpy_dtype(tmpl.dtype), copy=False)
-            restored.append(torch.from_numpy(arr).to(tmpl.device))
+            restored.append(torch.from_numpy(arr).to(
+                tmpl.device if dev is None else torch.device(dev)))
         return tree_like(template, restored), manifest["extra"], step

@@ -14,9 +14,10 @@ Registered backends of the port:
                 attention (``kernels/ops.py::flash_moba``, four CUDA
                 kernels) and the CUDA paged-decode kernel
                 (``kernels/moba_decode.py``) (alias: ``kernel``)
-  sp            sequence-parallel prefill and context-parallel decode
-                over the shards of the active ``distributed/moba_sp.py``
-                group (dense caches only) (alias: ``sp_unrolled``)
+  sp            sequence-parallel training and prefill and
+                context-parallel decode over the shards of the active
+                ``distributed/moba_sp.py`` group (dense caches only)
+                (alias: ``sp_unrolled``)
   sharded       the sharded engine's backend: per-shard paged math
                 delegated to a shard-free ``inner`` backend (``xla``)
 
@@ -281,13 +282,17 @@ class FlashBackend(AttentionBackend):
 
 
 class SPBackend(AttentionBackend):
-    """Sequence-parallel prefill and context-parallel decode
+    """Sequence-parallel training and prefill and context-parallel decode
     (``distributed/moba_sp.py``) over the shards of the active group
     (``moba_sp.use_group``; none active: the single-device plain paths).
-    Dense caches only, and never inside the sharded engine's per-shard
-    steps, since it moves data between shards itself: the sharded engine
-    runs it around the paged path as the fallback for requests longer
-    than one shard's pool.  ``sp_unrolled`` names the reference's
+    Training runs through it: ``make_train_step(cfg, tcfg, backend="sp")``
+    called under ``use_group`` differentiates the MoBA layers through
+    the shards, each recomputing its attention in the backward; the
+    dense and SWA layers run ``dense_attention`` on the lead, as in the
+    reference.  Dense caches only, and never inside the sharded
+    engine's per-shard steps, since it moves data between shards itself:
+    the sharded engine runs it around the paged path as the fallback for
+    requests longer than one shard's pool.  ``sp_unrolled`` names the reference's
     unrolled twin (a Python loop where ``sp`` scans); the port's tile
     loop is one eager loop either way, so it is an alias."""
 

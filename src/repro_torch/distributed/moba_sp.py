@@ -1,12 +1,17 @@
-"""Sequence-parallel (SP) MoBA prefill and context-parallel (CP) MoBA
-decode over the shards of a :class:`CPGroup`, one device each (a device
-may host several shards).
+"""Sequence-parallel (SP) MoBA attention for training and prefill, and
+context-parallel (CP) MoBA decode, over the shards of a :class:`CPGroup`,
+one device each (a device may host several shards).
 
-* **SP (prefill)**: the queries are split over the shards on the
-  sequence dim and K/V are copied to each shard.  Routing is per query,
-  so every shard routes and attends its own queries against the whole
-  K/V with nothing exchanged inside the attention; the K/V copies are
-  the entire cost.
+* **SP (training and prefill)**: the queries are split over the shards
+  on the sequence dim and K/V are copied to each shard.  Routing is per
+  query, so every shard routes and attends its own queries against the
+  whole K/V with nothing exchanged inside the attention; the K/V copies
+  are the entire forward cost.  Training differentiates through it: each
+  shard's attention runs under ``torch.utils.checkpoint`` (the
+  reference's ``jax.checkpoint``, the paper's backward with
+  recomputation), so a shard keeps only its inputs and the backward
+  rebuilds its tiles; dQ slices, dK and dV come back to the lead, where
+  autograd sums the shards' dK and dV (:func:`sp_attention_bytes`).
 * **CP (decode)**: the KV cache and its centroid cache live as S
   sequence segments, segment s on shard s's device.  Each shard scores
   its own centroids and proposes its local top-k; every shard takes the
@@ -17,12 +22,13 @@ may host several shards).
   and (tp-1)·(d+2) partial floats, against the O(N·d) of gathering the
   cache (:func:`cp_decode_bytes`).
 
-The reference runs both as ``shard_map`` bodies whose ``all_gather``
-collectives cross devices.  Here one host process drives every shard,
-and every tensor that passes from one shard to another goes through
-:meth:`CPGroup.send`, which counts its bytes by kind; nothing else
-crosses.  Shard 0's device is the lead: the rest of the model runs
-there, and the queries come from and the outputs go back to it.
+The reference runs both as ``shard_map`` bodies whose collectives cross
+devices.  Here one host process drives every shard, and every tensor
+that passes from one shard to another goes through :meth:`CPGroup.send`,
+which counts its bytes by kind, and the bytes of its gradient under
+``<kind>_grad``; nothing else crosses.  Shard 0's device is the lead:
+the rest of the model runs there, and the queries come from and the
+outputs go back to it.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import contextlib
 from typing import Dict, List, Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import MoBAConfig
 from repro_torch.core import routing
@@ -42,9 +49,10 @@ NEG_INF = routing.NEG_INF
 class CPGroup:
     """The devices of the shards taking part in SP/CP attention, and the
     one place tensors move between them.  ``bytes`` counts what
-    :meth:`send` moved from one shard to another, by kind: shards that
-    share a device count too, since on separate cards the same bytes
-    would cross."""
+    :meth:`send` moved from one shard to another, by kind, and what the
+    backward moved back under ``<kind>_grad``: shards that share a
+    device count too, since on separate cards the same bytes would
+    cross."""
 
     def __init__(self, devices: Sequence):
         if not devices:
@@ -58,10 +66,29 @@ class CPGroup:
 
     def send(self, x: torch.Tensor, src: int, dst: int,
              kind: str) -> torch.Tensor:
-        """``x`` (held by shard ``src``) on shard ``dst``'s device."""
-        if src != dst:
-            self.bytes[kind] += x.numel() * x.element_size()
-        return x.to(self.devices[dst], non_blocking=True)
+        """``x`` (held by shard ``src``) on shard ``dst``'s device; its
+        gradient goes back to ``src`` and counts under ``<kind>_grad``."""
+        if src == dst:
+            return x.to(self.devices[dst], non_blocking=True)
+        self.bytes[kind] += x.numel() * x.element_size()
+        return _Send.apply(x, self, src, dst, kind)
+
+
+class _Send(torch.autograd.Function):
+    """``.to()`` between two shards whose backward counts the gradient's
+    bytes as it moves back."""
+
+    @staticmethod
+    def forward(ctx, x, group: CPGroup, src: int, dst: int, kind: str):
+        ctx.group, ctx.src, ctx.kind = group, src, kind
+        return x.to(group.devices[dst], non_blocking=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.group.bytes[ctx.kind + "_grad"] += grad.numel() \
+            * grad.element_size()
+        return (grad.to(ctx.group.devices[ctx.src], non_blocking=True),
+                None, None, None, None)
 
 
 _ACTIVE: List[Optional[CPGroup]] = [None]
@@ -93,7 +120,28 @@ def cp_decode_bytes(b: int, h: int, d: int, top_k: int, tp: int,
             "partials": (tp - 1) * b * h * (d + 2) * 4}
 
 
-# ------------------------------------------------------------ SP prefill
+def sp_attention_bytes(b: int, h: int, hkv: int, nq: int, n: int, d: int,
+                       tp: int, itemsize: int,
+                       positions_itemsize: int = 0) -> Dict[str, int]:
+    """Bytes one :func:`moba_attention_sp` call over tp shards moves
+    between shards in its forward and backward, by kind: the queries'
+    slices to tp-1 shards, K and V to tp-1 shards, the outputs' slices
+    back to the lead, and their gradients the other way (``q_grad``: dQ
+    slices to the lead; ``kv_grad``: each shard's dK and dV to the lead;
+    ``out_grad``: dO slices to the shards).  Every tensor in the dtype
+    of q, k and v (``itemsize`` bytes).  Explicit query positions
+    (``positions_itemsize`` bytes each; the model's layers pass them)
+    go to tp-1 shards as ``positions``."""
+    q_part = (tp - 1) * b * h * (nq // tp) * d * itemsize
+    out = {"q": q_part, "kv": 2 * (tp - 1) * b * hkv * n * d * itemsize,
+           "out": q_part}
+    out.update({f"{k}_grad": v for k, v in list(out.items())})
+    if positions_itemsize:
+        out["positions"] = (tp - 1) * (nq // tp) * positions_itemsize
+    return out
+
+
+# ------------------------------------------------------- SP attention
 def moba_attention_sp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       cfg: MoBAConfig, scale: Optional[float] = None,
                       q_positions: Optional[torch.Tensor] = None,
@@ -105,7 +153,14 @@ def moba_attention_sp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q_positions``' slice (default ``s·Nq/tp + arange + N - Nq``, the
     reference's); the outputs come back to the lead in order.  Plain
     ``moba_sparse_xla`` without a group (``group`` or the active one),
-    with one shard, or when tp does not divide Nq.  Forward only."""
+    with one shard, or when tp does not divide Nq.
+
+    Differentiable: each shard's call runs under
+    ``torch.utils.checkpoint``, so the autograd graph keeps only the
+    shard's inputs and the backward recomputes its tiles (routing is
+    not differentiated, as in ``moba_sparse_xla``).  The gradients cross
+    back through :meth:`CPGroup.send`, counted under ``q_grad``,
+    ``kv_grad`` and ``out_grad`` (:func:`sp_attention_bytes`)."""
     b, h, nq, d = q.shape
     n = k.shape[2]
     group = group or active_group()
@@ -114,17 +169,24 @@ def moba_attention_sp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return kref.moba_sparse_xla(q, k, v, cfg, q_positions=q_positions,
                                     scale=scale, tile=tile)
     nq_local = nq // tp
+
+    def shard_fn(q_s, k_s, v_s, pos):
+        return kref.moba_sparse_xla(q_s, k_s, v_s, cfg, q_positions=pos,
+                                    scale=scale, tile=min(tile, nq_local))
+
     outs = []
     for s, dev in enumerate(group.devices):
         rows = slice(s * nq_local, (s + 1) * nq_local)
         if q_positions is None:
             pos = torch.arange(nq_local, device=dev) + s * nq_local + n - nq
         else:
-            pos = group.send(torch.as_tensor(q_positions)[rows], 0, s, "q")
-        o = kref.moba_sparse_xla(
-            group.send(q[:, :, rows], 0, s, "q"), group.send(k, 0, s, "kv"),
-            group.send(v, 0, s, "kv"), cfg, q_positions=pos, scale=scale,
-            tile=min(tile, nq_local))
+            pos = group.send(torch.as_tensor(q_positions)[rows], 0, s,
+                             "positions")
+        args = (group.send(q[:, :, rows], 0, s, "q"),
+                group.send(k, 0, s, "kv"), group.send(v, 0, s, "kv"), pos)
+        o = (torch.utils.checkpoint.checkpoint(shard_fn, *args,
+                                               use_reentrant=False)
+             if torch.is_grad_enabled() else shard_fn(*args))
         outs.append(group.send(o, s, 0, "out"))
     return torch.cat(outs, dim=2)
 
