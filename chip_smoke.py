@@ -371,6 +371,31 @@ Phases, one JSON line each; any failure exits non-zero:
                to the stages applied microbatch by microbatch, within
                3e-2 of the whole batch, 5 ticks and 8 stage calls, exact
                forward launches (48 each), the activations' bytes.
+               ``examples``, right after phase 6: each script of
+               ``examples_torch/`` as a user runs it on the card, all
+               four in subprocesses started together (``python3
+               examples_torch/<name>.py``, each with its own timeout):
+               ``quickstart.py``; ``train_lm.py --full --steps 30`` into
+               a temporary checkpoint directory (moba-340m at full width
+               and depth, ``sparse``); ``serve_decode.py --attn-backend
+               flash --full`` (qwen3-0.6b at full width: the decode
+               kernel takes head dims 64 and 128 only); and
+               ``longcontext_niah.py``.  Gates: quickstart's reference
+               vs sparse and reference vs kernel errors <= 2e-4 (fp32);
+               train_lm's final loss below its first; serve_decode's
+               token array (4, 16); the NIAH table's 4 rows of 3
+               accuracies in [0, 1]; every exit code 0.  Meanwhile in
+               this process, counts zeroed just before and read just
+               after: quickstart's ``run`` on the card (one centroids,
+               Flash TopK and ``moba_fwd`` launch, errors <= 2e-4) and
+               serve_decode's ``main`` with the same arguments (decode
+               calls a multiple of qwen3-0.6b's 28 MoBA layers, three
+               kernels each).  Then ``models/api.py``'s
+               ``param_count`` and ``active_param_count`` of every
+               config, and phase 6's ``model_flops`` per token (6·N, N
+               the active parameters less the untied embedding) with
+               the share of ``BF16_FLOPS`` it implies at phase 6's
+               median step, beside the card's name and power limit.
   7. train_grads — the same weights in fp32 (TF32 off), batch 1, seq
                2048: ``lm_loss`` and every gradient leaf under ``flash``
                against ``xla`` (loss 2e-4 relative, each leaf max |Δ| /
@@ -423,12 +448,13 @@ kernel's launches on the other paths, ``serve_key_conv``,
 ``serve_qwen3``, ``serve_adaptive`` (its (b) run), ``serve_prefix``
 (each case with the cache on), ``serve_stream``, ``serve_openloop``
 (each ``dispatch_ahead``), ``serve_sharded`` (its bf16 run) and
-``serve_moe`` for the decode kernels,
+``serve_moe`` and ``examples_serve_decode`` for the decode kernels,
 whose bf16 entry also holds ``with_budgets`` and its times at
 ``g1-d128``; ``serve_fixed``'s prefill, ``train_small_blocks``,
 ``train_key_conv``, ``train_accum``'s two accumulating bf16 steps,
 ``train_dp_compressed``, ``pipeline``, ``train_moe``, ``serve_encdec``,
-``serve_vlm`` and ``train_encdec`` for the training kernels, each with its times at ``g1-d128`` and
+``serve_vlm``, ``train_encdec`` and ``examples_quickstart`` for the
+training kernels, each with its times at ``g1-d128`` and
 ``g8-d128``), and as the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -5131,6 +5157,178 @@ def _time_key_conv() -> dict:
             "decode_layer": call_cost(decode, flush)}
 
 
+# ---------------------------------------------------------------- examples
+EXAMPLES = os.path.join(ROOT, "examples_torch")
+EXAMPLE_TIMEOUT_S = 300
+EXAMPLE_TOL = 2e-4                 # fp32, as tests/test_kernels.py
+SERVE_DECODE_ARGS = ["--attn-backend", "flash", "--full"]
+
+
+def _example_module(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_gates(out: dict) -> dict:
+    """What each example printed, read back: quickstart's two errors,
+    train_lm's first and final loss, serve_decode's token array shape,
+    the NIAH table's rows."""
+    import re
+    got = {}
+    errs = re.findall(r"max err: (\S+)", out["quickstart"])
+    got["quickstart_errors"] = [float(e) for e in errs]
+    m = re.search(r"final loss: (\S+) \(start (\S+)\)", out["train_lm"])
+    got["train_lm_loss"] = (None if m is None
+                            else {"first": float(m.group(2)),
+                                  "final": float(m.group(1))})
+    tail = out["serve_decode"].partition("generated token ids (greedy):")[2]
+    rows = [r.split() for r in re.findall(r"\[([^\[\]]*)\]", tail)]
+    got["serve_decode_shape"] = ([len(rows), len(rows[0])]
+                                 if rows and len({len(r) for r in rows}) == 1
+                                 else None)
+    got["niah_rows"] = {
+        ln.split()[0]: [float(a) for a in ln.split()[1:]]
+        for ln in out["longcontext_niah"].splitlines()
+        if ln.startswith(("B256", "B128", "B64"))}
+    return got
+
+
+def phase_examples(smi: str, train_rec: dict):
+    """The four ``examples_torch/`` scripts in subprocesses on the card,
+    quickstart's and serve_decode's paths in this process with their
+    launch counts, the model sizes and phase 6's model FLOPs share.
+    Returns (quickstart's training-kernel counts, serve_decode's (decode
+    calls, kernel launches))."""
+    import tempfile
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import moba_decode as MD
+    from repro_torch.launch import steps as S
+    from repro_torch.models import api
+
+    t0 = time.perf_counter()
+    bad = []
+    with tempfile.TemporaryDirectory() as ckpt:
+        runs = {"quickstart": [],
+                "train_lm": ["--full", "--steps", "30", "--ckpt-dir", ckpt],
+                "serve_decode": SERVE_DECODE_ARGS,
+                "longcontext_niah": []}
+        env = dict(os.environ, PYTHONPATH=SRC)
+        procs = {name: subprocess.Popen(
+            [sys.executable, os.path.join(EXAMPLES, f"{name}.py"), *args],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for name, args in runs.items()}
+        try:
+            # quickstart's path in this process: the three forward kernels
+            qs = _example_module("quickstart")
+            _zero_counts()
+            q_out = qs.run(*qs.inputs(), device="cuda")
+            torch.cuda.synchronize()
+            q_counts = _counts()
+            # serve_decode's path in this process: the decode kernel
+            sd = _example_module("serve_decode")
+            MD.LAUNCHES = MD.KERNEL_LAUNCHES = 0
+            toks = sd.main(SERVE_DECODE_ARGS)
+            torch.cuda.synchronize()
+            d_calls, d_kernels = MD.LAUNCHES, MD.KERNEL_LAUNCHES
+            gc.collect()
+            torch.cuda.empty_cache()
+            results = {}
+            for name, proc in procs.items():
+                out, err = proc.communicate(
+                    timeout=max(1.0, EXAMPLE_TIMEOUT_S
+                                - (time.perf_counter() - t0)))
+                results[name] = {"rc": proc.returncode, "stdout": out,
+                                 "stderr_tail": err[-2000:]}
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    got = _example_gates({k: r["stdout"] for k, r in results.items()})
+    for name, r in results.items():
+        if r["rc"] != 0:
+            bad.append(f"{name} exited {r['rc']}: {r['stderr_tail']}")
+    errs = got["quickstart_errors"]
+    if len(errs) != 2 or not max(errs) <= EXAMPLE_TOL:
+        bad.append(f"quickstart's errors {errs} (want two <= "
+                   f"{EXAMPLE_TOL})")
+    loss = got["train_lm_loss"]
+    if loss is None or not loss["final"] < loss["first"]:
+        bad.append(f"train_lm's loss did not fall: {loss}")
+    if got["serve_decode_shape"] != [4, 16]:
+        bad.append(f"serve_decode printed tokens of shape "
+                   f"{got['serve_decode_shape']}, want [4, 16]")
+    rows = got["niah_rows"]
+    if list(rows) != [c[0] for c in _example_module(
+            "longcontext_niah").CONFIGS] or not all(
+            len(a) == 3 and all(0 <= x <= 1 for x in a)
+            for a in rows.values()):
+        bad.append(f"the NIAH table is not 4 rows of 3 accuracies: {rows}")
+    in_errs = [q_out["err_sparse"], q_out["err_kernel"]]
+    if not max(in_errs) <= EXAMPLE_TOL:
+        bad.append(f"quickstart in process: errors {in_errs}")
+    want = {"block_centroids": 1, "flash_topk": 1, "moba_fwd": 1,
+            "moba_bwd": 0}
+    if q_counts != want:
+        bad.append(f"quickstart launched {q_counts}, want {want}")
+    layers = _moba_layers(configs.get_config("qwen3-0.6b"))
+    if tuple(toks.shape) != (4, 16) or d_calls == 0 \
+            or d_calls % layers or d_kernels != 3 * d_calls:
+        bad.append(f"serve_decode in process: tokens {tuple(toks.shape)}, "
+                   f"{d_calls} decode calls / {d_kernels} kernels (a "
+                   f"multiple of {layers} calls, 3 kernels each)")
+    # the model-level API: sizes of every config, phase 6's FLOPs share
+    sizes = {}
+    for arch in sorted(configs.ARCHS):
+        cfg = configs.get_config(arch)
+        sizes[arch] = {"param_count": api.param_count(cfg),
+                       "active_param_count": api.active_param_count(cfg)}
+    cfg = configs.get_config("moba-340m")
+    info = configs.ASSIGNED_SHAPES["train_4k"]
+    per_token = S.model_flops(cfg, "train_4k") / (info["seq_len"]
+                                                  * info["global_batch"])
+    step_s = train_rec["median_step_ms_steps_2_4"] / 1e3
+    share = per_token * TRAIN_SEQ / step_s / BF16_FLOPS
+    flops = {"arch": cfg.name, "model_flops_per_token": per_token,
+             "tokens_per_step": TRAIN_SEQ, "median_step_ms": step_s * 1e3,
+             "model_tflops_per_s": per_token * TRAIN_SEQ / step_s / 1e12,
+             "peak_tflops_per_s": BF16_FLOPS / 1e12,
+             "share_of_bf16_peak": share,
+             "counts": "6·N a token, N the active parameters less the "
+                       "untied embedding; attention's own FLOPs are not "
+                       "in N"}
+    rec = {"phase": "examples", "nvidia_smi": smi, "gates": got,
+           "exit_codes": {k: r["rc"] for k, r in results.items()},
+           "train_lm_stdout_tail": results["train_lm"]["stdout"][-600:],
+           "niah_stdout": results["longcontext_niah"]["stdout"],
+           "quickstart_in_process": {
+               "errors": in_errs, "launches": q_counts,
+               "selection_query_300": q_out["selection"].tolist()},
+           "serve_decode_in_process": {
+               "args": SERVE_DECODE_ARGS, "tokens_shape": list(toks.shape),
+               "decode_calls": d_calls, "kernel_launches": d_kernels},
+           "param_counts": sizes, "train_model_flops": flops,
+           "ok": not bad, "failures": bad}
+    emit(rec)
+    print(f"{smi}: {cfg.name} trains at {flops['model_tflops_per_s']:.1f} "
+          f"model TFLOP/s ({per_token:.4g} FLOPs a token, "
+          f"{step_s * 1e3:.1f} ms a {TRAIN_SEQ}-token step), "
+          f"{share:.4f} of {BF16_FLOPS / 1e12:.0f} TFLOP/s", flush=True)
+    for arch, n in sizes.items():
+        print(f"{smi}: {arch} {n['param_count']:,} params, "
+              f"{n['active_param_count']:,} active", flush=True)
+    if bad:
+        raise SystemExit("examples: " + "; ".join(bad))
+    return q_counts, (d_calls, d_kernels)
+
+
 # ------------------------------------------------- accumulation and resume
 ACCUM_MODES = ("microbatch", "accum_in_loss", "one_shot")
 ACCUM_LOSS_RTOL = 2e-4
@@ -6274,6 +6472,8 @@ def main() -> int:
              "serve_vlm": timed("serve_vlm", phase_serve_cross, VLM_ARCH)}
     train_timing, train_err = timed("train_kernels", phase_train_kernels)
     train_launches, train_rec = timed("train", phase_train)
+    examples_counts, decode_also["examples_serve_decode"] = timed(
+        "examples", phase_examples, smi, train_rec)
     small_blocks = timed("train_small_blocks", phase_train_small_blocks)
     train_also = {"serve_fixed": fixed_counts,
                   "train_small_blocks": small_blocks["launches"],
@@ -6294,6 +6494,7 @@ def main() -> int:
     train_also["train_moe"] = timed("train_moe", phase_train_moe)
     train_also.update(cross)
     train_also["train_encdec"] = timed("train_encdec", phase_train_encdec)
+    train_also["examples_quickstart"] = examples_counts
     swa_launches, swa_timing = timed("swa", phase_swa)
     emit({"phase_seconds": seconds,
           "total_s": time.perf_counter() - t_start})

@@ -1,5 +1,6 @@
 """Step-function builders: the training step, the fixed serving loop's
-dense-cache prefill and decode steps, and the paged serving engine's.
+dense-cache prefill and decode steps, and the paged serving engine's;
+``model_flops``, the model FLOPs of one assigned shape.
 
 The reference jits these and donates the params, optimizer state and
 cache arguments; the port runs them eagerly and updates params, moments
@@ -13,7 +14,8 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ASSIGNED_SHAPES, ModelConfig, TrainConfig
+from repro_torch.models import api
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 
@@ -221,3 +223,19 @@ def make_paged_decode_step(cfg: ModelConfig, backend: str = "reference",
                 caches)
 
     return decode_step
+
+
+def model_flops(cfg: ModelConfig, shape: str) -> float:
+    """MODEL_FLOPS of one ``ASSIGNED_SHAPES`` cell: 6·N·D (train) / 2·N·D
+    (forward) with N the active parameters less an untied embedding
+    table (a lookup, ~no matmul; MoE: only routed top-k + shared
+    experts) and D the tokens (decode: one a sequence)."""
+    info = ASSIGNED_SHAPES[shape]
+    n = api.active_param_count(cfg)
+    if not cfg.tie_embeddings:
+        n -= cfg.vocab_size * cfg.d_model
+    if info["kind"] == "train":
+        return 6.0 * n * info["seq_len"] * info["global_batch"]
+    if info["kind"] == "prefill":
+        return 2.0 * n * info["seq_len"] * info["global_batch"]
+    return 2.0 * n * info["global_batch"]

@@ -23,7 +23,6 @@ package, on the same numpy inputs.
 """
 import dataclasses
 import json
-import os
 import pathlib
 import subprocess
 import sys
@@ -56,6 +55,7 @@ from repro_torch.serving.scheduler import UnsupportedFeatureError
 
 from test_torch_decode import DISAGREE, GEOMETRIES, _case
 from test_torch_decode_split import ROUTE_GEOMETRIES
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ATOL = RTOL = 1e-3   # tests/test_backends.py:201
@@ -572,7 +572,7 @@ def test_engine_rejects_bad_route_policy(model, tmp_path, bad):
                                        ("snr:pfail=0.9", 2)],
                          ids=["snr", "bad"])
 def test_serve_cli_route_policy_on_cpu(policy, rc):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = one_thread_env(PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
          "--mode", "batch", "--device", "cpu", "--attn-backend", "flash",

@@ -26,6 +26,7 @@ from repro_torch.data import niah as TN
 from repro_torch.models import transformer as TT
 from repro_torch.optim import adamw
 from repro_torch.serving.engine import Engine, EngineConfig
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DENSE_ARCHS = ("moba-1b", "qwen3-0.6b", "qwen3-14b", "internlm2-1.8b",
                "codeqwen1.5-7b")

@@ -22,6 +22,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import from_jax
 from repro_torch.optim import adamw
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _tree():

@@ -43,20 +43,10 @@ from repro_torch.models import transformer as T
 from repro_torch.serving.engine import EngineConfig
 from repro_torch.serving.sharded import ShardedEngine
 from test_torch_fixed import _jax_selection
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=3e-4, atol=3e-4)        # tests/test_distributed.py:44-45
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """These tests run many tiny ops: beside the suite's other workers,
-    intra-op threads only contend for the cores (one thread is faster
-    here even alone).  Restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(x):

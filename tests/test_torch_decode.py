@@ -24,6 +24,7 @@ from repro.serving import paged_cache as JPC
 from repro_torch.configs.base import MoBAConfig
 from repro_torch.core import moba as TM
 from repro_torch.kernels import moba_decode as TMD
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = RTOL = 1e-3   # tests/test_backends.py:201
 # jitted once: op-by-op JAX would compile every primitive of the append

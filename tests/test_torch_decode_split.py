@@ -33,6 +33,7 @@ from repro_torch.kernels import moba_decode as TMD
 from repro_torch.kernels.centroids import block_centroids_kernel
 
 from test_torch_decode import DISAGREE, GEOMETRIES, _case
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = RTOL = 1e-3   # tests/test_backends.py:201, test_quantized_pages.py:43
 

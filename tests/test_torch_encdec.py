@@ -29,6 +29,7 @@ from repro.models import transformer as JT
 from repro_torch import configs as TC
 from repro_torch.convert import from_jax
 from repro_torch.models import transformer as TT
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCH = "seamless-m4t-medium"
 

@@ -10,7 +10,6 @@ ahead.
 """
 import collections
 import dataclasses
-import os
 import pathlib
 import re
 import subprocess
@@ -37,6 +36,7 @@ from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.scheduler import (ServingError,
                                            UnsupportedFeatureError)
 from repro_torch.serving.sharded import ShardedEngine
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -256,9 +256,15 @@ _FORBIDDEN = re.compile(
 def test_port_imports_neither_jax_nor_reference_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "examples_torch").glob("*.py"))
     assert len(files) > 20                  # the scan sees the package
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert {"src/repro_torch/core/key_conv.py",
+            "src/repro_torch/models/api.py",
+            "examples_torch/quickstart.py",
+            "examples_torch/train_lm.py",
+            "examples_torch/serve_decode.py",
+            "examples_torch/longcontext_niah.py",
             "src/repro_torch/checkpoint/manager.py",
             "src/repro_torch/data/niah.py",
             "src/repro_torch/configs/qwen3_0_6b.py",
@@ -271,7 +277,7 @@ def test_port_imports_neither_jax_nor_reference_package():
 
 
 def test_serve_cli_smoke_on_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = one_thread_env(PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
          "--mode", "batch", "--device", "cpu", "--attn-backend", "flash",
@@ -300,7 +306,7 @@ def test_moba_impl_removed_everywhere():
 def test_moba_impl_cli_flag_rejected(module):
     """Both CLIs exit 2 on --moba-impl, naming the --attn-backend
     replacement (no silent precedence)."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = one_thread_env(PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run(
         [sys.executable, "-m", module, "--moba-impl", "xla", "--smoke",
          "--device", "cpu"],

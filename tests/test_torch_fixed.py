@@ -44,6 +44,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.scheduler import UnsupportedFeatureError
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=2e-4, rtol=2e-4)         # tests/test_kernels.py:24 (fp32)
 BACKENDS = ("reference", "xla", "flash")

@@ -34,6 +34,7 @@ from repro_torch.kernels import moba_bwd as TB
 from repro_torch.kernels import moba_fwd as TF
 from repro_torch.kernels.moba_bwd import moba_bwd, segments
 from repro_torch.kernels.moba_fwd import moba_fwd
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F32 = dict(atol=2e-4, rtol=2e-4)         # tests/test_kernels.py:24 (fp32)
 BF16 = dict(atol=3e-2, rtol=3e-2)

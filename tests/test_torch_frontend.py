@@ -18,7 +18,6 @@ import asyncio
 import dataclasses
 import http.client
 import json
-import os
 import pathlib
 import signal
 import socket
@@ -43,6 +42,7 @@ from repro_torch.launch import serve as TS
 from repro_torch.models import transformer as T
 from repro_torch.serving import frontend as FE
 from repro_torch.serving.engine import Engine, EngineConfig
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -182,7 +182,7 @@ def test_serve_openloop_counts_equal_jax():
 
 # ----------------------------------------------------------------- the CLI
 def _cli(*args, timeout=240):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = one_thread_env(PYTHONPATH=str(ROOT / "src"))
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
          "--device", "cpu", *args],
@@ -234,7 +234,7 @@ def test_serve_http_subprocess():
     weights (seed 0); ``/stats`` counts the decode steps; SIGINT ends
     the server with exit code 0."""
     port = _free_port()
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = one_thread_env(PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
          "--device", "cpu", "--http", str(port), "--max-seqs", "4"],

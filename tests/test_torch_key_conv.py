@@ -16,7 +16,6 @@ package, on the same numpy-made inputs and converted weights.
   from int8 pools;
 * the ring's layout, its swap snapshot, and the capability query.
 """
-import os
 import pathlib
 import subprocess
 import sys
@@ -42,6 +41,7 @@ from repro_torch.optim import adamw
 from repro_torch.serving import paged_cache as TPC
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.scheduler import UnsupportedFeatureError
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TOL = dict(atol=2e-4, rtol=2e-4)         # tests/test_kernels.py:24 (fp32)
@@ -334,7 +334,7 @@ def test_train_moves_the_conv_weights():
 
 
 def test_train_cli_key_conv_on_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = one_thread_env(PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "moba-340m", "--key-conv", "3", "--smoke", "--steps", "2",

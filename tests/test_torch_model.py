@@ -31,6 +31,7 @@ from repro_torch.core import routing as TR
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.serving import paged_cache as TPC
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=2e-4, rtol=2e-4)         # tests/test_kernels.py:24 (fp32)
 # jitted once per test module: op-by-op JAX would compile every primitive

@@ -30,6 +30,7 @@ from repro_torch.models import moe as TMOE
 from repro_torch.models import transformer as TT
 from repro_torch.optim import adamw
 from repro_torch.serving.engine import Engine, EngineConfig
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b")
 

@@ -57,6 +57,7 @@ from repro_torch.launch import steps as S
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.optim import compression as C
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 GRAD_TOL = dict(rtol=2e-4, atol=2e-4)          # fp32 SP gradients
@@ -69,16 +70,6 @@ PIPE_CASES = ((4, 4), (4, 1), (1, 4))          # (stages, microbatches)
 PIPE_TOL = dict(rtol=1e-5, atol=1e-5)
 TRAIN = dict(global_batch_size=2, seq_len=64, total_steps=3, warmup_steps=1,
              microbatch=2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """Many tiny ops: beside the suite's other workers, intra-op threads
-    only contend for the cores.  Restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(x):

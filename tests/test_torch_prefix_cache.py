@@ -13,7 +13,6 @@ and tree eviction.  The device-side ops (``copy_pages``,
 ``load_ring_from_tails``, ``update_key_conv_tails``) equal JAX's on the
 same numpy pools.
 """
-import os
 import pathlib
 import subprocess
 import sys
@@ -34,6 +33,7 @@ from repro_torch.convert import from_jax
 from repro_torch.serving import paged_cache as PC
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.scheduler import ServingError
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -407,7 +407,7 @@ def test_swap_snapshot_carries_tails(kconv):
 def test_serve_cli_prefix_cache_on_cpu():
     """``--prefix-cache`` with chunked prefill and swap off: exits 0 and
     reports the cache's hit rate and COW copies."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = one_thread_env(PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
          "--mode", "batch", "--device", "cpu", "--attn-backend", "flash",

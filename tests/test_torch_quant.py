@@ -48,6 +48,7 @@ from repro_torch.kernels import moba_decode as TMD
 from repro_torch.serving import paged_cache as TPC
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.scheduler import UnsupportedFeatureError
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 QUANT = ("int8", "fp8")
 KERNEL_TOL = 1e-3        # tests/test_quantized_pages.py:43

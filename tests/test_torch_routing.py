@@ -21,6 +21,7 @@ from repro.core import routing as JR
 from repro_torch.core import routing as TR
 from repro_torch.kernels import moba_decode as TMD
 from repro_torch.kernels import ref as TREF
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 KINDS = ("zeros", "zeros-and-equal", "rounded")
 

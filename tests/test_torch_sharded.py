@@ -48,19 +48,9 @@ from repro_torch.serving.engine import Engine, EngineConfig, prefill_bucket
 from repro_torch.serving.scheduler import (ServingError,
                                            UnsupportedFeatureError)
 from repro_torch.serving.sharded import Router, ShardedEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PROMPT_LENS, GEN = (40, 35, 30, 38), 12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """These tests run many tiny ops: beside the suite's other workers,
-    intra-op threads only contend for the cores (one thread is faster
-    here even alone).  Restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _prompts(lens=PROMPT_LENS, seed=4):

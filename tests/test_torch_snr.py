@@ -18,6 +18,7 @@ import torch
 
 from repro.core import snr as JS
 from repro_torch.core import snr as TS
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FORMULA_CASES = [(64, 128, 0.6), (64, 16, 0.25), (128, 512, 1.3),
                  (32, 64, 0.0), (16, 32, 2.0)]

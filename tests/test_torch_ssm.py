@@ -31,6 +31,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.optim import adamw
 from repro_torch.serving import engine as TE
 from repro_torch.serving.scheduler import UnsupportedFeatureError
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ("mamba2-780m", "zamba2-1.2b")
 

@@ -18,6 +18,7 @@ import torch
 
 from repro.kernels.swa import swa_attention as jax_swa
 from repro_torch.kernels import swa as TS
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GEOMETRIES = [(256, 64, 64, 64, 2, 1, 32),      # tests/test_swa_kernel.py
               (256, 32, 128, 64, 4, 2, 32),

@@ -34,6 +34,7 @@ from repro_torch.launch import steps as S
 from repro_torch.launch.train import train
 from repro_torch.models import transformer as TT
 from repro_torch.optim import adamw
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 BACKENDS = ("reference", "xla", "flash")
@@ -200,7 +201,7 @@ def test_three_train_steps_match_jax(smoke, backend):
 
 # --------------------------------------------------------------------- CLI
 def _cli(*args, timeout=240):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = one_thread_env(PYTHONPATH=str(ROOT / "src"))
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", *args],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)

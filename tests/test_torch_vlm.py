@@ -20,6 +20,7 @@ from crossattn_cases import (  # noqa: F401  (collected here)
 from repro.models import transformer as JT
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TT
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")
