@@ -438,6 +438,21 @@ Phases, one JSON line each; any failure exits non-zero:
                sliding-window ``BlockMask``, compiled once, as a second
                yardstick (its error instead if it cannot be built).  No
                serving or training path launches the kernel.
+  9. dryrun  — the dry run (``repro_torch.launch.dryrun``) held to the
+               card.  Its CLI costs moba-340m × train_4k and qwen3-0.6b
+               × decode_32k on the 16 × 16 layout in two subprocesses
+               (meta tensors, no card) and their tables are printed;
+               meanwhile ``cost_cell`` costs phase 6's step (moba-340m,
+               1 × 8,192, remat, AdamW) on the ``xla`` backend on a 1 × 1
+               layout.  Then that step runs on the card under
+               ``FlopCounterMode`` after ``reset_peak_memory_stats()``:
+               the FLOPs must equal the prediction exactly (the same
+               aten ops) and the predicted peak (state + traced
+               activations) must lie within 15% of
+               ``max_memory_allocated()`` less what was allocated before
+               the step's inputs were built.  Two more steps are timed
+               (inputs built, card synchronised, then the step) against
+               the 1 × 1 roofline bound.
 
 Then each phase's wall seconds and the script's total, the card's name
 and power limit, the kernel line (the six kernels,
@@ -6228,6 +6243,120 @@ def phase_swa():
 
 
 # ------------------------------------------------------------------- --ab
+# ------------------------------------------------------------------ phase 9
+DRYRUN_CELLS = (("moba-340m", "train_4k"), ("qwen3-0.6b", "decode_32k"))
+DRYRUN_PEAK_TOL = 0.15             # predicted peak against the card's
+DRYRUN_TIMED_STEPS = 2
+DRYRUN_TIMEOUT_S = 300
+
+
+def phase_dryrun():
+    """Phase 9: the CLI's two cells, and phase 6's step costed on a 1 × 1
+    layout then run on the card: FLOPs equal, peak within 15%, step ms
+    against the roofline bound."""
+    import tempfile
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Layout
+    from repro_torch.launch import dryrun as DR
+
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--archs", arch,
+         "--shapes", shape, "--mesh", "single", "--out", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for arch, shape in DRYRUN_CELLS]
+    try:
+        cfg = get_config("moba-340m")
+        shape = (TRAIN_SEQ, 1, "train")
+        t0 = time.perf_counter()
+        rl = DR.cost_cell("moba-340m", shape, Layout((1, 1),
+                                                     ("data", "model")),
+                          cfg=cfg, verbose=False)
+        cost_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+
+        def reset(_params):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+        with FlopCounterMode(display=False) as fc:
+            DR.run_step(cfg, shape, device="cuda", on_params=reset)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        flops = fc.get_total_flops()
+        step_ms = []
+        for _ in range(DRYRUN_TIMED_STEPS):
+            gc.collect()
+            torch.cuda.empty_cache()
+            marks = {}
+
+            def start(_params):
+                torch.cuda.synchronize()
+                marks["t0"] = time.perf_counter()
+
+            DR.run_step(cfg, shape, device="cuda", on_params=start)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - marks["t0"]) * 1e3)
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        cli = []
+        for (arch, cell), proc in zip(DRYRUN_CELLS, procs):
+            try:
+                out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            cli.append((arch, cell, proc.returncode, out, err))
+    for arch, cell, rc, out, err in cli:
+        print(out[out.find("arch "):].split("\n\nwall")[0], flush=True)
+    bound_ms = max(rl.t_compute, rl.t_memory, rl.t_collective) * 1e3
+    measured = peak - base
+    median = float(np.median(step_ms))
+    rec = {"phase": "dryrun", "cost_cell_s": cost_s,
+           "cli": {f"{a}__{c}": {"rc": rc, "json": os.path.exists(
+               os.path.join(out_dir, f"{a}__{c}__single.json")),
+               "wall": out[out.rfind("wall "):].split("\n")[0]}
+               for a, c, rc, out, _ in cli},
+           "step": {"arch": cfg.name, "batch": 1, "seq": TRAIN_SEQ,
+                    "backend": DR.BACKEND, "remat": True, "layout": "1x1"},
+           "flops_predicted": rl.flops_per_device, "flops_card": flops,
+           "peak_predicted_bytes": rl.peak_memory_bytes,
+           "peak_state_bytes": rl.detail["state_bytes"],
+           "peak_activation_bytes": rl.detail["activation_peak_per_device"],
+           "max_memory_allocated": peak, "allocated_before": base,
+           "peak_card_bytes": measured,
+           "peak_ratio": rl.peak_memory_bytes / measured,
+           "peak_tol": DRYRUN_PEAK_TOL, "step_ms": step_ms,
+           "median_step_ms": median, "bound_ms": bound_ms,
+           "bound_by": rl.bottleneck,
+           "t_compute_ms": rl.t_compute * 1e3,
+           "t_memory_ms": rl.t_memory * 1e3,
+           "share_of_bound": bound_ms / median,
+           "bytes_predicted": rl.bytes_per_device,
+           "model_flops": rl.model_flops}
+    emit(rec)
+    for arch, cell, rc, out, err in cli:
+        if rc != 0 or "costed OK" not in out:
+            raise SystemExit(f"dryrun: the CLI on {arch} × {cell} exited "
+                             f"{rc}: {out[-1500:]} {err[-1500:]}")
+    if flops != rl.flops_per_device:
+        raise SystemExit(f"dryrun: the card's step ran {flops} FLOPs, the "
+                         f"meta trace predicted {rl.flops_per_device}")
+    if abs(rl.peak_memory_bytes - measured) > DRYRUN_PEAK_TOL * measured:
+        raise SystemExit(f"dryrun: predicted peak {rl.peak_memory_bytes} "
+                         f"is not within {DRYRUN_PEAK_TOL:.0%} of the "
+                         f"card's {measured}")
+    return rec
+
+
 def _ab_decode() -> dict:
     """The decode call at the moba-340m phase-2 case with bf16 q and pool:
     ``call_cost`` of the call and of the library call, and the reading
@@ -6496,6 +6625,7 @@ def main() -> int:
     train_also["train_encdec"] = timed("train_encdec", phase_train_encdec)
     train_also["examples_quickstart"] = examples_counts
     swa_launches, swa_timing = timed("swa", phase_swa)
+    timed("dryrun", phase_dryrun)
     emit({"phase_seconds": seconds,
           "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -29,6 +29,9 @@ ARCHS = {
     "moba-1b": "moba_1b",
 }
 
+# the ten assigned architectures: every id but the paper's own models
+ASSIGNED = [a for a in ARCHS if not a.startswith("moba-")]
+
 
 def _module(arch: str):
     if arch not in ARCHS:

@@ -1,6 +1,8 @@
 """Step-function builders: the training step, the fixed serving loop's
 dense-cache prefill and decode steps, and the paged serving engine's;
-``model_flops``, the model FLOPs of one assigned shape.
+``model_flops``, the model FLOPs of one assigned shape; ``batch_specs``
+and ``cache_specs``, where a production layout places a cell's batch and
+caches (``distributed/sharding.py``'s specs; the dry run costs them).
 
 The reference jits these and donates the params, optimizer state and
 cache arguments; the port runs them eagerly and updates params, moments
@@ -14,7 +16,8 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.configs.base import ASSIGNED_SHAPES, ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.distributed import sharding as shmod
 from repro_torch.models import api
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
@@ -225,17 +228,66 @@ def make_paged_decode_step(cfg: ModelConfig, backend: str = "reference",
     return decode_step
 
 
-def model_flops(cfg: ModelConfig, shape: str) -> float:
-    """MODEL_FLOPS of one ``ASSIGNED_SHAPES`` cell: 6·N·D (train) / 2·N·D
+def model_flops(cfg: ModelConfig, shape) -> float:
+    """MODEL_FLOPS of one cell (an ``ASSIGNED_SHAPES`` name or a
+    ``(seq_len, global_batch, kind)`` triple): 6·N·D (train) / 2·N·D
     (forward) with N the active parameters less an untied embedding
     table (a lookup, ~no matmul; MoE: only routed top-k + shared
     experts) and D the tokens (decode: one a sequence)."""
-    info = ASSIGNED_SHAPES[shape]
+    seq, batch, kind = api.shape_info(shape)
     n = api.active_param_count(cfg)
     if not cfg.tie_embeddings:
         n -= cfg.vocab_size * cfg.d_model
-    if info["kind"] == "train":
-        return 6.0 * n * info["seq_len"] * info["global_batch"]
-    if info["kind"] == "prefill":
-        return 2.0 * n * info["seq_len"] * info["global_batch"]
-    return 2.0 * n * info["global_batch"]
+    if kind == "train":
+        return 6.0 * n * seq * batch
+    if kind == "prefill":
+        return 2.0 * n * seq * batch
+    return 2.0 * n * batch
+
+
+# -------------------------------------------------------------- shardings
+def _batch_axes(layout: shmod.Layout, batch: int):
+    """The data axes when ``batch`` rows split over them, else None."""
+    dp = shmod.data_axes(layout)
+    return dp if batch % layout.axis_size(dp) == 0 else None
+
+
+def batch_specs(cfg: ModelConfig, layout: shmod.Layout, batch: int) -> Dict:
+    """Specs of a cell's batch inputs (the reference's
+    ``batch_shardings``): rows over the data axes where they divide."""
+    bspec = _batch_axes(layout, batch)
+    tok = shmod.as_spec(bspec, None)
+    out = {"tokens": tok, "token": tok}
+    if cfg.family == "vlm":
+        out["cross_kv"] = shmod.as_spec(bspec, None, None)
+    if cfg.family == "encdec":
+        out["src_embeds"] = shmod.as_spec(bspec, None, None)
+    return out
+
+
+def cache_specs(caches: dict, cfg: ModelConfig, layout: shmod.Layout,
+                batch: int, long_context: bool = False) -> dict:
+    """Leaf-name-driven cache specs (the reference's ``cache_shardings``),
+    a tree of ``caches``' structure: K/V and centroids hold the sequence
+    over ``model``; long context (a batch that does not split) holds it
+    over every axis (context parallelism).  A host-int ``len`` is
+    replicated, ``()``."""
+    bspec = _batch_axes(layout, batch)
+    seq_axes = (shmod.data_axes(layout) + ("model",)
+                if long_context and bspec is None else "model")
+
+    def spec_of(name):
+        if name in ("k", "v", "centroids"):   # leading group dim
+            return shmod.as_spec(None, bspec, None, seq_axes, None)
+        if name == "ssm":
+            return shmod.as_spec(None, bspec, "model", None, None)
+        if name == "conv":
+            return shmod.as_spec(None, bspec, None, "model")
+        if name == "key_conv_state":
+            return shmod.as_spec(None, bspec, None, None, None)
+        return ()
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else spec_of(k)
+                for k, v in tree.items()}
+    return walk(caches)

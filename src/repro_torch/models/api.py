@@ -1,15 +1,21 @@
-"""Model-level public API: parameter counts and the forward function.
+"""Model-level public API: parameter counts, the forward function and
+a cell's inputs as meta tensors.
 
 The counts read the leaf shapes of ``transformer.param_shapes`` (the
 tree ``init_lm`` builds), so a 90 B-parameter config is counted without
-allocating a tensor.  The reference's ``input_specs`` is not here: its
-only caller is the XLA dry run, which the port does not have.
+allocating a tensor.  :func:`input_specs` gives the dry run
+(``launch/dryrun.py``) every input of an assigned shape on the ``meta``
+device: shapes and dtypes, no storage.  Modality frontends are stubs:
+audio archs get frame embeddings, VLMs image embeddings.
 """
 from __future__ import annotations
 
 import math
+from typing import Any, Dict
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import ASSIGNED_SHAPES, ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import tree_leaves
 
@@ -30,6 +36,52 @@ def active_param_count(cfg: ModelConfig) -> int:
                        ) * n_groups
     inactive = n_moe_layers * (m.num_experts - m.top_k) * per_expert
     return total - inactive
+
+
+def input_specs(cfg: ModelConfig, shape, dtype=torch.bfloat16,
+                device="meta") -> Dict[str, Any]:
+    """Every model input of one cell on ``device`` (meta: no storage).
+    ``shape`` is an ``ASSIGNED_SHAPES`` name or a ``(seq_len,
+    global_batch, kind)`` triple.
+
+    kind 'train'   → {'tokens': (B, S+1)} (+ stub modality inputs)
+    kind 'prefill' → {'tokens': (B, S)} (+ stubs)
+    kind 'decode'  → {'token': (B, 1), 'caches': dense caches of S} (+
+    stubs)"""
+    s, b, kind = shape_info(shape)
+    specs: Dict[str, Any] = {}
+    if kind == "train":
+        specs["tokens"] = torch.zeros((b, s + 1), dtype=torch.int32,
+                                      device=device)
+    elif kind == "prefill":
+        specs["tokens"] = torch.zeros((b, s), dtype=torch.int32,
+                                      device=device)
+    else:
+        specs["token"] = torch.zeros((b, 1), dtype=torch.int32,
+                                     device=device)
+        specs["caches"] = T.init_caches(cfg, b, s, dtype=dtype,
+                                        device=device)
+    if cfg.family == "vlm":
+        specs["cross_kv"] = torch.zeros((b, cfg.num_image_tokens,
+                                         cfg.d_model), dtype=dtype,
+                                        device=device)
+    if cfg.family == "encdec":
+        specs["src_embeds"] = torch.zeros((b, cfg.num_audio_frames,
+                                           cfg.d_model), dtype=dtype,
+                                          device=device)
+    return specs
+
+
+def shape_info(shape):
+    """``(seq_len, global_batch, kind)`` of an ``ASSIGNED_SHAPES`` name or
+    of such a triple."""
+    if isinstance(shape, str):
+        info = ASSIGNED_SHAPES[shape]
+        return info["seq_len"], info["global_batch"], info["kind"]
+    s, b, kind = shape
+    if kind not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown kind {kind!r}")
+    return int(s), int(b), kind
 
 
 def make_forward(cfg: ModelConfig, backend: str = "sparse"):
