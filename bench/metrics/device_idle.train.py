@@ -1,0 +1,6 @@
+"""1 − device busy time ÷ the profiled steps' wall, in %."""
+from bench.readers import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx)
