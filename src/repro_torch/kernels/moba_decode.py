@@ -50,6 +50,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import MoBAConfig
 from repro_torch.core import quantization as Q
 from repro_torch.core import routing
@@ -523,6 +524,14 @@ def moba_paged_decode(q: torch.Tensor, pages_k: torch.Tensor,
     ``grid`` keeps the reference's API ("grouped" | "flat"); on Hopper
     both reach the same kernels.
     """
+    with tracing.span("kernel.moba_decode"):
+        return _paged_decode(q, pages_k, pages_v, centroids, block_table,
+                             kv_len, cfg, scale, grid, scales_k, scales_v,
+                             head_top_k)
+
+
+def _paged_decode(q, pages_k, pages_v, centroids, block_table, kv_len, cfg,
+                  scale, grid, scales_k, scales_v, head_top_k):
     if grid not in GRIDS:
         raise ValueError(f"unknown decode grid {grid!r}: expected "
                          f"'grouped' or 'flat'")

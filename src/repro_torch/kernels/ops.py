@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import MoBAConfig
 from repro_torch.core import routing
 from repro_torch.kernels.centroids import block_centroids_kernel
@@ -118,15 +119,21 @@ class FlashMoBA(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, meta: _Meta):
-        out, lse, lay, q_sorted, q_pos = _fwd_pipeline(q, k, v, meta)
-        ctx.meta = meta
-        ctx.save_for_backward(q, k, v, out, lse, lay.tile_block,
-                              lay.pair_slot, q_sorted, q_pos)
-        b, h, nq, d = q.shape
-        return out.reshape(b, h, nq, d).to(q.dtype)
+        with tracing.span("kernel.flash_moba"):
+            out, lse, lay, q_sorted, q_pos = _fwd_pipeline(q, k, v, meta)
+            ctx.meta = meta
+            ctx.save_for_backward(q, k, v, out, lse, lay.tile_block,
+                                  lay.pair_slot, q_sorted, q_pos)
+            b, h, nq, d = q.shape
+            return out.reshape(b, h, nq, d).to(q.dtype)
 
     @staticmethod
     def backward(ctx, g_out):
+        with tracing.span("kernel.flash_moba_bwd"):
+            return FlashMoBA._backward(ctx, g_out)
+
+    @staticmethod
+    def _backward(ctx, g_out):
         meta = ctx.meta
         q, k, v, out, lse, tile_block, pair_slot, q_sorted, q_pos = \
             ctx.saved_tensors

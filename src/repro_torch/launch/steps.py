@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.distributed import sharding as shmod
 from repro_torch.models import api
@@ -62,29 +63,40 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         return [{k: v[i] for k, v in split.items()} for i in range(m)]
 
     def train_step(params, opt_state, batch):
+        with tracing.span("train.step"):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         leaves = [leaf.requires_grad_() for _, leaf in
                   adamw.tree_leaves(params)]
         if m == 1:
-            loss = chunk_loss(params, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            with tracing.span("train.forward"):
+                loss = chunk_loss(params, batch)
+            with tracing.span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves)
         elif accum_in_loss:
             loss = torch.zeros((), device=leaves[0].device)
             for c in chunks(batch):
-                loss = loss + torch.utils.checkpoint.checkpoint(
-                    chunk_loss, params, c, use_reentrant=False) / m
-            grads = torch.autograd.grad(loss, leaves)
+                with tracing.span("train.forward"):
+                    loss = loss + torch.utils.checkpoint.checkpoint(
+                        chunk_loss, params, c, use_reentrant=False) / m
+            with tracing.span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves)
         else:
             loss = torch.zeros((), device=leaves[0].device)
             grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in leaves]
             for c in chunks(batch):
-                lc = chunk_loss(params, c)
-                gc = torch.autograd.grad(lc, leaves)
-                loss = loss + lc.detach() / m
-                grads = [a + g / m for a, g in zip(grads, gc)]
+                with tracing.span("train.forward"):
+                    lc = chunk_loss(params, c)
+                with tracing.span("train.backward"):
+                    gc = torch.autograd.grad(lc, leaves)
+                    loss = loss + lc.detach() / m
+                    grads = [a + g / m for a, g in zip(grads, gc)]
         grads = adamw.tree_like(params, grads)
-        params, opt_state, om = adamw.adamw_update(params, grads, opt_state,
-                                                   tcfg, lr_fn)
+        with tracing.span("train.optimizer"):
+            params, opt_state, om = adamw.adamw_update(
+                params, grads, opt_state, tcfg, lr_fn)
         out = {"loss": loss.detach()}
         out.update(om)
         return params, opt_state, out

@@ -43,6 +43,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
@@ -196,6 +197,33 @@ def _group(tree, gi: int):
             for k, v in tree.items()}
 
 
+def _leaves(tree: dict):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _refill(tree: dict, it) -> dict:
+    return {k: _refill(v, it) if isinstance(v, dict) else next(it)
+            for k, v in tree.items()}
+
+
+def _group_weights(stacked: dict, gi: int) -> dict:
+    """:func:`_group` of a slot's stacked weights, in a ``model.weights``
+    region under the profiler: its backward assembles the group's weight
+    gradients into the stacks' (one zero-filled stack a group)."""
+    if not tracing.enabled():
+        return _group(stacked, gi)
+    with tracing.region("model.weights") as r:
+        r.input(*_leaves(stacked))
+        view = _group(stacked, gi)
+        marked = r.output(*_leaves(view))
+        return _refill(view, iter(marked if isinstance(marked, tuple)
+                                  else (marked,)))
+
+
 # ------------------------------------------------------------------ blocks
 def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 positions=None, cache=None, backend="reference",
@@ -214,18 +242,22 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         h, cache = M.apply_mamba2(p["mamba"], L.rms_norm(
             x, p["norm1"], cfg.rms_norm_eps), cfg, cache)
         return x + h, None, cache
-    y = L.rms_norm(x, p["norm1"], cfg.rms_norm_eps)
     if kind == "cross":
+        y = L.rms_norm(x, p["norm1"], cfg.rms_norm_eps)
         h, cache = L.apply_attention(p["attn"], y, cfg, "cross",
                                      positions=positions, backend=backend,
                                      cross_kv=cross_kv)
     else:
+        self_kind = _self_kind(cfg, kind)
         self_cache = (cache["self"] if kind == "decoder"
                       and cache is not None else cache)
-        h, cache = L.apply_attention(
-            p["attn"], y, cfg, _self_kind(cfg, kind), positions=positions,
-            cache=self_cache, backend=backend, causal=causal,
-            page_state=page_state, head_top_k=head_top_k)
+        with tracing.region(f"model.attn.{self_kind}") as r:
+            y = L.rms_norm(r.input(x), p["norm1"], cfg.rms_norm_eps)
+            h, cache = L.apply_attention(
+                p["attn"], y, cfg, self_kind, positions=positions,
+                cache=self_cache, backend=backend, causal=causal,
+                page_state=page_state, head_top_k=head_top_k)
+            h = r.output(h)
     x = x + h
     if kind == "decoder":
         h, _ = L.apply_attention(
@@ -235,11 +267,12 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         x = x + h
         cache = None if cache is None else {"self": cache}
     aux = None
-    y = L.rms_norm(x, p["norm2"], cfg.rms_norm_eps)
-    if "moe" in p:
-        h, aux = MOE.apply_moe(p["moe"], y, cfg)
-    else:
-        h = L.apply_mlp(p["mlp"], y)
+    with tracing.region("model.mlp") as r:
+        y = L.rms_norm(r.input(x), p["norm2"], cfg.rms_norm_eps)
+        if "moe" in p:
+            h, aux = r.output(*MOE.apply_moe(p["moe"], y, cfg))
+        else:
+            h = r.output(L.apply_mlp(p["mlp"], y))
     return x + h, aux, cache
 
 
@@ -297,7 +330,7 @@ def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         for i, kind in enumerate(pattern):
             name = f"slot_{i}"
             p_i = (params["shared"] if kind == "shared_attn"
-                   else _group(params["blocks"][name], gi))
+                   else _group_weights(params["blocks"][name], gi))
             cache_i = (None if caches is None or name not in caches
                        else _group(caches[name], gi))
             rt = None if route_map is None else route_map.get(name)
@@ -320,10 +353,12 @@ def lm_apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             x, aux = group_body(x, aux, gi)
     for name, n in lens.items():           # dense caches: every group
         _self_cache(caches[name])["len"] = n   # wrote the same positions
-    x = L.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    head = (params["embed"].T if cfg.tie_embeddings
-            else params["lm_head"]).to(dt)
-    return x @ head, aux, caches
+    with tracing.region("model.head") as r:
+        x = L.rms_norm(r.input(x), params["final_norm"], cfg.rms_norm_eps)
+        head = (params["embed"].T if cfg.tie_embeddings
+                else params["lm_head"]).to(dt)
+        logits = r.output(x @ head)
+    return logits, aux, caches
 
 
 def lm_loss(params, batch: dict, cfg: ModelConfig,
@@ -342,13 +377,16 @@ def lm_loss(params, batch: dict, cfg: ModelConfig,
                               cross_kv=cross_kv, remat=remat)
     # memory-frugal CE, as in the reference: logsumexp of the compute-dtype
     # logits plus the target gather; no fp32 (B, S, V) copy
-    lse = torch.logsumexp(logits, dim=-1)                    # (B, S)
-    tgt_logit = logits.gather(-1, tgt.long()[..., None])[..., 0].float()
-    ll = tgt_logit - lse.float()
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones_like(ll)
-    loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    with tracing.region("model.head") as r:
+        logits = r.input(logits)
+        lse = torch.logsumexp(logits, dim=-1)                # (B, S)
+        tgt_logit = logits.gather(-1, tgt.long()[..., None])[..., 0].float()
+        ll = tgt_logit - lse.float()
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones_like(ll)
+        loss = r.output(-(ll * mask).sum() / torch.clamp(mask.sum(),
+                                                         min=1.0))
     return loss + aux, {"ce": loss, "aux": aux}
 
 

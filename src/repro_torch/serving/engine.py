@@ -56,6 +56,7 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import adaptive as AD
 from repro_torch.core import backends as B
@@ -524,19 +525,21 @@ class Engine:
         """One ragged prefill batch: each row is a request's whole context
         (one-shot mode) or its next ``prefill_chunk`` tokens (chunked
         mode, with ``kv_len`` carrying the chunk offset)."""
-        takes = prefill_takes(reqs, self.ecfg.prefill_chunk)
-        lmax = prefill_bucket(max(takes), self.page_size)
-        arrays = build_prefill_batch(
-            self.sched, reqs, takes, self.ecfg.max_prefill_batch,
-            self.pages_per_seq, lmax)
-        tokens, kv_len, q_len, slots, active, table = (
-            self._to_device(a) for a in arrays)
+        with tracing.span("engine.prefill.build"):
+            takes = prefill_takes(reqs, self.ecfg.prefill_chunk)
+            lmax = prefill_bucket(max(takes), self.page_size)
+            arrays = build_prefill_batch(
+                self.sched, reqs, takes, self.ecfg.max_prefill_batch,
+                self.pages_per_seq, lmax)
+            tokens, kv_len, q_len, slots, active, table = (
+                self._to_device(a) for a in arrays)
         t0 = time.perf_counter()
-        with self._on_device:
+        with tracing.span("engine.prefill.dispatch"), self._on_device:
             tok, self.caches = self._prefill(self.params, tokens,
                                              self.caches, table, kv_len,
                                              q_len, slots, active)
-        tok = tok.cpu().numpy()
+        with tracing.span("engine.prefill.sync"):
+            tok = tok.cpu().numpy()
         self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefill_tokens"] += int(sum(takes))
         record_prefill(reqs, takes, tok, self._cur_tok, self._wall())
@@ -550,17 +553,19 @@ class Engine:
         """Enqueue one decode step over ``reqs`` WITHOUT blocking on its
         tokens.  The current-token vector chains on the device
         (``torch.where`` keeps inactive slots)."""
-        kv_len, active = build_decode_batch(reqs, self.ecfg.max_seqs)
-        if self._tok_dev is None:       # pipeline empty: host copy is
-            self._tok_dev = self._to_device(self._cur_tok)   # authoritative
-        active_dev = self._to_device(active)
+        with tracing.span("engine.decode.build"):
+            kv_len, active = build_decode_batch(reqs, self.ecfg.max_seqs)
+            if self._tok_dev is None:   # pipeline empty: host copy is
+                self._tok_dev = self._to_device(self._cur_tok)  # authoritative
+            active_dev = self._to_device(active)
+            table_dev = self._to_device(self.sched.block_table)
+            kv_len_dev = self._to_device(kv_len)
         t0 = time.perf_counter()
-        with self._on_device:
+        with tracing.span("engine.decode.dispatch"), self._on_device:
             tok, self.caches = self._decode(
-                self.params, self._tok_dev, self.caches,
-                self._to_device(self.sched.block_table),
-                self._to_device(kv_len), active_dev)
-        self._tok_dev = torch.where(active_dev, tok, self._tok_dev)
+                self.params, self._tok_dev, self.caches, table_dev,
+                kv_len_dev, active_dev)
+            self._tok_dev = torch.where(active_dev, tok, self._tok_dev)
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += 1
         for r in reqs:
@@ -579,7 +584,8 @@ class Engine:
         tree at once."""
         reqs, tok_dev = self._inflight.popleft()
         t0 = time.perf_counter()
-        tok = tok_dev.cpu().numpy()     # the only host-device sync point
+        with tracing.span("engine.decode.sync"):
+            tok = tok_dev.cpu().numpy()     # the only host-device sync point
         self.stats["decode_s"] += time.perf_counter() - t0
         for r in reqs:
             r.dispatched -= 1
@@ -646,18 +652,19 @@ class Engine:
                 f"(slot {req.slot}); only waiting requests stage")
         if self._t0 is None:
             self._t0 = time.perf_counter()
-        queued = req in self.sched.waiting      # preemption replay
-        if queued:
-            self.sched.waiting.remove(req)
-        ok = self.sched.admit(req)
-        if not ok:
-            # finished-but-unobserved requests may be holding the pages
-            self._sync_for_preempt()
+        with tracing.span("engine.plan"):
+            queued = req in self.sched.waiting      # preemption replay
+            if queued:
+                self.sched.waiting.remove(req)
             ok = self.sched.admit(req)
-        if not ok:
-            if queued:      # keep the victim's replay priority
-                self.sched.waiting.appendleft(req)
-            return None
+            if not ok:
+                # finished-but-unobserved requests may be holding the pages
+                self._sync_for_preempt()
+                ok = self.sched.admit(req)
+            if not ok:
+                if queued:      # keep the victim's replay priority
+                    self.sched.waiting.appendleft(req)
+                return None
         # snapshot: the final chunk appends the sampled token to ``out``,
         # growing ``context`` by one
         target = len(req.context)
@@ -668,7 +675,8 @@ class Engine:
                 # cannot fail, every page was reserved at admission
                 ok = self.sched._cow_tail(req)
                 assert ok, "chunk continuation pages reserved at admission"
-            self._drain_ops()
+            with tracing.span("engine.plan"):
+                self._drain_ops()
             self._run_prefill([req], now)
             self.sched.note_cached(req)
             first = False
@@ -702,10 +710,11 @@ class Engine:
         dispatch one decode step, and return the ``(request, token)``
         pairs observed this call (one pipeline-depth late with
         ``dispatch_ahead > 0``)."""
-        decodes = self._plan_decode(now)
-        if decodes:
-            self._dispatch_decode(decodes)
-        return self._settle(bool(decodes))
+        with tracing.span("engine.step"):
+            decodes = self._plan_decode(now)
+            if decodes:
+                self._dispatch_decode(decodes)
+            return self._settle(bool(decodes))
 
     def _drain_ops(self) -> None:
         self.caches = drain_cache_ops(self.caches, self.sched,
@@ -718,10 +727,11 @@ class Engine:
     def _plan_decode(self, now: float) -> List[Request]:
         """Stage 3's first half: plan growth/preemption, apply its cache
         ops, and return the requests to decode."""
-        preempted = self.sched.plan_decode(now)
-        self.stats["preemptions"] += len(preempted)
-        self._drain_ops()
-        return self._decodes()
+        with tracing.span("engine.plan"):
+            preempted = self.sched.plan_decode(now)
+            self.stats["preemptions"] += len(preempted)
+            self._drain_ops()
+            return self._decodes()
 
     def _settle(self, decoded: bool) -> List[Tuple[Request, int]]:
         """Stage 3's second half: observe down to the pipeline depth
@@ -730,8 +740,9 @@ class Engine:
         depth = self.ecfg.dispatch_ahead if decoded else 0
         while len(self._inflight) > depth:
             self._observe_one()
-        self._finish_done()
-        self._update_stats()
+        with tracing.span("engine.retire"):
+            self._finish_done()
+            self._update_stats()
         out, self._emitted = self._emitted, []
         return out
 
@@ -749,19 +760,21 @@ class Engine:
         """One legacy engine iteration: admit + prefill (applying the COW
         copies, swap restores and ring loads the plan scheduled), dispatch
         one decode step over all running, observe it synchronously."""
-        n_pre, prefills, decodes = self._step_dispatch(now)
-        return {"prefilled": len(prefills), "decoded": len(decodes),
-                "finished": self._step_observe(), "preempted": n_pre}
+        with tracing.span("engine.step"):
+            n_pre, prefills, decodes = self._step_dispatch(now)
+            return {"prefilled": len(prefills), "decoded": len(decodes),
+                    "finished": self._step_observe(), "preempted": n_pre}
 
     def _step_dispatch(self, now: float
                        ) -> Tuple[int, List[Request], List[Request]]:
         """The legacy step up to its decode dispatch; returns (requests
         preempted, prefilled, decoded)."""
         self.drain()    # synchronous semantics if stages interleaved
-        preempted = self.sched.plan_decode(now)
-        self.stats["preemptions"] += len(preempted)
-        prefills = self.sched.plan_prefills(now)
-        self._drain_ops()
+        with tracing.span("engine.plan"):
+            preempted = self.sched.plan_decode(now)
+            self.stats["preemptions"] += len(preempted)
+            prefills = self.sched.plan_prefills(now)
+            self._drain_ops()
         if prefills:
             self._run_prefill(prefills, now)
             for r in prefills:            # newly cached full pages join
@@ -777,11 +790,12 @@ class Engine:
         """The legacy step's end: observe the decode synchronously and
         retire the finished; returns how many finished."""
         self.drain()
-        n0 = len(self.finished)
-        self._finish_done()
-        self._emitted.clear()      # step() reports counts, not streams
-        self._update_stats()
-        return len(self.finished) - n0
+        with tracing.span("engine.retire"):
+            n0 = len(self.finished)
+            self._finish_done()
+            self._emitted.clear()      # step() reports counts, not streams
+            self._update_stats()
+            return len(self.finished) - n0
 
     def run(self, realtime: bool = False) -> List[Request]:
         """Drain all submitted requests and return the ones finished by

@@ -26,12 +26,19 @@ and documented:
     greedy decoding reproduces the interrupted stream exactly (and with
     the prefix cache, the recompute itself hits the victim's own pages
     still referenced by the tree).
+
+``stats["admitted"]`` counts admissions (a preempted request's replay
+again) and ``stats["queue_wait_s"]`` the host-clock seconds each of them
+spent on ``waiting`` since it last entered it (a request admitted
+without having been queued, as the staged ``Engine.prefill`` may, adds
+no wait).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import math
+import time
 from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -91,6 +98,9 @@ class Request:
     #   sequence's pages/ring (engine.HostSwapStore), or None
     t_first: Optional[float] = None     # first-token wall time
     t_done: Optional[float] = None
+    t_queued: Optional[float] = None    # host clock when it last entered
+    #   ``Scheduler.waiting`` (submit or preemption requeue); None once
+    #   admitted
 
     @property
     def context(self) -> np.ndarray:
@@ -244,7 +254,8 @@ class Scheduler:
         self.stats = {"prefix_queries": 0, "prefix_hits": 0,
                       "prefix_hit_tokens": 0, "prefix_prompt_tokens": 0,
                       "cow_copies": 0, "swap_saves": 0,
-                      "swap_restores": 0, "swap_fallbacks": 0}
+                      "swap_restores": 0, "swap_fallbacks": 0,
+                      "admitted": 0, "queue_wait_s": 0.0}
         # dispatch-ahead hook: called once per plan before the first
         # preemption (and before the victim's pages are snapshotted), so
         # the engine can observe in-flight decode steps and retire
@@ -270,6 +281,7 @@ class Scheduler:
 
     def submit(self, req: Request) -> None:
         self.validate(req)
+        req.t_queued = time.perf_counter()
         self.waiting.append(req)
 
     def has_work(self) -> bool:
@@ -416,6 +428,7 @@ class Scheduler:
             victim.state = "waiting"
             victim.cache_len = 0
             victim.n_preempt += 1
+            victim.t_queued = time.perf_counter()
             self.waiting.appendleft(victim)
             return victim
         return None
@@ -520,6 +533,10 @@ class Scheduler:
         req.state = ("prefill" if self.chunk_tokens
                      and remaining > self.chunk_tokens else "running")
         self.running.append(req)
+        self.stats["admitted"] += 1
+        if req.t_queued is not None:
+            self.stats["queue_wait_s"] += time.perf_counter() - req.t_queued
+            req.t_queued = None
         return True
 
     def plan_decode(self, now: float = float("inf")) -> List[Request]:
