@@ -5,7 +5,7 @@
 
 Phases, one JSON line each; any failure exits non-zero:
 
-  1. env     — card name and power limit, torch/CUDA versions, the six
+  1. env     — card name and power limit, torch/CUDA versions, the seven
                CUDA kernels built from ``src/repro_torch/kernels/csrc``
                (build seconds, ptxas register report).
   2. kernel  — the paged MoBA decode kernels (route, split-page
@@ -313,12 +313,14 @@ Phases, one JSON line each; any failure exits non-zero:
                ``make_train_step`` steps on ``flash`` with remat; losses
                finite, each training kernel launched exactly as often as
                the path implies (per step: centroids, topk and forward 24
-               — 12 MoBA layers, forward plus recompute — backward 12).
+               — 12 MoBA layers, forward plus recompute — backward 12;
+               the SWA layers' ``swa`` forward 24 and ``swa_bwd`` 12).
                Step time, tokens/s, peak memory, then one step under
                torch.profiler.  Then the same 4 steps on ``xla`` from the
                same weights and batches: each step's loss within 2e-2 of
                flash's (the kernels round P, dS and dO to bf16; xla
-               multiplies in fp32).  Then ``train_small_blocks``: the
+               multiplies in fp32, and its SWA layers run dense fp32
+               scores).  Then ``train_small_blocks``: the
                same model at block 32, top_k 32, 3 steps on ``flash``
                (counts zeroed just before, read just after): finite
                losses, exact launch counts, step ms, peak memory.  Then
@@ -362,7 +364,8 @@ Phases, one JSON line each; any failure exits non-zero:
                with carried residuals: both shards' means bit-equal,
                every element within one scale of the fp64 mean, the
                error-feedback identity within 1e-5 of 127·s, exact
-               launches of the four training kernels (4 gradients), the
+               launches of the four training kernels and the two SWA
+               kernels (4 gradients), the
                bytes by kind against an fp32 star reduce's.
                ``pipeline``: the 12 (swa, moba) groups over 2 stages
                (``distributed/pipeline.py::pipeline_forward``, 6 groups a
@@ -370,7 +373,8 @@ Phases, one JSON line each; any failure exits non-zero:
                microbatches of 1 × 4,096 bf16 hidden states: bit-equal
                to the stages applied microbatch by microbatch, within
                3e-2 of the whole batch, 5 ticks and 8 stage calls, exact
-               forward launches (48 each), the activations' bytes.
+               forward launches (48 each, ``swa``'s too), the
+               activations' bytes.
                ``examples``, right after phase 6: each script of
                ``examples_torch/`` as a user runs it on the card, all
                four in subprocesses started together (``python3
@@ -387,7 +391,8 @@ Phases, one JSON line each; any failure exits non-zero:
                accuracies in [0, 1]; every exit code 0.  Meanwhile in
                this process, counts zeroed just before and read just
                after: quickstart's ``run`` on the card (one centroids,
-               Flash TopK and ``moba_fwd`` launch, errors <= 2e-4) and
+               Flash TopK and ``moba_fwd`` launch, no SWA kernel, errors
+               <= 2e-4) and
                serve_decode's ``main`` with the same arguments (decode
                calls a multiple of qwen3-0.6b's 28 MoBA layers, three
                kernels each).  Then ``models/api.py``'s
@@ -420,12 +425,13 @@ Phases, one JSON line each; any failure exits non-zero:
                (the encoder's leaves among the checked).
                llama-3.2-vision-90b is not trained on the card: 5 layers
                at full width already need about 102 GB with AdamW.
-  8. swa     — a tensor-core audit of the ``swa`` library first (as in
-               phase 5: every bf16 instantiation has ``HMMA`` in its SASS,
-               none has a stack frame at d 64; d 128's registers and
-               stack reported).  ``swa_attention``'s CUDA kernel against
-               its plain version in bf16 (the tensor-core body, 3e-2) and
-               fp32 (the SIMT body, 2e-4) at moba-340m's SWA shapes (N
+  8. swa     — a tensor-core audit of the ``swa`` and ``swa_bwd``
+               libraries first (as in phase 5: every bf16 instantiation
+               has ``HMMA`` in its SASS, none has a stack frame at d 64;
+               d 128's registers and stack reported).
+               ``swa_attention``'s CUDA kernel against its plain version
+               in bf16 (the tensor-core body, 3e-2) and fp32 (the SIMT
+               body, 2e-4) at moba-340m's SWA shapes (N
                8192, window 256, 16 heads, d 64) and the same at d 128,
                GQA geometries (H 16 on Hkv 8 and, ``gqa-g8``, 2 x 32
                heads on 4, both d 128), window 100 with q_tile 128 /
@@ -436,8 +442,29 @@ Phases, one JSON line each; any failure exits non-zero:
                library call, the bound from these tensors (bf16 tensor-core or
                fp32 peak); in bf16 also ``flex_attention`` with a
                sliding-window ``BlockMask``, compiled once, as a second
-               yardstick (its error instead if it cannot be built).  No
-               serving or training path launches the kernel.
+               yardstick (its error instead if it cannot be built).  Then
+               training's kernels in bf16 (``SWAAttention``): at 2 x 16
+               heads of 64 over N 8192, window 256 (a moba-340m
+               microbatch's SWA layer), d 128 at G 2 and G 8, window 100
+               over a ragged N 1000, a window >= N, N 96 and window 1:
+               the forward's o bit-equal with and without its
+               log-sum-exp, the log-sum-exp within 2e-3 of
+               ``swa_lse_plain``, and the backward's dq, dk and dv
+               against autograd of the plain version (max |Δ| over the
+               leaf's max |g|, 3e-2), bit-equal on a rerun.  At the first
+               two: the backward's two passes alone, the forward with its
+               log-sum-exp alone, the plain backward, the bound (q, k, v,
+               o and dO read, dq, dk and dv written; 10·d flops a query
+               head and key) and, without GQA, causal SDPA's backward
+               (dense) as a yardstick.  Then ``banded_attention``, the
+               model's entry to them, on 4-D tensors laid out as the
+               model's ((B, H, N, d) views of (B, N, H, d)) at 2 x 16
+               heads of 64 and at d 128 / G 2, N 8192, window 256: one
+               launch of each kernel, o within 3e-2 of
+               ``dense_attention``'s and the gradients within 3e-2 of
+               each leaf's max |g| of autograd of ``dense_attention``.
+               Phase 6 counts the kernels' launches on the training
+               path.
   9. dryrun  — the dry run (``repro_torch.launch.dryrun``) held to the
                card.  Its CLI costs moba-340m × train_4k and qwen3-0.6b
                × decode_32k on the 16 × 16 layout in two subprocesses
@@ -455,10 +482,11 @@ Phases, one JSON line each; any failure exits non-zero:
                the 1 × 1 roofline bound.
 
 Then each phase's wall seconds and the script's total, the card's name
-and power limit, the kernel line (the six kernels,
+and power limit, the kernel line (the seven kernels,
 the decode kernels once per pool dtype; Flash TopK also with its
 small-block times and its times alone at top_k 16, 64 and 1024;
-``swa_attention`` also at d 128 and in fp32; ``launches_also``: each
+``swa_attention`` also at d 128 and in fp32, ``swa_attention_bwd`` also
+at d 128 / G 2; ``launches_also``: each
 kernel's launches on the other paths, ``serve_key_conv``,
 ``serve_qwen3``, ``serve_adaptive`` (its (b) run), ``serve_prefix``
 (each case with the cache on), ``serve_stream``, ``serve_openloop``
@@ -530,7 +558,17 @@ TRAIN_KERNELS = {
                  "src/repro/kernels/moba_bwd.py:167"),
 }
 SWA_KERNEL = ("swa_attention", f"{CSRC}/swa.cu", "src/repro/kernels/swa.py:77")
+SWA_BWD_KERNEL = ("swa_attention_bwd", f"{CSRC}/swa_bwd.cu")
+# the layers of the port's profiler ranges (``repro_torch/tracing.py``)
+PORT_RANGES = ("train.", "model.", "kernel.", "engine.")
 MOBA_LAYERS = 12                   # moba-340m: 24 layers, swa/moba
+SWA_LAYERS = 12
+# the banded backward in bf16: max |kernel - plain| over max |plain| of
+# each gradient, as moba_bwd's (P and dS go to bf16 for the products and
+# the gradients are bf16); the log-sum-exp, absolute (natural log; fp32
+# sums in another order, ex2.approx)
+SWA_BWD_TOL = 3e-2
+SWA_LSE_TOL = 2e-3
 TRAIN_SEQ = 8192                   # the paper's training context
 TRAIN_STEPS = 4
 # flash vs xla loss of each training step in bf16: the kernels round P,
@@ -1006,6 +1044,17 @@ def phase_kernel():
     return timing
 
 
+def _device_rows(avgs) -> list:
+    """The device rows of a profile's ``key_averages()``: its kernels and
+    copies, without the port's own ranges (``repro_torch/tracing.py``),
+    which the profiler lays on the device timeline too, as annotations
+    over the kernels they hold."""
+    import torch
+    return [a for a in avgs
+            if a.device_type == torch.autograd.DeviceType.CUDA
+            and not a.key.startswith(PORT_RANGES)]
+
+
 def _profile_call(fn, attempts: int = 3) -> dict:
     """The device work of one call of ``fn`` under torch.profiler: the
     port's decode kernels (count and device µs each) and every other
@@ -1022,8 +1071,7 @@ def _profile_call(fn, attempts: int = 3) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        dev = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev = _device_rows(prof.key_averages())
         if dev:
             break
     port = [e for e in dev if "moba_decode_" in e.key]
@@ -1551,12 +1599,10 @@ def _profile_summary(prof, wall: float, steps: int) -> dict:
     that took ``wall`` seconds.  Device busy share = summed kernel time
     over the window's wall time (one stream, so kernels do not overlap);
     the profiler's own host cost lengthens the wall time a little."""
-    import torch
     avgs = prof.key_averages()
     # kernel rows only: an operator's row repeats its kernels' time
-    dev = sorted(((a.key, a.self_device_time_total, a.count) for a in avgs
-                  if a.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda r: -r[1])
+    dev = sorted(((a.key, a.self_device_time_total, a.count)
+                  for a in _device_rows(avgs)), key=lambda r: -r[1])
     device_us = sum(t for _, t, _ in dev)
     host = sorted(((a.key, a.self_cpu_time_total, a.count) for a in avgs),
                   key=lambda r: -r[1])
@@ -2936,7 +2982,7 @@ def phase_serve_fixed():
     torch.cuda.empty_cache()
     prefill_counts, decode_counts = counts[0], counts[1:]
     want = {"block_centroids": ml, "flash_topk": ml, "moba_fwd": ml,
-            "moba_bwd": 0, "moba_paged_decode": 0}
+            "moba_bwd": 0, "swa": 0, "swa_bwd": 0, "moba_paged_decode": 0}
     if prefill_counts != want:
         bad.append(f"prefill launched {prefill_counts}, expected {want}")
     if any(any(d.values()) for d in decode_counts):
@@ -4156,8 +4202,8 @@ def phase_serve_cross(arch: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         want_prefill = {"block_centroids": enc + dec, "flash_topk": enc + dec,
-                        "moba_fwd": enc + dec, "moba_bwd": 0,
-                        "moba_paged_decode": 0}
+                        "moba_fwd": enc + dec, "moba_bwd": 0, "swa": 0,
+                        "swa_bwd": 0, "moba_paged_decode": 0}
         want_decode = {k: (enc if v else 0) for k, v in want_prefill.items()}
         if counts[0] != want_prefill:
             bad.append(f"prefill launched {counts[0]}, expected "
@@ -4904,16 +4950,20 @@ def phase_train_kernels():
 
 # ------------------------------------------------------------------ phase 6
 def _counts():
-    from repro_torch.kernels import centroids, flash_topk, moba_bwd, moba_fwd
+    from repro_torch.kernels import (centroids, flash_topk, moba_bwd,
+                                     moba_fwd, swa)
     return {"block_centroids": centroids.LAUNCHES,
             "flash_topk": flash_topk.LAUNCHES, "moba_fwd": moba_fwd.LAUNCHES,
-            "moba_bwd": moba_bwd.LAUNCHES}
+            "moba_bwd": moba_bwd.LAUNCHES, "swa": swa.LAUNCHES,
+            "swa_bwd": swa.BWD_LAUNCHES}
 
 
 def _zero_counts():
-    from repro_torch.kernels import centroids, flash_topk, moba_bwd, moba_fwd
-    for mod in (centroids, flash_topk, moba_fwd, moba_bwd):
+    from repro_torch.kernels import (centroids, flash_topk, moba_bwd,
+                                     moba_fwd, swa)
+    for mod in (centroids, flash_topk, moba_fwd, moba_bwd, swa):
         mod.LAUNCHES = 0
+    swa.BWD_LAUNCHES = 0
 
 
 def _train_run(backend: str, steps: int = TRAIN_STEPS, *,
@@ -4983,7 +5033,8 @@ def phase_train():
     loss_gap = max(abs(a - b) for a, b in zip(losses, xla_losses))
     steady = float(np.median(step_s[1:]))
     want = {"block_centroids": 2 * MOBA_LAYERS, "flash_topk": 2 * MOBA_LAYERS,
-            "moba_fwd": 2 * MOBA_LAYERS, "moba_bwd": MOBA_LAYERS}
+            "moba_fwd": 2 * MOBA_LAYERS, "moba_bwd": MOBA_LAYERS,
+            "swa": 2 * SWA_LAYERS, "swa_bwd": SWA_LAYERS}
     rec = {"phase": "train", "arch": cfg.name, "dtype": cfg.dtype,
            "batch": 1, "seq": TRAIN_SEQ, "remat": True, "backend": "flash",
            "losses": losses, "step_ms": [t * 1e3 for t in step_s],
@@ -5026,7 +5077,8 @@ def phase_train_small_blocks(steps: int = 3):
                                         top_k=32)
     launches = _counts()
     want = {"block_centroids": 2 * MOBA_LAYERS, "flash_topk": 2 * MOBA_LAYERS,
-            "moba_fwd": 2 * MOBA_LAYERS, "moba_bwd": MOBA_LAYERS}
+            "moba_fwd": 2 * MOBA_LAYERS, "moba_bwd": MOBA_LAYERS,
+            "swa": 2 * SWA_LAYERS, "swa_bwd": SWA_LAYERS}
     rec = {"phase": "train_small_blocks", "arch": cfg.name,
            "block_size": 32, "top_k": 32, "batch": 1, "seq": TRAIN_SEQ,
            "remat": True, "backend": "flash", "losses": losses,
@@ -5097,7 +5149,8 @@ def phase_train_key_conv(train_rec: dict, steps: int = 3):
     loss_gap = max(abs(a - b) for a, b in zip(losses, xla_losses))
     steady = float(np.median(step_s[1:]))
     want = {"block_centroids": 2 * MOBA_LAYERS, "flash_topk": 2 * MOBA_LAYERS,
-            "moba_fwd": 2 * MOBA_LAYERS, "moba_bwd": MOBA_LAYERS}
+            "moba_fwd": 2 * MOBA_LAYERS, "moba_bwd": MOBA_LAYERS,
+            "swa": 2 * SWA_LAYERS, "swa_bwd": SWA_LAYERS}
     rec = {"phase": "train_key_conv", "arch": cfg.name, "dtype": cfg.dtype,
            "batch": 1, "seq": TRAIN_SEQ, "remat": True, "backend": "flash",
            "losses": losses, "step_ms": [t * 1e3 for t in step_s],
@@ -5290,7 +5343,7 @@ def phase_examples(smi: str, train_rec: dict):
     if not max(in_errs) <= EXAMPLE_TOL:
         bad.append(f"quickstart in process: errors {in_errs}")
     want = {"block_centroids": 1, "flash_topk": 1, "moba_fwd": 1,
-            "moba_bwd": 0}
+            "moba_bwd": 0, "swa": 0, "swa_bwd": 0}
     if q_counts != want:
         bad.append(f"quickstart launched {q_counts}, want {want}")
     layers = _moba_layers(configs.get_config("qwen3-0.6b"))
@@ -5404,7 +5457,9 @@ def phase_train_accum():
     differently in GEMMs of another shape); finite; the training kernels
     launched as the path implies: per chunk, the forward's three kernels
     twice under remat (three times inside the loss's checkpoint) and the
-    backward once.  Returns the bf16 launches of the two accumulating
+    backward once, and the SWA layers' ``swa`` and ``swa_bwd`` as often
+    in bf16 (in fp32 they keep dense attention and launch neither).
+    Returns the bf16 launches of the two accumulating
     modes."""
     import torch
     from repro_torch.configs import get_config
@@ -5430,6 +5485,10 @@ def phase_train_accum():
             want = {k: forwards[mode] * MOBA_LAYERS for k in (
                 "block_centroids", "flash_topk", "moba_fwd")}
             want["moba_bwd"] = backwards[mode] * MOBA_LAYERS
+            # the SWA layers' banded kernels take bf16 only
+            swa_layers = SWA_LAYERS if dtype == "bfloat16" else 0
+            want["swa"] = forwards[mode] * swa_layers
+            want["swa_bwd"] = backwards[mode] * swa_layers
             r["expected_launches"] = want
             if r["launches"] != want:
                 bad.append(f"{dtype} {mode}: launches {r['launches']} != "
@@ -5816,7 +5875,8 @@ def phase_train_dp_compressed():
     (the larger of this round's and the last's) of the plain mean (fp64);
     the error-feedback identity Σ rounds (mean − true mean) = −mean of
     the final residuals, within ``EF_TOL`` of 127·s per leaf; the four
-    FlashMoBA kernels' exact launches (a training step's per gradient).
+    FlashMoBA kernels' and the two SWA kernels' exact launches (a training
+    step's per gradient).
     Reports the bytes by kind against an fp32 star reduce's."""
     import torch
     from repro_torch.configs import get_config
@@ -5890,7 +5950,8 @@ def phase_train_dp_compressed():
     fp32_star = 2 * n_params * 4     # shard 1's fp32 grads in, the mean out
     want = {"block_centroids": 4 * 2 * MOBA_LAYERS,
             "flash_topk": 4 * 2 * MOBA_LAYERS,
-            "moba_fwd": 4 * 2 * MOBA_LAYERS, "moba_bwd": 4 * MOBA_LAYERS}
+            "moba_fwd": 4 * 2 * MOBA_LAYERS, "moba_bwd": 4 * MOBA_LAYERS,
+            "swa": 4 * 2 * SWA_LAYERS, "swa_bwd": 4 * SWA_LAYERS}
     rec = {"phase": "train_dp_compressed", "arch": cfg.name,
            "dtype": cfg.dtype, "shards": 2, "rows_per_shard": 1,
            "seq": TRAIN_SEQ, "rounds": 2, "params": n_params,
@@ -5985,7 +6046,8 @@ def phase_pipeline():
     per_mb = x[:1].numel() * x.element_size()
     want = {"block_centroids": PIPE_MICROBATCHES * MOBA_LAYERS,
             "flash_topk": PIPE_MICROBATCHES * MOBA_LAYERS,
-            "moba_fwd": PIPE_MICROBATCHES * MOBA_LAYERS, "moba_bwd": 0}
+            "moba_fwd": PIPE_MICROBATCHES * MOBA_LAYERS, "moba_bwd": 0,
+            "swa": PIPE_MICROBATCHES * SWA_LAYERS, "swa_bwd": 0}
     want_bytes = {"act": (PIPE_STAGES - 1) * PIPE_MICROBATCHES * per_mb,
                   "out": PIPE_MICROBATCHES * per_mb}
     rel = _max_rel(out, whole)
@@ -6171,6 +6233,131 @@ def _time_swa(KS, q, k, v, w: int, kw: dict, flush) -> dict:
     return rec
 
 
+def _check_swa_train(KS, name: str, shape: dict, window: int,
+                     seed: int = 7):
+    """``SWAAttention``'s kernels on one bf16 geometry: the forward with
+    its log-sum-exp (o bit-equal to the launch without it, lse against
+    ``swa_lse_plain``), and the backward's dq, dk and dv against autograd
+    of the plain version (``SWA_BWD_TOL`` of each leaf's max |g|, or of
+    the largest leaf's where a leaf's is zero), rerun bit-equal.  Returns
+    the record and the tensors for timing."""
+    import torch
+    q, k, v = _swa_inputs(dtype=torch.bfloat16, seed=seed, **shape)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    h, group = shape["h"], shape["h"] // shape["hkv"]
+    scale = q.shape[-1] ** -0.5
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device="cuda")
+    o = KS.launch(q, k, v, window, h, group, scale, 128, 128, lse=lse)
+    same_o = bool(torch.equal(o, KS.launch(q, k, v, window, h, group,
+                                           scale, 128, 128)))
+    lse_err = float((lse - KS.swa_lse_plain(q, k, window, num_q_heads=h,
+                                            group=group)).abs().max())
+    torch.cuda.empty_cache()
+    got = KS.launch_bwd(q, k, v, o, lse, do, window, h, group, scale)
+    again = KS.launch_bwd(q, k, v, o, lse, do, window, h, group, scale)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        KS.swa_attention_plain(*leaves, window, num_q_heads=h, group=group),
+        leaves, do)
+    del leaves
+    torch.cuda.empty_cache()
+    # a leaf whose reference is exactly zero (window 1: a row's one key
+    # takes all its weight, so dS = 0) is held to the largest leaf's scale
+    top = max(float(w.float().abs().max()) for w in want)
+    rels = {n: (_max_rel(a, b) if float(b.float().abs().max()) > 0 else
+                float((a.float() - b.float()).abs().max()) / top)
+            for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+    rerun = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    rec = {"geometry": name, **shape, "window": window,
+           "o_equal_without_lse": same_o, "lse_max_abs_err": lse_err,
+           "lse_tol": SWA_LSE_TOL, "max_rel_err": rels,
+           "tol": SWA_BWD_TOL, "bit_equal_rerun": rerun,
+           "ok": same_o and lse_err <= SWA_LSE_TOL and rerun
+           and max(rels.values()) <= SWA_BWD_TOL}
+    return rec, (q, k, v, o, lse, do, window, h, group, scale)
+
+
+def _check_banded_grads(name: str, shape: dict, window: int,
+                        seed: int = 11) -> dict:
+    """``banded_attention``, the model's entry to the training kernels
+    (reshape, ``SWAAttention``'s checks, saved tensors, dO made
+    contiguous), on 4-D bf16 CUDA tensors laid out as ``apply_attention``
+    hands them over: q, k, v and dO (B, H, N, d) views of (B, N, H, d)
+    tensors.  o against ``dense_attention`` (max |Δ|, 3e-2) and the
+    gradients of the three tensors against autograd of
+    ``dense_attention`` on the same views (``SWA_BWD_TOL`` of each leaf's
+    max |g|)."""
+    import torch
+    from repro_torch.core.attention import dense_attention
+    from repro_torch.kernels import swa as KS
+    b, h, hkv, n, d = (shape[x] for x in ("b", "h", "hkv", "n", "d"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rows(heads, mul=1.0):
+        x = torch.randn((b, n, heads, d), generator=gen, device="cuda")
+        return (x * mul).bfloat16().requires_grad_()
+
+    bases = [rows(h, 0.5), rows(hkv, 0.5), rows(hkv)]
+    do = rows(h).detach().permute(0, 2, 1, 3)
+
+    def heads_first():
+        return [t.permute(0, 2, 1, 3) for t in bases]
+
+    KS.LAUNCHES = KS.BWD_LAUNCHES = 0
+    o = KS.banded_attention(*heads_first(), window)
+    got = torch.autograd.grad(o, bases, do)
+    launched = (KS.LAUNCHES, KS.BWD_LAUNCHES)
+    o, got = o.detach(), [g.detach() for g in got]
+    torch.cuda.empty_cache()
+    o_ref = dense_attention(*heads_first(), causal=True, window=window)
+    want = torch.autograd.grad(o_ref, bases, do)
+    o_err = float((o.float() - o_ref.detach().float()).abs().max())
+    del o_ref
+    torch.cuda.empty_cache()
+    rels = {n_: _max_rel(a, w) for n_, a, w in zip(("dq", "dk", "dv"), got,
+                                                   want)}
+    return {"geometry": name, **shape, "window": window,
+            "layout": "(B, H, N, d) views of (B, N, H, d)",
+            "launches": list(launched), "o_max_abs_err": o_err,
+            "o_tol": 3e-2, "max_rel_err": rels, "tol": SWA_BWD_TOL,
+            "ok": launched == (1, 1) and o_err <= 3e-2
+            and max(rels.values()) <= SWA_BWD_TOL}
+
+
+def _time_swa_bwd(KS, case, flush) -> dict:
+    """At one shape: the backward's two passes alone, the forward with its
+    log-sum-exp alone, the plain backward, causal SDPA's backward (dense,
+    a yardstick the port never calls) and the backward's bound (q, k, v,
+    o, dO read, dq, dk, dv written; 10·d flops a query head and key)."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v, o, lse, do, window, h, group, scale = case
+    bh, n, d = q.shape
+    pairs = bh * sum(min(t + 1, window) for t in range(n))
+    args = (q, k, v, o, lse, do, window, h, group, scale)
+    rec = {"kernel_only_ms": cuda_events_ms(lambda: KS.launch_bwd(*args),
+                                            flush=flush),
+           "fwd_lse_kernel_only_ms": cuda_events_ms(
+               lambda: KS.launch(q, k, v, window, h, group, scale, 128, 128,
+                                 lse=lse), flush=flush),
+           "plain_device_ms": cuda_events_ms(
+               lambda: KS.swa_backward_plain(q, k, v, o, lse, do, window,
+                                             num_q_heads=h, group=group,
+                                             scale=scale),
+               reps=5, flush=flush),
+           **_bound(_nbytes(q, k, v, o, do) + _nbytes(q, k, v),
+                    10.0 * pairs * d, BF16_FLOPS)}
+    torch.cuda.empty_cache()
+    if group == 1:
+        q4, k4, v4 = (x.detach()[None].requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        rec["library_ms"] = cuda_events_ms(
+            lambda: torch.autograd.grad(out, (q4, k4, v4), do[None],
+                                        retain_graph=True), flush=flush)
+    return rec
+
+
 def phase_swa():
     """``swa_attention``'s CUDA kernel against its plain version
     (``dense_attention`` with the window) in bf16 (the tensor-core body,
@@ -6179,12 +6366,17 @@ def phase_swa():
     d 128, GQA (16 heads on 8 kv heads at d 128; 32 on 4 at d 128),
     window 100 with q_tile 128 / k_tile 64, a window at least N, window
     1, and N 96 (a ragged tile).  First the tensor-core audit of the
-    library.  Then times at the moba-340m shapes, d 64 and d 128, bf16
-    and fp32 (``_time_swa``).  No serving or training path calls it; its
-    launches are this phase's checks."""
+    forward's and the backward's libraries.  Then times at the moba-340m
+    shapes, d 64 and d 128, bf16 and fp32 (``_time_swa``).  Then the
+    training kernels, bf16 (``_check_swa_train``, ``_time_swa_bwd``):
+    the forward's log-sum-exp and the backward at a moba-340m
+    microbatch's SWA shape (2 x 16 heads) and six more geometries; and
+    ``banded_attention`` on the model's layout against autograd of
+    ``dense_attention`` (``_check_banded_grads``).  Phase 6 counts the
+    training path's launches."""
     import torch
     from repro_torch.kernels import swa as KS
-    audit = _tensor_core_audit("swa", ("swa",))
+    audit = _tensor_core_audit("swa", ("swa", "swa_bwd"))
     bf16, fp32 = torch.bfloat16, torch.float32
     cases = [("moba-340m", dict(b=1, h=16, hkv=16, n=TRAIN_SEQ, d=64),
               dict(window=256)),
@@ -6235,11 +6427,53 @@ def phase_swa():
         timing[f"{name}:{str(dtype).split('.')[-1]}"] = {
             **_time_swa(KS, q, k, v, w, kw, flush), "max_abs_err": err,
             "shape": [1, q.shape[0], q.shape[1], q.shape[2]], "window": w}
+    del mains
+    torch.cuda.empty_cache()
+    # training: the forward's log-sum-exp and the backward, bf16
+    train_cases = [("moba-340m-train", dict(b=2, h=16, hkv=16, n=TRAIN_SEQ,
+                                            d=64), 256),
+                   ("gqa-d128", dict(b=2, h=16, hkv=8, n=2048, d=128), 256),
+                   ("gqa-g8", dict(b=2, h=32, hkv=4, n=2048, d=128), 256),
+                   ("window-100-ragged", dict(b=1, h=4, hkv=2, n=1000,
+                                              d=64), 100),
+                   ("window-ge-n", dict(b=2, h=4, hkv=4, n=1024, d=64), 1500),
+                   ("n-96", dict(b=1, h=4, hkv=4, n=96, d=64), 40),
+                   ("window-1", dict(b=1, h=16, hkv=16, n=2048, d=64), 1)]
+    train_checks, train_timing = [], {}
+    KS.BWD_LAUNCHES = 0
+    for name, shape, w in train_cases:
+        rec, case = _check_swa_train(KS, name, shape, w)
+        torch.cuda.synchronize()
+        train_checks.append(rec)
+        if not rec["ok"]:
+            emit({"phase": "swa", "train_checks": train_checks})
+            raise SystemExit(f"swa: the training kernels disagree with the "
+                             f"plain version: {rec}")
+        if name in ("moba-340m-train", "gqa-d128"):
+            train_timing[name] = {
+                **_time_swa_bwd(KS, case, flush),
+                "shape": list(case[0].shape), "window": w}
+        del case
+        torch.cuda.empty_cache()
+    # the model's entry (banded_attention) on the model's layout
+    wrapper_checks = [
+        _check_banded_grads("moba-340m-train", dict(b=2, h=16, hkv=16,
+                                                    n=TRAIN_SEQ, d=64), 256),
+        _check_banded_grads("gqa-d128", dict(b=2, h=16, hkv=8, n=TRAIN_SEQ,
+                                             d=128), 256)]
+    torch.cuda.empty_cache()
+    if not all(r["ok"] for r in wrapper_checks):
+        emit({"phase": "swa", "wrapper_checks": wrapper_checks})
+        raise SystemExit(f"swa: banded_attention's output or gradients "
+                         f"disagree with dense_attention's: "
+                         f"{wrapper_checks}")
     emit({"phase": "swa", "replaces": "src/repro/kernels/swa.py:77",
           "tensor_core_audit": audit, "cta_rows": KS.CTA_ROWS,
-          "key_chunk": KS.KEY_CHUNK, "checks": checks,
-          "launches": launches, "timing": timing})
-    return launches, timing
+          "key_chunk": KS.KEY_CHUNK, "row_slice": KS.ROW_SLICE,
+          "checks": checks, "launches": launches, "timing": timing,
+          "train_checks": train_checks, "train_timing": train_timing,
+          "wrapper_checks": wrapper_checks})
+    return launches, timing, train_timing
 
 
 # ------------------------------------------------------------------- --ab
@@ -6624,7 +6858,7 @@ def main() -> int:
     train_also.update(cross)
     train_also["train_encdec"] = timed("train_encdec", phase_train_encdec)
     train_also["examples_quickstart"] = examples_counts
-    swa_launches, swa_timing = timed("swa", phase_swa)
+    _, swa_timing, swa_train_timing = timed("swa", phase_swa)
     timed("dryrun", phase_dryrun)
     emit({"phase_seconds": seconds,
           "total_s": time.perf_counter() - t_start})
@@ -6698,9 +6932,9 @@ def main() -> int:
     t = swa_timing["moba-340m:bfloat16"]
     kernels.append({
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": swa_launches,
-        "launches_from": "the swa phase's checks: no serving or training "
-                         "path launches it",
+        "replaces": replaces, "launches": train_launches["swa"],
+        "launches_also": {k: v["swa"] for k, v in train_also.items()
+                          if isinstance(v, dict) and "swa" in v},
         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
         "device_ms": t["device_ms"], "kernel_only_ms": t["kernel_only_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -6711,6 +6945,22 @@ def main() -> int:
             "bound_by", "max_abs_err", "shape", "flex_ms", "flex_error")
             if k in r}
             for g, r in swa_timing.items() if g != "moba-340m:bfloat16"},
+        "checked": True})
+    name, source = SWA_BWD_KERNEL
+    t = swa_train_timing["moba-340m-train"]
+    kernels.append({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": "none: the TPU kernel is forward only",
+        "launches": train_launches["swa_bwd"],
+        "launches_also": {k: v["swa_bwd"] for k, v in train_also.items()
+                          if isinstance(v, dict) and "swa_bwd" in v},
+        **{k: t[k] for k in ("kernel_only_ms", "fwd_lse_kernel_only_ms",
+                             "plain_device_ms", "bound_ms", "bound_by",
+                             "library_ms", "shape")},
+        "also_at": {g: {k: r[k] for k in ("kernel_only_ms", "bound_ms",
+                                          "bound_by", "shape")}
+                    for g, r in swa_train_timing.items()
+                    if g != "moba-340m-train"},
         "checked": True})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

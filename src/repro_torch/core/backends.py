@@ -250,9 +250,10 @@ class XLABackend(AttentionBackend):
 
 class FlashBackend(AttentionBackend):
     """Hopper kernel path: FlashMoBA for cache-free and dense-cache
-    prefill attention and the paged MoBA decode kernel (CPU tensors take
-    the kernels' plain versions).  Dense-cache decode keeps the shared
-    plain gather, as the reference's Pallas backend does.
+    prefill attention, the banded SWA kernels for the SWA layers' training
+    attention, and the paged MoBA decode kernel (CPU tensors take the
+    kernels' plain versions).  Dense-cache decode keeps the shared plain
+    gather, as the reference's Pallas backend does.
     ``train_grid``, ``kb_tile`` and ``decode_grid`` keep the reference's
     options; both grid values reach the one Hopper kernel of each
     function."""
@@ -264,6 +265,20 @@ class FlashBackend(AttentionBackend):
     train_grid: str = "grouped"
     # forward K/V streaming granularity, 0 = auto (min(block_size, 128))
     kb_tile: int = 0
+
+    def prefill(self, cfg, kind, q, k, v, *, q_positions=None, kv_len=None,
+                causal=True):
+        """SWA attention of a sequence over its own keys (training, a
+        one-shot prefill: ``kernels/swa.py::training_case``) runs the
+        banded kernels, forward and backward (CPU tensors their plain
+        versions); every other call the shared paths."""
+        from repro_torch.kernels import swa
+        if kind == "swa" and swa.training_case(
+                q, k, v, causal=causal, q_positions=q_positions,
+                kv_len=kv_len):
+            return swa.banded_attention(q, k, v, cfg.window, scale=cfg.scale)
+        return super().prefill(cfg, kind, q, k, v, q_positions=q_positions,
+                               kv_len=kv_len, causal=causal)
 
     def moba_prefill(self, cfg, q, k, v, *, q_positions=None):
         from repro_torch.kernels import ops

@@ -4,7 +4,8 @@
 // (_swa_kernel).  Query i attends keys j with i - window < j <= i, GQA by
 // the reference's row map kv = (bh / h) * (h / group) + (bh % h) / group, an
 // online softmax in fp32 with the reference's m_safe = max(m, -5e29) guard,
-// l floored at 1e-30, the output in q's dtype.  Forward only, as in JAX.
+// l floored at 1e-30, the output in q's dtype.  The TPU kernel is forward
+// only; the backward the port adds is csrc/swa_bwd.cu.
 //
 // What bounds it on an H100: bytes.  The function reads q, k and v once and
 // writes o once (at N 8192, window 256, 16 heads, d 64, bf16: 67.1 MB, 0.020
@@ -24,7 +25,7 @@
 // the whole band.  K and V stay bf16 and stream through a two-stage
 // cp.async ring in chunks of KC keys, rows padded by 16 bytes so ldmatrix
 // is conflict-free; one barrier a chunk, after which chunk i + 1's copies
-// are issued before chunk i's Q K^T.  KC is 64 at d 64 (119 registers,
+// are issued before chunk i's Q K^T.  KC is 64 at d 64 (121 registers,
 // 46,080 B of shared memory, 4 CTAs an SM) and 32 at d 128 (168 registers,
 // 52,224 B, 3 CTAs an SM): KC 64 at d 128 needs 183 registers and fits 2
 // CTAs; a tree with the other chunk at each head dim took 0.0792 ms
@@ -60,8 +61,14 @@
 // the C entry point; the wrapper refuses, before any launch, a shape the
 // chosen body does not take.
 //
-// Not done yet (later work): wgmma / TMA with a producer warp; a windowed
-// backward, which waits until a serving or training path calls the kernel.
+// Training: the bf16 body also writes each query row's log-sum-exp (fp32,
+// natural log: m + log l of the row's scaled scores) when the caller passes
+// a pointer, for the banded backward (csrc/swa_bwd.cu); a null pointer
+// writes nothing, and o is the same either way.  The flash backend runs
+// the SWA layers' cache-free attention through both (kernels/swa.py's
+// SWAAttention); the fp32 body takes no pointer.
+//
+// Not done yet (later work): wgmma / TMA with a producer warp.
 //
 // C interface (ctypes): every pointer and the stream are void*; returns the
 // cudaGetLastError() of the launch (0 = success).
@@ -76,6 +83,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxDevices = 64;
 constexpr int kWarps = 4;            // 16 query rows each: a 64-row tile
 constexpr int kThreads = 32 * kWarps;
@@ -94,8 +102,9 @@ __device__ __forceinline__ float exp2_approx(float x) {
 template <int D, int KC>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 2)
 swa_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-        const bf16* __restrict__ v, bf16* __restrict__ out, int n, int h,
-        int group, int window, float scale_log2) {
+        const bf16* __restrict__ v, bf16* __restrict__ out,
+        float* __restrict__ lse, int n, int h, int group, int window,
+        float scale_log2) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [kRows][LD]
@@ -263,6 +272,16 @@ swa_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+  if (lse != nullptr && tq == 0) {
+    // l is a sum relative to the last m_safe: lse = (m_safe + log2 l) ln 2
+    const size_t at = static_cast<size_t>(bh) * n;
+    if (qp_lo <= r_last)
+      lse[at + qp_lo] = (fmaxf(m_lo, kNegInf * 0.5f) +
+                         log2f(fmaxf(l_lo, 1e-30f))) * kLn2;
+    if (qp_hi <= r_last)
+      lse[at + qp_hi] = (fmaxf(m_hi, kNegInf * 0.5f) +
+                         log2f(fmaxf(l_hi, 1e-30f))) * kLn2;
+  }
   // the warp's own Q rows (read into qf at its first chunk) stage its output
   bf16* os = qs + warp * 16 * LD;
   __syncwarp();
@@ -287,7 +306,7 @@ swa_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D, int KC>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       void* out, int bh, int n, int h, int group,
+                       void* out, void* lse, int bh, int n, int h, int group,
                        int window, float scale, cudaStream_t s) {
   const size_t smem = sizeof(bf16) * (kRows + 4 * KC) * (D + 8);
   auto kernel = swa_mma<D, KC>;
@@ -305,8 +324,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   }
   kernel<<<dim3(bh, (n + kRows - 1) / kRows), kThreads, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), n, h, group,
-      window, scale * kLog2e);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), n, h, group, window, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -453,13 +472,16 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
 // dividing n, bh <= 65535), 1 = bfloat16 (the tensor-core body over tiles
 // of 64 query rows, at most 65535 tiles; q_tile and k_tile unused).  q, k,
 // v and out share the dtype.  q and out are (bh, n, d), k and v (bh / h *
-// h / group, n, d), all contiguous and 16-byte aligned.
+// h / group, n, d), all contiguous and 16-byte aligned.  lse: null, or (bf16
+// only) (bh, n) fp32 for each row's log-sum-exp.
 extern "C" int swa_attention(const void* q, const void* k, const void* v,
-                             void* out, int bh, int n, int d, int h,
-                             int group, int window, int q_tile, int k_tile,
-                             float scale, int dtype, void* stream) {
+                             void* out, void* lse, int bh, int n, int d,
+                             int h, int group, int window, int q_tile,
+                             int k_tile, float scale, int dtype,
+                             void* stream) {
   if (bh < 1 || n < 1 || h < 1 || bh % h != 0 || group < 1 ||
-      h % group != 0 || window < 1 || (d != 64 && d != 128))
+      h % group != 0 || window < 1 || (d != 64 && d != 128) ||
+      (dtype == 0 && lse != nullptr))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -474,8 +496,8 @@ extern "C" int swa_attention(const void* q, const void* k, const void* v,
   }
   if (dtype != 1 || (n + kRows - 1) / kRows > 65535)
     return cudaErrorInvalidValue;
-  return d == 64 ? launch_mma<64, 64>(q, k, v, out, bh, n, h, group, window,
-                                      scale, s)
-                 : launch_mma<128, 32>(q, k, v, out, bh, n, h, group, window,
-                                       scale, s);
+  return d == 64 ? launch_mma<64, 64>(q, k, v, out, lse, bh, n, h, group,
+                                      window, scale, s)
+                 : launch_mma<128, 32>(q, k, v, out, lse, bh, n, h, group,
+                                       window, scale, s);
 }

@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # every kernel source, in the order chip_smoke.py builds and reports them
 KERNELS = ("moba_decode", "centroids", "flash_topk", "moba_fwd", "moba_bwd",
-           "swa")
+           "swa", "swa_bwd")
 # the ``dtype`` code of every C entry point
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the ``payload`` code of a paged pool (the decode kernel): unquantized

@@ -187,6 +187,7 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         q = rms_norm(q, p["q_norm_scale"], cfg.rms_norm_eps)
         k = rms_norm(k, p["k_norm_scale"], cfg.rms_norm_eps)
 
+    given = positions
     if positions is None:
         positions = torch.arange(n, device=x.device)
     if _uses_rope(cfg, kind):
@@ -211,7 +212,11 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     else:
         if conv_w is not None:     # routing and attention see conv'd keys
             k = apply_key_conv(conv_w, k)
-        o = attention_dispatch(a, kind, q, k, v, q_positions=positions,
+        # a sequence over its own keys: dense and SWA attention default to
+        # these positions, and without them the flash backend may run the
+        # banded kernels; MoBA takes them (the sp backend sends them)
+        q_pos = positions if given is not None or kind == "moba" else None
+        o = attention_dispatch(a, kind, q, k, v, q_positions=q_pos,
                                backend=backend, causal=causal)
     o = o.permute(0, 2, 1, 3).reshape(b, n, h * dh)
     return o @ wcast(p["wo"], dt), cache

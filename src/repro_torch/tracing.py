@@ -22,9 +22,12 @@ Ranges are named ``<layer>.<what>``:
       the backward of those regions, on the thread autograd runs it on;
       ``model.weights.bwd`` assembles a block's weight gradients into the
       stacks'.
-  kernel.flash_moba, kernel.flash_moba_bwd, kernel.moba_decode
-      ``kernels/ops.py`` and ``kernels/moba_decode.py``: FlashMoBA's
-      forward and backward, and one paged MoBA decode call.
+  kernel.flash_moba, kernel.flash_moba_bwd, kernel.moba_decode,
+  kernel.swa, kernel.swa_bwd
+      ``kernels/ops.py``, ``kernels/moba_decode.py`` and
+      ``kernels/swa.py``: FlashMoBA's forward and backward, one paged
+      MoBA decode call, and the SWA layers' banded training attention,
+      forward (recomputes included) and backward.
   engine.step, engine.plan, engine.prefill.build,
   engine.prefill.dispatch, engine.prefill.sync, engine.decode.build,
   engine.decode.dispatch, engine.decode.sync, engine.retire
