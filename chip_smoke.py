@@ -4427,8 +4427,9 @@ def _max_rel(got, want) -> float:
 
 
 def _topk_case(*, h, hkv, n, nq, d, dtype, seed, bs=128, top_k=8,
-               tile=128):
-    """Random q, k, v on the card, the centroids and the plain routing."""
+               tile=128, dv=None):
+    """Random q, k, v on the card (v ``dv`` wide, default d), the
+    centroids and the plain routing."""
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -4438,7 +4439,7 @@ def _topk_case(*, h, hkv, n, nq, d, dtype, seed, bs=128, top_k=8,
                 * scale).to(dtype)
 
     q, k, v = rnd(1, h, nq, d, scale=0.5), rnd(1, hkv, n, d, scale=0.5), \
-        rnd(1, hkv, n, d)
+        rnd(1, hkv, n, dv or d)
     g = h // hkv
     kf = k.reshape(hkv, n, d)
     cents = ref.centroids_ref(kf, bs)
@@ -4544,8 +4545,9 @@ def _do_dtype(KB, c):
     else fp32 (the trees before it)."""
     import torch
     qs, lse = c["q_sorted"], torch.zeros(c["q_pos"].shape, device="cuda")
+    do = qs[..., :c["v"].shape[-1]]
     try:
-        KB.check_contract(qs, qs, lse, lse, c["k_blocks"], c["v_blocks"],
+        KB.check_contract(qs, do, lse, lse, c["k_blocks"], c["v_blocks"],
                           c["lay"].tile_block, c["q_pos"], c["tile"], c["h"],
                           c["g"])
     except ValueError:
@@ -4593,8 +4595,8 @@ def _check_train_kernels(c, dtype) -> dict:
     # per-slot lse of the slot's own partial keeps p <= 1
     lse = (o_p[1].clamp(min=-5e29)
            + torch.log(o_p[2].clamp(min=1e-30)))
-    do = torch.randn(c["q_sorted"].shape, generator=c["gen"],
-                     device="cuda").to(_do_dtype(KB, c))
+    do = torch.randn(c["q_sorted"].shape[:-1] + c["v"].shape[-1:],
+                     generator=c["gen"], device="cuda").to(_do_dtype(KB, c))
     delta = torch.randn(lse.shape, generator=c["gen"], device="cuda") * 0.1
     bargs = (lay.tile_block, c["q_sorted"], c["q_pos"], do, lse, delta,
              c["k_blocks"], c["v_blocks"])
@@ -4946,6 +4948,223 @@ def phase_train_kernels():
     emit({"phase": "train_kernels", "tensor_core_audit": audit,
           "checks": checks, "flash_vs_xla": vs_xla, "timing": timing})
     return timing, main_err
+
+
+# ------------------------------------------- latent attention (q/k 192, v 128)
+MLA_GEOM = dict(h=16, hkv=16, n=TRAIN_SEQ, nq=TRAIN_SEQ, d=192, dv=128)
+
+
+def _mla_functions(audit: dict) -> dict:
+    """The audit's q/k 192 instantiations: registers, stack bytes and
+    tensor-core instructions."""
+    return {n: f for n, f in audit["functions"].items() if "192" in n}
+
+
+def _time_mla_kernels(c, flush) -> dict:
+    """Each training kernel alone and through its wrapper at q/k 192 / v
+    128 (CUDA-event medians), with the bytes and FLOPs of this case and
+    the bound they give: each tensor read or written once; the forward
+    2·(d_qk + d_v) FLOPs a query slot and key of its block, the backward
+    2·(2·d_qk + 3·d_v) (S and dP recomputed, dV, dK, dQ)."""
+    from repro_torch.kernels import centroids as KC, flash_topk as KT
+    from repro_torch.kernels import moba_bwd as KB, moba_fwd as KF, ref
+    lay, kw, tile, bs = c["lay"], c["kw"], c["tile"], c["bs"]
+    dqk, dv = c["q"].shape[-1], c["v"].shape[-1]
+    kf, qf, cents = c["kf"], c["qf"], c["cents"]
+    args = (lay.tile_block, c["q_sorted"], c["q_pos"], c["k_blocks"],
+            c["v_blocks"])
+    bargs = (c["q_sorted"], c["q_pos"], c["do"], c["lse"], c["delta"],
+             c["k_blocks"], c["v_blocks"])
+    tables = KB.segments(lay.tile_block, c["nb"])
+    slots = int((lay.q_index >= 0).sum())        # (query, block) pairs
+    keys = slots * bs                            # at most, causal aside
+    q_b = _nbytes(c["q"])
+    kv_b = _nbytes(c["k"]) + _nbytes(c["v"])
+    o_b = q_b // dqk * dv
+    launch_kw = {k: kw[k] for k in ("scale", "n_tokens", "num_q_heads",
+                                    "group")}
+    cases = {
+        "block_centroids": (
+            lambda: KC.launch(kf, bs),
+            lambda: KC.block_centroids_kernel(kf, bs),
+            _bound(_nbytes(kf, cents), kf.numel(), FP32_FLOPS)),
+        "flash_topk": (
+            lambda: KT.launch(qf, cents, c["top_k"], bs, group=c["g"],
+                              causal=True, q_pos_offset=c["n"] - c["nq"]),
+            lambda: KT.flash_topk(qf, cents, c["top_k"], bs, group=c["g"],
+                                  num_q_heads=c["h"],
+                                  q_pos_offset=c["n"] - c["nq"]),
+            _bound(_nbytes(qf, cents), qf.numel() * cents.shape[1],
+                   BF16_FLOPS)),
+        "moba_fwd": (
+            lambda: KF.launch(*args, q_tile=tile, kb_tile=bs, causal=True,
+                              **launch_kw),
+            lambda: KF.moba_fwd(*args, q_tile=tile, **kw),
+            _bound(q_b + kv_b + o_b, keys * 2 * (dqk + dv), BF16_FLOPS)),
+        "moba_bwd": (
+            lambda: KB.launch(tables, *bargs, q_tile=tile, causal=True,
+                              **launch_kw),
+            lambda: KB.moba_bwd(lay.tile_block, *bargs, q_tile=tile, **kw),
+            _bound(2 * (q_b + kv_b) + 2 * o_b, keys * 2 * (2 * dqk + 3 * dv),
+                   BF16_FLOPS)),
+    }
+    out = {"shape": {"rows": c["q_sorted"].shape[0], "n": c["n"],
+                     "d_qk": dqk, "d_v": dv, "block": bs,
+                     "top_k": c["top_k"], "dtype": str(c["q"].dtype)}}
+    for name, (kernel, wrapper, bound) in cases.items():
+        out[name] = {"kernel_only_ms": cuda_events_ms(kernel, flush=flush),
+                     **call_cost(wrapper, flush), **bound}
+    out["moba_fwd"]["plain_ms"] = cuda_events_ms(
+        lambda: ref.moba_partials_ref(*args, **kw), reps=3)
+    return out
+
+
+def _flash_moba_vs_dense(dtype, seed: int = 5, n: int = 4096) -> dict:
+    """``flash_moba`` at q/k 192 / v 128 (the kernels) against autograd of
+    masked dense attention on the kernels' own selections, in fp32 from
+    the same inputs: the output and dq, dk, dv, each as max |err| / max
+    |ref|."""
+    import torch
+    from repro_torch.configs.base import MoBAConfig
+    from repro_torch.core.moba import moba_selection
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h, bs = 16, 128
+    cfg = MoBAConfig(block_size=bs, top_k=8)
+    q, k = (torch.randn(1, h, n, 192, generator=gen, device="cuda") * 0.5
+            for _ in range(2))
+    v = torch.randn(1, h, n, 128, generator=gen, device="cuda")
+    g = torch.randn(1, h, n, 128, generator=gen, device="cuda")
+    xs = [x.to(dtype).requires_grad_() for x in (q, k, v)]
+    out = ops.flash_moba(*xs, cfg)
+    grads = torch.autograd.grad(out, xs, g.to(dtype))
+    with torch.no_grad():
+        sel = moba_selection(xs[0], xs[1], cfg, torch.arange(
+            n, device="cuda")).long()
+    nb = n // bs
+    blk = torch.zeros(1, h, n, nb + 1, dtype=torch.bool, device="cuda")
+    blk.scatter_(-1, sel.clamp(max=nb), True)
+    pos = torch.arange(n, device="cuda")
+    mask = blk[..., :nb].repeat_interleave(bs, -1) & (pos[None]
+                                                       <= pos[:, None])
+    ref_x = [x.detach().float().requires_grad_() for x in xs]
+    s = (ref_x[0] @ ref_x[1].transpose(-1, -2)) * 192 ** -0.5
+    ref = torch.softmax(s.masked_fill(~mask, -float("inf")), -1) @ ref_x[2]
+    ref_g = torch.autograd.grad(ref, ref_x, g)
+    rec = {"out": _max_rel(out, ref)}
+    rec.update({f"d{nm}": _max_rel(a, b)
+                for nm, a, b in zip("qkv", grads, ref_g)})
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    return {"n": n, "dtype": str(dtype), "max_rel_err": rec, "tol": tol,
+            "ok": max(rec.values()) <= tol}
+
+
+def phase_train_mla_kernels():
+    """The four FlashMoBA kernels at latent attention's widths (q/k 192,
+    v 128: Moonlight-16B-A3B's heads) against their plain versions, in
+    bf16 (tensor cores) and fp32 (SIMT), at 16 heads x 8,192, block 128,
+    top_k 8: errors, each wrapper's launches, the bf16 backward's
+    bit-equal rerun; ``flash_moba`` end to end against autograd of
+    masked dense attention; registers and spills of every 192
+    instantiation; the first card timings."""
+    import torch
+    from repro_torch.kernels import (centroids, flash_topk, moba_bwd,
+                                     moba_fwd)
+    audit = _tensor_core_audit("train_mla_kernels",
+                               ("flash_topk", "moba_fwd", "moba_bwd"))
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    mods = {"block_centroids": centroids, "flash_topk": flash_topk,
+            "moba_fwd": moba_fwd, "moba_bwd": moba_bwd}
+    checks, timing = [], None
+    for dtype in (torch.bfloat16, torch.float32):
+        c = _train_case(dtype=dtype, seed=11, **MLA_GEOM)
+        before = {k: m.LAUNCHES for k, m in mods.items()}
+        rec = _check_train_kernels(c, dtype)
+        torch.cuda.synchronize()
+        launched = {k: m.LAUNCHES - before[k] for k, m in mods.items()}
+        checks.append({"dtype": str(dtype), "launches": launched, **rec})
+        if not all(r["ok"] for r in rec.values()) or launched != {
+                "block_centroids": 1, "flash_topk": 1, "moba_fwd": 1,
+                "moba_bwd": 2}:
+            emit({"phase": "train_mla_kernels", "checks": checks})
+            raise SystemExit(f"train_mla_kernels: a kernel disagrees "
+                             f"with its plain version: {checks[-1]}")
+        if dtype == torch.bfloat16:
+            timing = _time_mla_kernels(c, flush)
+        del c
+        torch.cuda.empty_cache()
+    dense = [_flash_moba_vs_dense(dt) for dt in (torch.float32,
+                                                 torch.bfloat16)]
+    rec = {"phase": "train_mla_kernels", "geometry": MLA_GEOM,
+           "functions_192": _mla_functions(audit), "checks": checks,
+           "vs_dense_autograd": dense, "timing": timing}
+    emit(rec)
+    if not all(x["ok"] for x in dense):
+        raise SystemExit(f"train_mla_kernels: flash_moba at 192/128 "
+                         f"disagrees with dense autograd: {dense}")
+    return rec
+
+
+def phase_train_mla(steps: int = 3, rows: int = 4, microbatch: int = 2):
+    """Moonlight-16B-A3B at its published widths and depth, one chip's
+    share (8 of 64 experts, 20,480 ids), through ``make_train_step`` on
+    ``flash`` with remat: ``rows`` x 8,192 a step in ``microbatch``
+    chunks, bf16, ``steps`` steps.  Losses, step seconds, exact launches
+    a step (each attention layer's centroids, Flash TopK and forward
+    twice a microbatch under remat, its backward once), the routing
+    counters and the peak memory."""
+    import math
+
+    import torch
+    from repro_torch.configs import moonlight_16b_a3b as ML
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.models import moe, transformer as T
+    from repro_torch.optim import adamw
+    cfg = ML.get_config(held_count=8, vocab_size=20480)
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_latent_lm(torch.Generator(device="cuda").manual_seed(0),
+                              cfg)
+    state = T.init_router_state(cfg, "cuda")
+    opt = adamw.adamw_init(params)
+    n_params = sum(p.numel() for _, p in adamw.tree_leaves(params))
+    tcfg = TrainConfig(global_batch_size=rows, seq_len=TRAIN_SEQ,
+                       microbatch=microbatch)
+    step = S.make_train_step(cfg, tcfg, backend="flash", remat=True,
+                             state=state)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    losses, step_s, per_step, retaken = [], [], [], []
+    counts = torch.zeros_like(state["expert_counts"])
+    for _ in range(steps):
+        tok = torch.randint(0, cfg.vocab_size, (rows, TRAIN_SEQ + 1),
+                            generator=gen, device="cuda")
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, out = step(params, opt, {"tokens": tok})
+        losses.append(float(out["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(_counts())
+        retaken.append(out["retaken"])
+        counts += out["expert_counts"]
+    layers = cfg.num_layers * microbatch
+    want = {"block_centroids": 2 * layers, "flash_topk": 2 * layers,
+            "moba_fwd": 2 * layers, "moba_bwd": layers, "swa": 0,
+            "swa_bwd": 0}
+    routing = moe.routing_counters(counts, state["router_bias"],
+                                   cfg.held_experts)
+    routing.pop("held_by_layer")
+    rec = {"phase": "train_mla", "params": n_params, "losses": losses,
+           "step_s": step_s, "launches": per_step[-1], "want": want,
+           "routing": routing, "retaken": retaken,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(rec)
+    if any(c != {k: v * (1 + r) for k, v in want.items()}
+           for c, r in zip(per_step, retaken)) or not all(
+            math.isfinite(x) for x in losses):
+        raise SystemExit(f"train_mla: launches {per_step} (want {want}) "
+                         f"or losses {losses}")
+    return rec
 
 
 # ------------------------------------------------------------------ phase 6
@@ -6638,8 +6857,8 @@ def _ab_train_kernels() -> dict:
             c["v_blocks"])
     _, m, l = ref.moba_partials_ref(*args, **kw)
     lse = m.clamp(min=-5e29) + torch.log(l.clamp(min=1e-30))
-    do = torch.randn(c["q_sorted"].shape, generator=c["gen"],
-                     device="cuda").to(_do_dtype(KB, c))
+    do = torch.randn(c["q_sorted"].shape[:-1] + c["v"].shape[-1:],
+                     generator=c["gen"], device="cuda").to(_do_dtype(KB, c))
     delta = torch.randn(lse.shape, generator=c["gen"], device="cuda") * 0.1
     tables = KB.segments(lay.tile_block, c["nb"])
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
@@ -6855,6 +7074,8 @@ def main() -> int:
     timed("train_key_conv", phase_train_grads,
           key_conv_width=KEY_CONV_WIDTH)
     train_also["train_moe"] = timed("train_moe", phase_train_moe)
+    timed("train_mla_kernels", phase_train_mla_kernels)
+    timed("train_mla", phase_train_mla)
     train_also.update(cross)
     train_also["train_encdec"] = timed("train_encdec", phase_train_encdec)
     train_also["examples_quickstart"] = examples_counts

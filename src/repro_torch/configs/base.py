@@ -116,6 +116,63 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention's widths (DeepSeek-V2 §2.1): keys and
+    values come up from a ``kv_lora_rank`` latent (after its RMSNorm),
+    queries from one projection (no query latent); each query/key head is
+    ``qk_nope_head_dim`` + ``qk_rope_head_dim`` wide, the RoPE part of the
+    key one vector shared by every head; values are ``v_head_dim``
+    wide."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class RouterConfig:
+    """DeepSeek-V3's routing (§2.1.2): sigmoid scores over every expert,
+    the top ``MoEConfig.top_k`` chosen on scores plus a per-expert bias
+    that is no parameter (moved by ``bias_rate`` · sign after each
+    optimizer step), the chosen scores renormalised and scaled by
+    ``routed_scale``; a sequence-wise balance loss of weight
+    ``seq_aux_coef``.  Nothing is dropped.  The layer computes the routed
+    part of ``held_count`` experts from ``held_first`` (0: every expert):
+    one device's share under expert parallelism."""
+
+    routed_scale: float = 1.0
+    seq_aux_coef: float = 1e-4
+    bias_rate: float = 1e-3
+    held_first: int = 0
+    held_count: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentMoEConfig(ModelConfig):
+    """A DeepSeek-V3-style model: every layer's attention is latent (MLA,
+    ``mla``) and runs as ``attention.kind`` over q/k ``mla.qk_head_dim``
+    and v ``mla.v_head_dim``; the first ``first_k_dense`` layers have a
+    SwiGLU MLP of width ``d_ff``, the rest sigmoid-routed experts
+    (``moe``, ``router``).  ``num_heads`` counts the attention heads
+    (every head has its own key and value)."""
+
+    mla: MLAConfig = dataclasses.field(default_factory=MLAConfig)
+    router: RouterConfig = dataclasses.field(default_factory=RouterConfig)
+    first_k_dense: int = 1
+
+    @property
+    def held_experts(self) -> Tuple[int, int]:
+        """(first, count) of the routed experts this model's layers hold."""
+        r = self.router
+        return r.held_first, r.held_count or self.moe.num_experts
+
+
+@dataclasses.dataclass(frozen=True)
 class MeshConfig:
     shape: Tuple[int, ...] = (16, 16)
     axes: Tuple[str, ...] = ("data", "model")

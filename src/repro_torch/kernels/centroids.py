@@ -9,7 +9,7 @@ thread, fp32 sums combined once per CTA).
 Device contract: a CPU tensor takes the plain PyTorch version
 (``kernels/ref.py::centroids_ref``); a CUDA tensor launches the kernel or
 raises — there is no fallback.  The kernel takes bf16 or fp32 keys with
-head_dim 64 or 128.
+head_dim 64 or 128, or latent attention's 192 (q/k 128 + 64).
 
 ``LAUNCHES`` counts kernel launches (and nothing else).
 """
@@ -23,7 +23,7 @@ from repro_torch.kernels import ref, runtime
 
 LAUNCHES = 0
 
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 192)
 _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
 

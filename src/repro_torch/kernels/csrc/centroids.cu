@@ -23,7 +23,10 @@
 // groups combine once, through shuffles inside a warp and shared memory
 // across the four warps, and each centroid is written once with 16-byte
 // stores.  At the training shape the grid is 64 blocks x 16 rows = 1,024
-// CTAs, ~7.8 per SM.
+// CTAs, ~7.8 per SM.  Latent attention's 192-wide keys (128 + 64) do not
+// split into whole 16-byte row groups of a warp, so a CTA there covers one
+// 64-wide column slice of the row (blockIdx.z, three slices); every other
+// width takes its whole row in one CTA.
 //
 // C interface (ctypes): every pointer and the stream are void*; returns
 // the cudaGetLastError() of the launch (0 = success).
@@ -78,15 +81,16 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
-template <typename T, int D>
+// W: the columns one CTA sums, the whole row (W == D) or a slice of it.
+template <typename T, int D, int W = D>
 __global__ void __launch_bounds__(kThreads)
 centroids_kernel(const T* __restrict__ k, T* __restrict__ out, int n,
                  int nb, int bs) {
   constexpr int kN = Vec<T>::kN;           // values in 16 bytes
-  constexpr int kSpan = D / kN;            // threads across one key row
+  constexpr int kSpan = W / kN;            // threads across one key row
   constexpr int kRows = kThreads / kSpan;  // key rows per step
   constexpr int kPerWarp = 32 / kSpan;     // row groups inside one warp
-  __shared__ float part[kWarps][D];
+  __shared__ float part[kWarps][W];
   const int row = blockIdx.y;
   const int j = blockIdx.x;
   const int tid = threadIdx.x;
@@ -94,8 +98,13 @@ centroids_kernel(const T* __restrict__ k, T* __restrict__ out, int n,
   const int rg = tid / kSpan;
   const int t0 = j * bs;
   const int valid = min(bs, n - t0);
-  const uint4* src = reinterpret_cast<const uint4*>(
-      k + (static_cast<size_t>(row) * n + t0) * D) + col;
+  const T* k_row = k + (static_cast<size_t>(row) * n + t0) * D;
+  T* out_row = out + (static_cast<size_t>(row) * nb + j) * D;
+  if constexpr (W < D) {                   // this CTA's column slice
+    k_row += blockIdx.z * W;
+    out_row += blockIdx.z * W;
+  }
+  const uint4* src = reinterpret_cast<const uint4*>(k_row) + col;
   constexpr int kRowVecs = D / kN;         // uint4 per key row
   float acc[kN];
 #pragma unroll
@@ -134,8 +143,7 @@ centroids_kernel(const T* __restrict__ k, T* __restrict__ out, int n,
       for (int w = 0; w < kWarps; ++w) s += part[w][col * kN + e];
       v[e] = s * inv;
     }
-    reinterpret_cast<uint4*>(out + (static_cast<size_t>(row) * nb + j) *
-                                       D)[col] = Vec<T>::pack(v);
+    reinterpret_cast<uint4*>(out_row)[col] = Vec<T>::pack(v);
   }
   static_assert(kPerWarp * kSpan == 32, "row groups tile a warp");
 }
@@ -148,8 +156,11 @@ cudaError_t launch(const void* k, void* out, int rows, int n, int bs, int d,
   if (d == 64)
     centroids_kernel<T, 64><<<grid, kThreads, 0, s>>>(
         static_cast<const T*>(k), static_cast<T*>(out), n, nb, bs);
-  else
+  else if (d == 128)
     centroids_kernel<T, 128><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(k), static_cast<T*>(out), n, nb, bs);
+  else
+    centroids_kernel<T, 192, 64><<<dim3(nb, rows, 3), kThreads, 0, s>>>(
         static_cast<const T*>(k), static_cast<T*>(out), n, nb, bs);
   return cudaGetLastError();
 }
@@ -160,7 +171,8 @@ cudaError_t launch(const void* k, void* out, int rows, int n, int bs, int d,
 // out must be 16-byte aligned (the wrapper checks).
 extern "C" int block_centroids(const void* k, void* out, int rows, int n,
                                int bs, int d, int dtype, void* stream) {
-  if (rows < 1 || rows > 65535 || n < 1 || bs < 1 || (d != 64 && d != 128))
+  if (rows < 1 || rows > 65535 || n < 1 || bs < 1 ||
+      (d != 64 && d != 128 && d != 192))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(k, out, rows, n, bs, d, s);

@@ -443,7 +443,8 @@ int dispatch(const void* q, const void* cents, void* out, int bkv, int nq,
 
 }  // namespace
 
-// q (BKV*group, nq, d), cents (BKV, nb, d), out (BKV*group, nq, top_k)
+// q (BKV*group, nq, d), cents (BKV, nb, d), out (BKV*group, nq, top_k);
+// d 64 or 128, or latent attention's 192 at top_k up to kRegMaxK
 // int32.  dtype: 0 = float32, 1 = bfloat16 (q and centroids share it).
 // top_k 1..1024; group at most the rows a CTA covers for this top_k (the
 // kernel picks its own rows per CTA: rows_for).
@@ -451,17 +452,22 @@ extern "C" int flash_topk(const void* q, const void* cents, void* out,
                           int bkv, int nq, int nb, int d, int top_k, int bs,
                           int group, int causal, int q_pos_offset, int dtype,
                           void* stream) {
-  if (bkv < 1 || bkv > 65535 || nq < 1 || nb < 1 || (d != 64 && d != 128) ||
+  if (bkv < 1 || bkv > 65535 || nq < 1 || nb < 1 ||
+      (d != 64 && d != 128 && !(d == 192 && top_k <= kRegMaxK)) ||
       top_k < 1 || top_k > kMaxTopK || bs < 1 || group < 1 ||
       group > rows_for(top_k) || q_pos_offset < 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (d == 64 ? &dispatch<float, 64> : &dispatch<float, 128>)(
+    return (d == 64    ? &dispatch<float, 64>
+            : d == 128 ? &dispatch<float, 128>
+                       : &dispatch<float, 192>)(
         q, cents, out, bkv, nq, nb, top_k, bs, group, causal, q_pos_offset,
         s);
   if (dtype == 1)
-    return (d == 64 ? &dispatch<bf16, 64> : &dispatch<bf16, 128>)(
+    return (d == 64    ? &dispatch<bf16, 64>
+            : d == 128 ? &dispatch<bf16, 128>
+                       : &dispatch<bf16, 192>)(
         q, cents, out, bkv, nq, nb, top_k, bs, group, causal, q_pos_offset,
         s);
   return cudaErrorInvalidValue;

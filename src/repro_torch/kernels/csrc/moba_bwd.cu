@@ -80,15 +80,19 @@ constexpr int kSplitKeys = 16 * kMmaWarps;   // keys a CTA holds
 
 using bf16 = __nv_bfloat16;
 
-// Shared memory of moba_bwd_mma<D, R>, in bytes.
-template <int D, int R>
+// Shared memory of moba_bwd_mma<DK, DV, R>, in bytes.
+template <int DK, int DV, int R>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * (2 * kSplitKeys * (D + 8) + 4 * R * (D + 8) +
+  return sizeof(bf16) * ((kSplitKeys + 2 * R) * (DK + 8 + DV + 8) +
                          kSplitKeys * (R + 8)) +
          sizeof(float) * 6 * R;
 }
 
-template <int D, int R>
+// DK is the width of q, k and their gradients, DV that of v, dO and dV
+// (equal but for latent attention's 192 / 128).  The products over the
+// shared width run fused, as at DK == DV; the rest of q's width runs
+// after them.
+template <int DK, int DV, int R>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 moba_bwd_mma(const int32_t* __restrict__ seg_block,
              const int32_t* __restrict__ seg_lo,
@@ -106,14 +110,16 @@ moba_bwd_mma(const int32_t* __restrict__ seg_block,
              float* __restrict__ part_dk, float* __restrict__ part_dv,
              int n_tiles, int n_seg, int num_q_heads, int group, int nb,
              int bs, int n_tokens, int q_tile, float scale, int causal) {
-  constexpr int LD = D + 8;                  // bf16 row stride of K/V/Q/dO
+  static_assert(DK >= DV, "the fused products cover v's width");
+  constexpr int LD = DK + 8;                 // bf16 row stride of K/Q
+  constexpr int LDV = DV + 8;                // bf16 row stride of V/dO
   constexpr int LDS = R + 8;                 // bf16 row stride of dS^T
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);     // [kSplitKeys][LD]
-  bf16* vs = ks + kSplitKeys * LD;                   // [kSplitKeys][LD]
-  bf16* qs = vs + kSplitKeys * LD;                   // [2][R][LD]
-  bf16* dos = qs + 2 * R * LD;                       // [2][R][LD]
-  bf16* dss = dos + 2 * R * LD;                      // [kSplitKeys][LDS]
+  bf16* vs = ks + kSplitKeys * LD;                   // [kSplitKeys][LDV]
+  bf16* qs = vs + kSplitKeys * LDV;                  // [2][R][LD]
+  bf16* dos = qs + 2 * R * LD;                       // [2][R][LDV]
+  bf16* dss = dos + 2 * R * LDV;                     // [kSplitKeys][LDS]
   float* lse_s = reinterpret_cast<float*>(dss + kSplitKeys * LDS);  // [2][R]
   float* delta_s = lse_s + 2 * R;                    // [2][R]
   int* qpos_s = reinterpret_cast<int*>(delta_s + 2 * R);            // [2][R]
@@ -128,11 +134,11 @@ moba_bwd_mma(const int32_t* __restrict__ seg_block,
   const int tq = lane & 3;
   const int L = n_tiles * q_tile;
   const size_t slot0 = static_cast<size_t>(bh) * L;
-  float* dqz = dq + static_cast<size_t>(blockIdx.z) * gridDim.y * L * D;
+  float* dqz = dq + static_cast<size_t>(blockIdx.z) * gridDim.y * L * DK;
 
   if (seg == n_seg) {       // tiles no block owns: their dQ slots are zero
-    const size_t lo = (slot0 + static_cast<size_t>(tail_lo[bh]) * q_tile) * D;
-    const size_t hi = (slot0 + L) * D;
+    const size_t lo = (slot0 + static_cast<size_t>(tail_lo[bh]) * q_tile) * DK;
+    const size_t hi = (slot0 + L) * DK;
     for (size_t e = lo + tid; e < hi; e += kMmaThreads) dqz[e] = 0.f;
     return;
   }
@@ -146,17 +152,17 @@ moba_bwd_mma(const int32_t* __restrict__ seg_block,
 
   const int hkv = num_q_heads / group;
   const int kv = (bh / num_q_heads) * hkv + (bh % num_q_heads) / group;
-  const size_t kv_off = ((static_cast<size_t>(kv) * nb + j) * bs + key0) * D;
+  const size_t kv_key = (static_cast<size_t>(kv) * nb + j) * bs + key0;
 
   auto load_slice = [&](int i) {
     const int st = i & 1;
     const int r0 = row_lo + i * R;
     const int rows = min(R, row_hi - r0);
-    const size_t src0 = (slot0 + r0) * D;
-    mma::copy_rows<D, kMmaThreads>(qs + st * R * LD, q_sorted + src0, rows,
-                                   R);
-    mma::copy_rows<D, kMmaThreads>(dos + st * R * LD, do_sorted + src0, rows,
-                                   R);
+    const size_t src0 = slot0 + r0;
+    mma::copy_rows<DK, kMmaThreads>(qs + st * R * LD, q_sorted + src0 * DK,
+                                    rows, R);
+    mma::copy_rows<DV, kMmaThreads>(dos + st * R * LDV, do_sorted + src0 * DV,
+                                    rows, R);
     for (int e = tid; e < 3 * R; e += kMmaThreads) {
       const int which = e / R;
       const int r = e - which * R;
@@ -171,8 +177,8 @@ moba_bwd_mma(const int32_t* __restrict__ seg_block,
         mma::cp_async4(qpos_s + dst, q_pos + src, in);
     }
   };
-  mma::copy_rows<D, kMmaThreads>(ks, k_blocks + kv_off, nkeys, nkeys);
-  mma::copy_rows<D, kMmaThreads>(vs, v_blocks + kv_off, nkeys, nkeys);
+  mma::copy_rows<DK, kMmaThreads>(ks, k_blocks + kv_key * DK, nkeys, nkeys);
+  mma::copy_rows<DV, kMmaThreads>(vs, v_blocks + kv_key * DV, nkeys, nkeys);
   load_slice(0);
   mma::cp_async_commit();
 
@@ -180,17 +186,19 @@ moba_bwd_mma(const int32_t* __restrict__ seg_block,
   const bool has_keys = wkey < nkeys;        // nkeys is a multiple of 16
   const int kpos_lo = j * bs + key0 + wkey + g;
   const int kpos_hi = kpos_lo + 8;
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[DK / 8][4], dv[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DK / 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dk[n][e] = 0.f;
-      dv[n][e] = 0.f;
-    }
+    for (int e = 0; e < 4; ++e) dk[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[n][e] = 0.f;
   // the dQ product's share of this warp: rows 16 rg.., columns dc0..
   constexpr int kRowGroups = R / 16;
-  constexpr int kColW = D * kRowGroups / kMmaWarps;
+  constexpr int kColW = DK * kRowGroups / kMmaWarps;
+  static_assert(kColW % 16 == 0, "a warp's dQ columns are whole n16 tiles");
   const int rg = warp % kRowGroups;
   const int dc0 = (warp / kRowGroups) * kColW;
 
@@ -203,7 +211,7 @@ moba_bwd_mma(const int32_t* __restrict__ seg_block,
     const int r0 = row_lo + i * R;
     const int rows = min(R, row_hi - r0);
     const bf16* q_st = qs + st * R * LD;
-    const bf16* do_st = dos + st * R * LD;
+    const bf16* do_st = dos + st * R * LDV;
     if (has_keys) {
       float s[R / 8][4], dp[R / 8][4];
 #pragma unroll
@@ -214,19 +222,35 @@ moba_bwd_mma(const int32_t* __restrict__ seg_block,
           dp[n][e] = 0.f;
         }
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DV / 16; ++kk) {
         uint32_t ka[4], va[4];
         mma::ldsm_x4(ks + mma::a_offset(lane, wkey, kk * 16, LD), ka);
-        mma::ldsm_x4(vs + mma::a_offset(lane, wkey, kk * 16, LD), va);
+        mma::ldsm_x4(vs + mma::a_offset(lane, wkey, kk * 16, LDV), va);
 #pragma unroll
         for (int np = 0; np < R / 16; ++np) {
           uint32_t b[4];
           mma::ldsm_x4(q_st + mma::bn_offset(lane, np * 16, kk * 16, LD), b);
           mma::mma16816(s[2 * np], ka, b[0], b[1]);
           mma::mma16816(s[2 * np + 1], ka, b[2], b[3]);
-          mma::ldsm_x4(do_st + mma::bn_offset(lane, np * 16, kk * 16, LD), b);
+          mma::ldsm_x4(do_st + mma::bn_offset(lane, np * 16, kk * 16, LDV),
+                       b);
           mma::mma16816(dp[2 * np], va, b[0], b[1]);
           mma::mma16816(dp[2 * np + 1], va, b[2], b[3]);
+        }
+      }
+      if constexpr (DK > DV) {               // S^T over the rest of q's width
+#pragma unroll
+        for (int kk = DV / 16; kk < DK / 16; ++kk) {
+          uint32_t ka[4];
+          mma::ldsm_x4(ks + mma::a_offset(lane, wkey, kk * 16, LD), ka);
+#pragma unroll
+          for (int np = 0; np < R / 16; ++np) {
+            uint32_t b[4];
+            mma::ldsm_x4(q_st + mma::bn_offset(lane, np * 16, kk * 16, LD),
+                         b);
+            mma::mma16816(s[2 * np], ka, b[0], b[1]);
+            mma::mma16816(s[2 * np + 1], ka, b[2], b[3]);
+          }
         }
       }
       // P^T and dS^T in place: element (key g / g + 8, row 8n + 2t (+1))
@@ -250,11 +274,19 @@ moba_bwd_mma(const int32_t* __restrict__ seg_block,
         mma::acc_to_a(s[2 * kk], s[2 * kk + 1], pa);
         mma::acc_to_a(dp[2 * kk], dp[2 * kk + 1], da);
 #pragma unroll
-        for (int dn = 0; dn < D / 16; ++dn) {
+        for (int dn = 0; dn < DV / 16; ++dn) {
           uint32_t b[4];
-          mma::ldsm_x4_t(do_st + mma::bk_offset(lane, kk * 16, dn * 16, LD), b);
+          mma::ldsm_x4_t(do_st + mma::bk_offset(lane, kk * 16, dn * 16, LDV),
+                         b);
           mma::mma16816(dv[2 * dn], pa, b[0], b[1]);
           mma::mma16816(dv[2 * dn + 1], pa, b[2], b[3]);
+          mma::ldsm_x4_t(q_st + mma::bk_offset(lane, kk * 16, dn * 16, LD), b);
+          mma::mma16816(dk[2 * dn], da, b[0], b[1]);
+          mma::mma16816(dk[2 * dn + 1], da, b[2], b[3]);
+        }
+#pragma unroll
+        for (int dn = DV / 16; dn < DK / 16; ++dn) {   // dK's other columns
+          uint32_t b[4];
           mma::ldsm_x4_t(q_st + mma::bk_offset(lane, kk * 16, dn * 16, LD), b);
           mma::mma16816(dk[2 * dn], da, b[0], b[1]);
           mma::mma16816(dk[2 * dn + 1], da, b[2], b[3]);
@@ -293,7 +325,7 @@ moba_bwd_mma(const int32_t* __restrict__ seg_block,
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       if (rq + 8 * half >= rows) continue;
-      float* dst = dqz + (slot0 + r0 + rq + 8 * half) * D + dc0 + 2 * tq;
+      float* dst = dqz + (slot0 + r0 + rq + 8 * half) * DK + dc0 + 2 * tq;
 #pragma unroll
       for (int n = 0; n < kColW / 8; ++n)
         *reinterpret_cast<float2*>(dst + 8 * n) =
@@ -305,16 +337,22 @@ moba_bwd_mma(const int32_t* __restrict__ seg_block,
     // a block's only segment writes dK/dV itself; pass 2 skips the block
     const size_t bj = static_cast<size_t>(bh) * nb + j;
     const bool alone = seg_count[bj] == 1;
-    float* out_k = alone ? dk_out + bj * bs * D : part_dk + sidx * bs * D;
-    float* out_v = alone ? dv_out + bj * bs * D : part_dv + sidx * bs * D;
-    const int base = (key0 + wkey + g) * D + 2 * tq;
+    float* out_k = alone ? dk_out + bj * bs * DK : part_dk + sidx * bs * DK;
+    float* out_v = alone ? dv_out + bj * bs * DV : part_dv + sidx * bs * DV;
+    const int key = key0 + wkey + g;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DK / 8; ++n)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int e = base + 8 * half * D + 8 * n;
+        const int e = (key + 8 * half) * DK + 2 * tq + 8 * n;
         *reinterpret_cast<float2*>(out_k + e) =
             make_float2(dk[n][2 * half], dk[n][2 * half + 1]);
+      }
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int e = (key + 8 * half) * DV + 2 * tq + 8 * n;
         *reinterpret_cast<float2*>(out_v + e) =
             make_float2(dv[n][2 * half], dv[n][2 * half + 1]);
       }
@@ -353,7 +391,7 @@ __device__ __forceinline__ void stage(const float* __restrict__ src,
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 moba_bwd_simt(const int32_t* __restrict__ seg_block,
               const int32_t* __restrict__ seg_lo,
@@ -371,13 +409,15 @@ moba_bwd_simt(const int32_t* __restrict__ seg_block,
               float* __restrict__ part_dk, float* __restrict__ part_dv,
               int n_tiles, int n_seg, int num_q_heads, int group, int nb,
               int bs, int n_tokens, int q_tile, float scale, int causal) {
-  constexpr int kCols = D / 32;
+  static_assert(DK >= DV, "the fused loops cover v's width");
+  constexpr int kCols = DK / 32;             // columns of q, k, dq, dk
+  constexpr int kColsV = DV / 32;            // columns of dO, v, dv
   extern __shared__ float smem[];
-  float* qs = smem;                          // [kRows][D + 1]
-  float* dos = qs + kRows * (D + 1);         // [kRows][D + 1]
-  float* ks = dos + kRows * (D + 1);         // [kKeys][D + 1]
-  float* vs = ks + kKeys * (D + 1);          // [kKeys][D + 1]
-  float* ps = vs + kKeys * (D + 1);          // [kRows][kKeys + 1]
+  float* qs = smem;                          // [kRows][DK + 1]
+  float* dos = qs + kRows * (DK + 1);        // [kRows][DV + 1]
+  float* ks = dos + kRows * (DV + 1);        // [kKeys][DK + 1]
+  float* vs = ks + kKeys * (DK + 1);         // [kKeys][DV + 1]
+  float* ps = vs + kKeys * (DV + 1);         // [kRows][kKeys + 1]
   float* dss = ps + kRows * (kKeys + 1);     // [kRows][kKeys + 1]
   float* lse_s = dss + kRows * (kKeys + 1);  // [kRows]
   float* delta_s = lse_s + kRows;            // [kRows]
@@ -391,8 +431,8 @@ moba_bwd_simt(const int32_t* __restrict__ seg_block,
   const size_t slot0 = static_cast<size_t>(bh) * n_tiles * q_tile;
 
   if (seg == n_seg) {       // tiles no block owns: their dQ slots are zero
-    const size_t lo = (slot0 + static_cast<size_t>(tail_lo[bh]) * q_tile) * D;
-    const size_t hi = (slot0 + static_cast<size_t>(n_tiles) * q_tile) * D;
+    const size_t lo = (slot0 + static_cast<size_t>(tail_lo[bh]) * q_tile) * DK;
+    const size_t hi = (slot0 + static_cast<size_t>(n_tiles) * q_tile) * DK;
     for (size_t e = lo + tid; e < hi; e += kThreads) dq[e] = 0.f;
     return;
   }
@@ -404,27 +444,27 @@ moba_bwd_simt(const int32_t* __restrict__ seg_block,
   // a block's only segment writes dK/dV itself; pass 2 skips the block
   const size_t bj = static_cast<size_t>(bh) * nb + j;
   const bool alone = seg_count[bj] == 1;
-  float* pdk = alone ? dk_out + bj * bs * D : part_dk + sidx * bs * D;
-  float* pdv = alone ? dv_out + bj * bs * D : part_dv + sidx * bs * D;
+  float* pdk = alone ? dk_out + bj * bs * DK : part_dk + sidx * bs * DK;
+  float* pdv = alone ? dv_out + bj * bs * DV : part_dv + sidx * bs * DV;
 
   const int hkv = num_q_heads / group;
   const int kv = (bh / num_q_heads) * hkv + (bh % num_q_heads) / group;
-  const size_t kv_off = (static_cast<size_t>(kv) * nb + j) * bs * D;
+  const size_t kv_blk = (static_cast<size_t>(kv) * nb + j) * bs;
 
   for (int kc0 = 0; kc0 < bs; kc0 += kKeys) {
     const int nk = min(kKeys, bs - kc0);
     __syncthreads();
-    stage<D>(k_blocks + kv_off + static_cast<size_t>(kc0) * D, nk, ks);
-    stage<D>(v_blocks + kv_off + static_cast<size_t>(kc0) * D, nk, vs);
+    stage<DK>(k_blocks + (kv_blk + kc0) * DK, nk, ks);
+    stage<DV>(v_blocks + (kv_blk + kc0) * DV, nk, vs);
     float dk_acc[kRowsPerWarp][kCols];
-    float dv_acc[kRowsPerWarp][kCols];
+    float dv_acc[kRowsPerWarp][kColsV];
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i)
+    for (int i = 0; i < kRowsPerWarp; ++i) {
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        dk_acc[i][c] = 0.f;
-        dv_acc[i][c] = 0.f;
-      }
+      for (int c = 0; c < kCols; ++c) dk_acc[i][c] = 0.f;
+#pragma unroll
+      for (int c = 0; c < kColsV; ++c) dv_acc[i][c] = 0.f;
+    }
     const int kpos = j * bs + kc0 + lane;    // this lane's key
 
     for (int t = t_lo; t < t_hi; ++t) {
@@ -432,8 +472,8 @@ moba_bwd_simt(const int32_t* __restrict__ seg_block,
         const int nrow = min(kRows, q_tile - rq0);
         const size_t s0 = slot0 + static_cast<size_t>(t) * q_tile + rq0;
         __syncthreads();                     // previous slice consumed
-        stage<D>(q_sorted + s0 * D, nrow, qs);
-        stage<D>(do_sorted + s0 * D, nrow, dos);
+        stage<DK>(q_sorted + s0 * DK, nrow, qs);
+        stage<DV>(do_sorted + s0 * DV, nrow, dos);
         if (tid < kRows) {
           const bool in = tid < nrow;
           lse_s[tid] = in ? lse_sorted[s0 + tid] : 0.f;
@@ -449,15 +489,21 @@ moba_bwd_simt(const int32_t* __restrict__ seg_block,
           s[i] = 0.f;
           dp[i] = 0.f;
         }
-        for (int kk = 0; kk < D; ++kk) {
-          const float kv_ = ks[lane * (D + 1) + kk];
-          const float vv = vs[lane * (D + 1) + kk];
+        for (int kk = 0; kk < DV; ++kk) {
+          const float kv_ = ks[lane * (DK + 1) + kk];
+          const float vv = vs[lane * (DV + 1) + kk];
 #pragma unroll
           for (int i = 0; i < kRowsPerWarp; ++i) {
             const int r = warp + kWarps * i;
-            s[i] = fmaf(qs[r * (D + 1) + kk], kv_, s[i]);
-            dp[i] = fmaf(dos[r * (D + 1) + kk], vv, dp[i]);
+            s[i] = fmaf(qs[r * (DK + 1) + kk], kv_, s[i]);
+            dp[i] = fmaf(dos[r * (DV + 1) + kk], vv, dp[i]);
           }
+        }
+        for (int kk = DV; kk < DK; ++kk) {   // s over the rest of q's width
+          const float kv_ = ks[lane * (DK + 1) + kk];
+#pragma unroll
+          for (int i = 0; i < kRowsPerWarp; ++i)
+            s[i] = fmaf(qs[(warp + kWarps * i) * (DK + 1) + kk], kv_, s[i]);
         }
 #pragma unroll
         for (int i = 0; i < kRowsPerWarp; ++i) {
@@ -472,22 +518,24 @@ moba_bwd_simt(const int32_t* __restrict__ seg_block,
         __syncthreads();
         // dV += p^T dO, dK += dS^T Q: lane = column, warp = keys warp + 4i
         for (int r = 0; r < nrow; ++r) {
-          float dor[kCols];
+          float dor[kColsV];
           float qr[kCols];
 #pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            dor[c] = dos[r * (D + 1) + lane + 32 * c];
-            qr[c] = qs[r * (D + 1) + lane + 32 * c];
-          }
+          for (int c = 0; c < kColsV; ++c)
+            dor[c] = dos[r * (DV + 1) + lane + 32 * c];
+#pragma unroll
+          for (int c = 0; c < kCols; ++c)
+            qr[c] = qs[r * (DK + 1) + lane + 32 * c];
 #pragma unroll
           for (int i = 0; i < kRowsPerWarp; ++i) {
             const float p = ps[r * (kKeys + 1) + warp + kWarps * i];
             const float ds = dss[r * (kKeys + 1) + warp + kWarps * i];
 #pragma unroll
-            for (int c = 0; c < kCols; ++c) {
+            for (int c = 0; c < kColsV; ++c)
               dv_acc[i][c] = fmaf(p, dor[c], dv_acc[i][c]);
+#pragma unroll
+            for (int c = 0; c < kCols; ++c)
               dk_acc[i][c] = fmaf(ds, qr[c], dk_acc[i][c]);
-            }
           }
         }
         // dQ = dS K: lane = column, warp = rows warp + 4i
@@ -500,7 +548,7 @@ moba_bwd_simt(const int32_t* __restrict__ seg_block,
           float kc[kCols];
 #pragma unroll
           for (int c = 0; c < kCols; ++c)
-            kc[c] = ks[jj * (D + 1) + lane + 32 * c];
+            kc[c] = ks[jj * (DK + 1) + lane + 32 * c];
 #pragma unroll
           for (int i = 0; i < kRowsPerWarp; ++i) {
             const float ds = dss[(warp + kWarps * i) * (kKeys + 1) + jj];
@@ -513,7 +561,7 @@ moba_bwd_simt(const int32_t* __restrict__ seg_block,
         for (int i = 0; i < kRowsPerWarp; ++i) {
           const int r = warp + kWarps * i;
           if (r >= nrow) continue;
-          float* dst = dq + (s0 + r) * D + lane;
+          float* dst = dq + (s0 + r) * DK + lane;
 #pragma unroll
           for (int c = 0; c < kCols; ++c) {
             // the same thread owns this element in every chunk
@@ -528,11 +576,13 @@ moba_bwd_simt(const int32_t* __restrict__ seg_block,
       const int key = warp + kWarps * i;
       if (key >= nk) continue;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const size_t e = static_cast<size_t>(kc0 + key) * D + lane + 32 * c;
-        pdk[e] = dk_acc[i][c];
-        pdv[e] = dv_acc[i][c];
-      }
+      for (int c = 0; c < kCols; ++c)
+        pdk[static_cast<size_t>(kc0 + key) * DK + lane + 32 * c] =
+            dk_acc[i][c];
+#pragma unroll
+      for (int c = 0; c < kColsV; ++c)
+        pdv[static_cast<size_t>(kc0 + key) * DV + lane + 32 * c] =
+            dv_acc[i][c];
     }
   }
 }
@@ -566,23 +616,55 @@ moba_bwd_reduce(const float* __restrict__ part_dk,
   }
 }
 
+// Pass 2 for one tensor: dK (or dV) of block j alone, where dK and dV
+// differ in width (latent attention).
+__global__ void __launch_bounds__(kThreads)
+moba_bwd_reduce_one(const float* __restrict__ part,
+                    const int32_t* __restrict__ seg_first,
+                    const int32_t* __restrict__ seg_count,
+                    float* __restrict__ out, int nb, int n_seg,
+                    int block_elems) {
+  const int bh = blockIdx.y;
+  const int j = blockIdx.x;
+  const size_t bj = static_cast<size_t>(bh) * nb + j;
+  const int first = seg_first[bj];
+  const int count = seg_count[bj];
+  if (count == 1) return;
+  const size_t base = (static_cast<size_t>(bh) * n_seg + first) * block_elems;
+  for (int e = threadIdx.x; e < block_elems; e += kThreads) {
+    float a = 0.f;
+    for (int s = 0; s < count; ++s)
+      a += part[base + static_cast<size_t>(s) * block_elems + e];
+    out[bj * block_elems + e] = a;
+  }
+}
+
+// Pass 2 over blocks of dk_elems (dK) and dv_elems (dV) values: one
+// launch at equal widths, one a tensor where they differ.
 int launch_reduce(const int32_t* const* tables, float* dk, float* dv,
                   const float* part_dk, const float* part_dv, int bh, int nb,
-                  int n_seg, int block_elems, cudaStream_t s) {
-  moba_bwd_reduce<<<dim3(nb, bh), kThreads, 0, s>>>(
-      part_dk, part_dv, tables[4], tables[5], dk, dv, nb, n_seg, block_elems);
+                  int n_seg, int dk_elems, int dv_elems, cudaStream_t s) {
+  if (dk_elems == dv_elems) {
+    moba_bwd_reduce<<<dim3(nb, bh), kThreads, 0, s>>>(
+        part_dk, part_dv, tables[4], tables[5], dk, dv, nb, n_seg, dk_elems);
+  } else {
+    moba_bwd_reduce_one<<<dim3(nb, bh), kThreads, 0, s>>>(
+        part_dk, tables[4], tables[5], dk, nb, n_seg, dk_elems);
+    moba_bwd_reduce_one<<<dim3(nb, bh), kThreads, 0, s>>>(
+        part_dv, tables[4], tables[5], dv, nb, n_seg, dv_elems);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int R>
+template <int DK, int DV, int R>
 int launch_mma(const int32_t* const* tables, const void* qs, const void* qp,
                const void* dos, const void* lse, const void* delta,
                const void* kb, const void* vb, float* dq, float* dk,
                float* dv, float* part_dk, float* part_dv, int bh,
                int n_tiles, int n_seg, int h, int g, int nb, int bs, int n,
                int q_tile, float scale, int causal, cudaStream_t s) {
-  constexpr size_t smem = mma_smem_bytes<D, R>();
-  auto kernel = moba_bwd_mma<D, R>;
+  constexpr size_t smem = mma_smem_bytes<DK, DV, R>();
+  auto kernel = moba_bwd_mma<DK, DV, R>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -598,20 +680,19 @@ int launch_mma(const int32_t* const* tables, const void* qs, const void* qp,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return launch_reduce(tables, dk, dv, part_dk, part_dv, bh, nb, n_seg,
-                       bs * D, s);
+                       bs * DK, bs * DV, s);
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_simt(const int32_t* const* tables, const void* qs, const void* qp,
                 const void* dos, const void* lse, const void* delta,
                 const void* kb, const void* vb, float* dq, float* dk,
                 float* dv, float* part_dk, float* part_dv, int bh,
                 int n_tiles, int n_seg, int h, int g, int nb, int bs, int n,
                 int q_tile, float scale, int causal, cudaStream_t s) {
-  const size_t smem = sizeof(float) * (2 * kRows * (D + 1) +
-                                       2 * kKeys * (D + 1) +
+  const size_t smem = sizeof(float) * ((kRows + kKeys) * (DK + DV + 2) +
                                        2 * kRows * (kKeys + 1) + 3 * kRows);
-  auto kernel = moba_bwd_simt<D>;
+  auto kernel = moba_bwd_simt<DK, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -626,7 +707,7 @@ int launch_simt(const int32_t* const* tables, const void* qs, const void* qp,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return launch_reduce(tables, dk, dv, part_dk, part_dv, bh, nb, n_seg,
-                       bs * D, s);
+                       bs * DK, bs * DV, s);
 }
 
 }  // namespace
@@ -635,9 +716,11 @@ int launch_simt(const int32_t* const* tables, const void* qs, const void* qp,
 // block (-1 = spare CTA) and tiles [lo, hi) of each segment; tail_lo (bh,)
 // the first inactive tile; seg_first/seg_count (bh, nb) each block's
 // segments.  q_sorted (bh, L, d); q_pos (bh, L) int32; do_sorted (bh, L,
-// d) in q_sorted's dtype; lse/delta (bh, L) float32; k/v_blocks
-// (bh/group, nb, bs, d); dk/dv (bh, nb, bs, d) and the scratch
-// part_dk/part_dv (bh, n_seg, bs, d) float32.  dtype: 0 = float32 (SIMT
+// dv) in q_sorted's dtype; lse/delta (bh, L) float32; k_blocks (bh/group,
+// nb, bs, d), v_blocks (bh/group, nb, bs, dv); dk (bh, nb, bs, d), dv
+// (bh, nb, bs, dv) and the scratch part_dk/part_dv (bh, n_seg, bs, d /
+// dv) float32.  (d, d_v): (64, 64), (128, 128) or latent attention's
+// (192, 128), d_v the width of dO, v and dv.  dtype: 0 = float32 (SIMT
 // body; dq (bh, L, d)), 1 = bfloat16 (tensor cores; bs any multiple of
 // 16; dq (ceil(bs / 128), bh, L, d): one dQ partial per 128 keys).
 extern "C" int moba_bwd(const void* seg_block, const void* seg_lo,
@@ -649,11 +732,13 @@ extern "C" int moba_bwd(const void* seg_block, const void* seg_lo,
                         const void* v_blocks, void* dq, void* dk, void* dv,
                         void* part_dk, void* part_dv, int bh, int n_tiles,
                         int n_seg, int num_q_heads, int group, int nb, int bs,
-                        int d, int n_tokens, int q_tile, float scale,
-                        int causal, int dtype, void* stream) {
+                        int d, int d_v, int n_tokens, int q_tile,
+                        float scale, int causal, int dtype, void* stream) {
   if (bh < 1 || bh > 65535 || n_tiles < 1 || n_seg < 1 ||
       num_q_heads < 1 || group < 1 || num_q_heads % group != 0 || nb < 1 ||
-      bs < 1 || (d != 64 && d != 128) || q_tile < 1 ||
+      bs < 1 || q_tile < 1 ||
+      !((d == 64 && d_v == 64) || (d == 128 && d_v == 128) ||
+        (d == 192 && d_v == 128)) ||
       (dtype == 1 && bs % 16 != 0) ||
       (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
@@ -669,9 +754,12 @@ extern "C" int moba_bwd(const void* seg_block, const void* seg_lo,
   auto* dvp = static_cast<float*>(dv);
   auto* pk = static_cast<float*>(part_dk);
   auto* pv = static_cast<float*>(part_dv);
-  auto* run = dtype == 1
-                  ? (d == 64 ? &launch_mma<64, 64> : &launch_mma<128, 32>)
-                  : (d == 64 ? &launch_simt<64> : &launch_simt<128>);
+  auto* run = dtype == 1 ? (d == 64    ? &launch_mma<64, 64, 64>
+                            : d == 128 ? &launch_mma<128, 128, 32>
+                                       : &launch_mma<192, 128, 32>)
+                         : (d == 64    ? &launch_simt<64, 64>
+                            : d == 128 ? &launch_simt<128, 128>
+                                       : &launch_simt<192, 128>);
   return run(tables, q_sorted, q_pos, do_sorted, lse_sorted, delta_sorted,
              k_blocks, v_blocks, dqp, dkp, dvp, pk, pv, bh, n_tiles, n_seg,
              num_q_heads, group, nb, bs, n_tokens, q_tile, scale, causal, s);

@@ -85,8 +85,10 @@ using bf16 = __nv_bfloat16;
 
 // RING false: the whole block's K and V staged at once (blocks up to
 // kWholeBlock keys); RING true: K and V stream through a two-chunk ring.
-template <int D, int KC, bool RING>
-__global__ void __launch_bounds__(kMmaThreads, D == 64 ? 2 : 1)
+// DK is the width of q and k, DV that of v and o (equal but for latent
+// attention's 192 / 128).
+template <int DK, int DV, int KC, bool RING>
+__global__ void __launch_bounds__(kMmaThreads, DK == 64 ? 2 : 1)
 moba_fwd_mma(const int32_t* __restrict__ tile_block,
              const bf16* __restrict__ q_sorted,
              const int32_t* __restrict__ q_pos,
@@ -95,12 +97,14 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
              float* __restrict__ m_out, float* __restrict__ l_out,
              int n_tiles, int num_q_heads, int group, int nb, int bs,
              int n_tokens, int q_tile, float scale, int causal) {
-  constexpr int LD = D + 8;
+  static_assert(DK >= DV, "o is staged in q's rows");
+  constexpr int LD = DK + 8;                  // q and k rows
+  constexpr int LDV = DV + 8;                 // v rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kKeyRows = KC * 2;            // ring rows of K (and V)
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);     // [kTileRows][LD]
   bf16* ks = qs + kTileRows * LD;          // [bs][LD], ring: [2][KC][LD]
-  bf16* vs = ks + (RING ? kKeyRows : bs) * LD;      // the same for V
+  bf16* vs = ks + (RING ? kKeyRows : bs) * LD;  // the same for V, LDV
 
   const int bh = blockIdx.y;
   const int t = blockIdx.x;
@@ -115,7 +119,8 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
   const int blk = tile_block[static_cast<size_t>(bh) * n_tiles + t];
 
   if (blk < 0 || blk >= nb) {                // inactive tile
-    for (int e = tid; e < q_tile * D; e += kMmaThreads) o[row0 * D + e] = 0.f;
+    for (int e = tid; e < q_tile * DV; e += kMmaThreads)
+      o[row0 * DV + e] = 0.f;
     if (tid < q_tile) {
       m_out[row0 + tid] = kNegInf;
       l_out[row0 + tid] = 0.f;
@@ -125,23 +130,24 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
 
   const int hkv = num_q_heads / group;
   const int kv = (bh / num_q_heads) * hkv + (bh % num_q_heads) / group;
-  const size_t kv_off = (static_cast<size_t>(kv) * nb + blk) * bs * D;
-  mma::copy_rows<D, kMmaThreads>(qs, q_sorted + row0 * D, q_tile, kTileRows);
+  const size_t kv_blk = (static_cast<size_t>(kv) * nb + blk) * bs;
+  mma::copy_rows<DK, kMmaThreads>(qs, q_sorted + row0 * DK, q_tile,
+                                  kTileRows);
   // chunk i of the ring goes to buffer i & 1
   auto load_chunk = [&](int i) {
-    const size_t off = kv_off + static_cast<size_t>(i) * KC * D;
-    mma::copy_rows<D, kMmaThreads>(ks + (i & 1) * KC * LD, k_blocks + off,
-                                   KC, KC);
-    mma::copy_rows<D, kMmaThreads>(vs + (i & 1) * KC * LD, v_blocks + off,
-                                   KC, KC);
+    const size_t off = kv_blk + static_cast<size_t>(i) * KC;
+    mma::copy_rows<DK, kMmaThreads>(ks + (i & 1) * KC * LD,
+                                    k_blocks + off * DK, KC, KC);
+    mma::copy_rows<DV, kMmaThreads>(vs + (i & 1) * KC * LDV,
+                                    v_blocks + off * DV, KC, KC);
   };
   if constexpr (RING) {
     load_chunk(0);
     mma::cp_async_commit();
   } else {
-    mma::copy_rows<D, kMmaThreads>(ks, k_blocks + kv_off, bs, bs);
+    mma::copy_rows<DK, kMmaThreads>(ks, k_blocks + kv_blk * DK, bs, bs);
     mma::cp_async_commit();
-    mma::copy_rows<D, kMmaThreads>(vs, v_blocks + kv_off, bs, bs);
+    mma::copy_rows<DV, kMmaThreads>(vs, v_blocks + kv_blk * DV, bs, bs);
     mma::cp_async_commit();
   }
 
@@ -152,18 +158,18 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
   const int qp_hi = r_hi < q_tile ? q_pos[row0 + r_hi] : -1;
   const int kbase = blk * bs;
 
-  uint32_t qf[D / 16][4];
+  uint32_t qf[DK / 16][4];
   if constexpr (!RING) {
     mma::cp_async_wait<1>();                 // Q and K landed
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DK / 16; ++kk)
       mma::ldsm_x4(qs + mma::a_offset(lane, warp * 16, kk * 16, LD), qf[kk]);
   }
 
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   float m_lo = kNegInf, m_hi = kNegInf;      // running row max
@@ -185,7 +191,7 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
       __syncthreads();
       if (i == 0) {
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
+        for (int kk = 0; kk < DK / 16; ++kk)
           mma::ldsm_x4(qs + mma::a_offset(lane, warp * 16, kk * 16, LD),
                        qf[kk]);
       }
@@ -197,7 +203,7 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DK / 16; ++kk)
 #pragma unroll
       for (int np = 0; np < KC / 16; ++np) {
         uint32_t b[4];
@@ -244,7 +250,7 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
     l_lo = l_lo * a_lo + ps_lo;
     l_hi = l_hi * a_hi + ps_hi;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       acc[j][0] *= a_lo;
       acc[j][1] *= a_lo;
       acc[j][2] *= a_hi;
@@ -259,9 +265,9 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
       uint32_t ph[4], pl[4];
       mma::acc_to_a_split(s[2 * kk], s[2 * kk + 1], ph, pl);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t b[4];
-        mma::ldsm_x4_t(vs + mma::bk_offset(lane, kc0 + kk * 16, dp * 16, LD),
+        mma::ldsm_x4_t(vs + mma::bk_offset(lane, kc0 + kk * 16, dp * 16, LDV),
                        b);
         mma::mma16816(acc[2 * dp], ph, b[0], b[1]);
         mma::mma16816(acc[2 * dp + 1], ph, b[2], b[3]);
@@ -277,9 +283,9 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, sh);
   }
   if (r_lo < q_tile) {
-    float* dst = o + (row0 + r_lo) * D + 2 * tq;
+    float* dst = o + (row0 + r_lo) * DV + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<float2*>(dst + 8 * j) =
           make_float2(acc[j][0], acc[j][1]);
     if (tq == 0) {
@@ -288,9 +294,9 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
     }
   }
   if (r_hi < q_tile) {
-    float* dst = o + (row0 + r_hi) * D + 2 * tq;
+    float* dst = o + (row0 + r_hi) * DV + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<float2*>(dst + 8 * j) =
           make_float2(acc[j][2], acc[j][3]);
     if (tq == 0) {
@@ -300,15 +306,16 @@ moba_fwd_mma(const int32_t* __restrict__ tile_block,
   }
 }
 
-template <int D, int KC, bool RING>
+template <int DK, int DV, int KC, bool RING>
 int launch_mma(const void* tile_block, const void* q_sorted,
                const void* q_pos, const void* k_blocks, const void* v_blocks,
                void* o, void* m, void* l, int bh, int n_tiles,
                int num_q_heads, int group, int nb, int bs, int n_tokens,
                int q_tile, float scale, int causal, cudaStream_t s) {
   const size_t key_rows = RING ? 2 * KC : bs;   // K (and V) rows staged
-  const size_t smem = sizeof(bf16) * (kTileRows + 2 * key_rows) * (D + 8);
-  auto kernel = moba_fwd_mma<D, KC, RING>;
+  const size_t smem = sizeof(bf16) * ((kTileRows + key_rows) * (DK + 8) +
+                                      key_rows * (DV + 8));
+  auto kernel = moba_fwd_mma<DK, DV, KC, RING>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -326,22 +333,22 @@ int launch_mma(const void* tile_block, const void* q_sorted,
 // 16 for the ring: at KC 64 its d-64 body needs more than the 128
 // registers two CTAs an SM leave, and spills); the whole block staged up
 // to kWholeBlock keys, the ring above.
-template <int D, bool RING>
+template <int DK, int DV, bool RING>
 int dispatch_chunk(const void* tb, const void* qs, const void* qp,
                    const void* kb, const void* vb, void* o, void* m, void* l,
                    int bh, int n_tiles, int h, int g, int nb, int bs, int n,
                    int q_tile, float scale, int causal, cudaStream_t s) {
   if constexpr (!RING) {
     if (bs % 64 == 0)
-      return launch_mma<D, 64, false>(tb, qs, qp, kb, vb, o, m, l, bh,
+      return launch_mma<DK, DV, 64, false>(tb, qs, qp, kb, vb, o, m, l, bh,
                                       n_tiles, h, g, nb, bs, n, q_tile,
                                       scale, causal, s);
   }
   if (bs % 32 == 0)
-    return launch_mma<D, 32, RING>(tb, qs, qp, kb, vb, o, m, l, bh, n_tiles,
+    return launch_mma<DK, DV, 32, RING>(tb, qs, qp, kb, vb, o, m, l, bh, n_tiles,
                                    h, g, nb, bs, n, q_tile, scale, causal,
                                    s);
-  return launch_mma<D, 16, RING>(tb, qs, qp, kb, vb, o, m, l, bh, n_tiles, h,
+  return launch_mma<DK, DV, 16, RING>(tb, qs, qp, kb, vb, o, m, l, bh, n_tiles, h,
                                  g, nb, bs, n, q_tile, scale, causal, s);
 }
 
@@ -365,7 +372,7 @@ __device__ __forceinline__ void stage(const float* __restrict__ src,
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 moba_fwd_simt(const int32_t* __restrict__ tile_block,
               const float* __restrict__ q_sorted,
@@ -376,10 +383,11 @@ moba_fwd_simt(const int32_t* __restrict__ tile_block,
               int n_tiles, int num_q_heads, int group, int nb, int bs,
               int n_tokens, int q_tile, int kb_tile, float scale,
               int causal) {
+  static_assert(DK >= DV, "o is staged in q's rows");
   extern __shared__ float smem[];
-  float* qs = smem;                          // [kThreads][D + 1]
-  float* ks = qs + kThreads * (D + 1);       // [kb_tile][D]
-  float* vs = ks + kb_tile * D;              // [kb_tile][D]
+  float* qs = smem;                          // [kThreads][DK + 1]
+  float* ks = qs + kThreads * (DK + 1);      // [kb_tile][DK]
+  float* vs = ks + kb_tile * DK;             // [kb_tile][DV]
 
   const int bh = blockIdx.y;
   const int t = blockIdx.x;
@@ -389,7 +397,7 @@ moba_fwd_simt(const int32_t* __restrict__ tile_block,
   const int blk = tile_block[static_cast<size_t>(bh) * n_tiles + t];
 
   if (blk < 0 || blk >= nb) {                // inactive tile
-    for (int e = r; e < q_tile * D; e += kThreads) o[row0 * D + e] = 0.f;
+    for (int e = r; e < q_tile * DV; e += kThreads) o[row0 * DV + e] = 0.f;
     if (r < q_tile) {
       m_out[row0 + r] = kNegInf;
       l_out[row0 + r] = 0.f;
@@ -399,33 +407,31 @@ moba_fwd_simt(const int32_t* __restrict__ tile_block,
 
   const int hkv = num_q_heads / group;
   const int kv = (bh / num_q_heads) * hkv + (bh % num_q_heads) / group;
-  const size_t kv_off = (static_cast<size_t>(kv) * nb + blk) * bs * D;
-  stage<D>(q_sorted + row0 * D, q_tile, qs, D + 1);
+  const size_t kv_blk = (static_cast<size_t>(kv) * nb + blk) * bs;
+  stage<DK>(q_sorted + row0 * DK, q_tile, qs, DK + 1);
   const int qpos = r < q_tile ? q_pos[row0 + r] : -1;
   const int kbase = blk * bs;
 
   float m = kNegInf;
   float l = 0.f;
-  float acc[D];
+  float acc[DV];
 #pragma unroll
-  for (int dd = 0; dd < D; ++dd) acc[dd] = 0.f;
+  for (int dd = 0; dd < DV; ++dd) acc[dd] = 0.f;
 
   for (int kb0 = 0; kb0 < bs; kb0 += kb_tile) {
     __syncthreads();                         // previous chunk consumed
-    stage<D>(k_blocks + kv_off + static_cast<size_t>(kb0) * D, kb_tile, ks,
-             D);
-    stage<D>(v_blocks + kv_off + static_cast<size_t>(kb0) * D, kb_tile, vs,
-             D);
+    stage<DK>(k_blocks + (kv_blk + kb0) * DK, kb_tile, ks, DK);
+    stage<DV>(v_blocks + (kv_blk + kb0) * DV, kb_tile, vs, DV);
     __syncthreads();
     for (int j0 = 0; j0 < kb_tile; j0 += kSub) {
       float s[kSub];
 #pragma unroll
       for (int jj = 0; jj < kSub; ++jj) s[jj] = 0.f;
-      for (int kk = 0; kk < D; ++kk) {
-        const float qk = qs[r * (D + 1) + kk];
+      for (int kk = 0; kk < DK; ++kk) {
+        const float qk = qs[r * (DK + 1) + kk];
 #pragma unroll
         for (int jj = 0; jj < kSub; ++jj)
-          s[jj] = fmaf(qk, ks[(j0 + jj) * D + kk], s[jj]);
+          s[jj] = fmaf(qk, ks[(j0 + jj) * DK + kk], s[jj]);
       }
       unsigned valid = 0;
       float mx = m;
@@ -449,11 +455,11 @@ moba_fwd_simt(const int32_t* __restrict__ tile_block,
       l = l * alpha + psum;
       m = mx;
 #pragma unroll
-      for (int dd = 0; dd < D; ++dd) {
+      for (int dd = 0; dd < DV; ++dd) {
         float a = acc[dd] * alpha;
 #pragma unroll
         for (int jj = 0; jj < kSub; ++jj)
-          a = fmaf(s[jj], vs[(j0 + jj) * D + dd], a);
+          a = fmaf(s[jj], vs[(j0 + jj) * DV + dd], a);
         acc[dd] = a;
       }
     }
@@ -462,26 +468,26 @@ moba_fwd_simt(const int32_t* __restrict__ tile_block,
   // coalesced store of the partials through shared memory
   __syncthreads();
 #pragma unroll
-  for (int dd = 0; dd < D; ++dd) qs[r * (D + 1) + dd] = acc[dd];
+  for (int dd = 0; dd < DV; ++dd) qs[r * (DV + 1) + dd] = acc[dd];
   __syncthreads();
-  for (int e = r; e < q_tile * D; e += kThreads)
-    o[row0 * D + e] = qs[(e / D) * (D + 1) + e % D];
+  for (int e = r; e < q_tile * DV; e += kThreads)
+    o[row0 * DV + e] = qs[(e / DV) * (DV + 1) + e % DV];
   if (r < q_tile) {
     m_out[row0 + r] = l > 0.f ? m : kNegInf;
     l_out[row0 + r] = l;
   }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_simt(const void* tile_block, const void* q_sorted,
                 const void* q_pos, const void* k_blocks, const void* v_blocks,
                 void* o, void* m, void* l, int bh, int n_tiles,
                 int num_q_heads, int group, int nb, int bs, int n_tokens,
                 int q_tile, int kb_tile, float scale, int causal,
                 cudaStream_t s) {
-  const size_t smem =
-      sizeof(float) * (kThreads * (D + 1) + 2 * static_cast<size_t>(kb_tile) * D);
-  auto kernel = moba_fwd_simt<D>;
+  const size_t smem = sizeof(float) * (kThreads * (DK + 1) +
+                                       static_cast<size_t>(kb_tile) * (DK + DV));
+  auto kernel = moba_fwd_simt<DK, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -499,8 +505,9 @@ int launch_simt(const void* tile_block, const void* q_sorted,
 }  // namespace
 
 // tile_block (bh, n_tiles) int32; q_sorted (bh, n_tiles*q_tile, d);
-// q_pos (bh, n_tiles*q_tile) int32; k/v_blocks (bh/group, nb, bs, d);
-// o (bh, L, d), m, l (bh, L) float32.  dtype: 0 = float32 (SIMT body,
+// q_pos (bh, n_tiles*q_tile) int32; k_blocks (bh/group, nb, bs, d);
+// v_blocks (bh/group, nb, bs, dv); o (bh, L, dv), m, l (bh, L) float32.
+// (d, dv): (64, 64), (128, 128) or latent attention's (192, 128).  dtype: 0 = float32 (SIMT body,
 // K/V streamed in kb_tile chunks), 1 = bfloat16 (tensor cores: the whole
 // block staged up to kWholeBlock keys, streamed through the ring above;
 // kb_tile is only checked); bs a multiple of kb_tile, itself a multiple of
@@ -509,29 +516,34 @@ extern "C" int moba_fwd(const void* tile_block, const void* q_sorted,
                         const void* q_pos, const void* k_blocks,
                         const void* v_blocks, void* o, void* m, void* l,
                         int bh, int n_tiles, int num_q_heads, int group,
-                        int nb, int bs, int d, int n_tokens, int q_tile,
+                        int nb, int bs, int d, int dv, int n_tokens,
+                        int q_tile,
                         int kb_tile, float scale, int causal, int dtype,
                         void* stream) {
   if (bh < 1 || bh > 65535 || n_tiles < 1 || num_q_heads < 1 || group < 1 ||
-      num_q_heads % group != 0 || nb < 1 || (d != 64 && d != 128) ||
+      num_q_heads % group != 0 || nb < 1 ||
+      !((d == 64 && dv == 64) || (d == 128 && dv == 128) ||
+        (d == 192 && dv == 128)) ||
       q_tile < 1 || q_tile > kTileRows || kb_tile < kSub ||
       kb_tile % kSub != 0 || kb_tile > 128 || bs % kb_tile != 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64)
-    return launch_simt<64>(tile_block, q_sorted, q_pos, k_blocks, v_blocks,
-                           o, m, l, bh, n_tiles, num_q_heads, group, nb, bs,
-                           n_tokens, q_tile, kb_tile, scale, causal, s);
-  if (dtype == 0)
-    return launch_simt<128>(tile_block, q_sorted, q_pos, k_blocks, v_blocks,
-                            o, m, l, bh, n_tiles, num_q_heads, group, nb, bs,
-                            n_tokens, q_tile, kb_tile, scale, causal, s);
+  if (dtype == 0) {
+    auto* simt = d == 64    ? &launch_simt<64, 64>
+                 : d == 128 ? &launch_simt<128, 128>
+                            : &launch_simt<192, 128>;
+    return simt(tile_block, q_sorted, q_pos, k_blocks, v_blocks, o, m, l, bh,
+                n_tiles, num_q_heads, group, nb, bs, n_tokens, q_tile,
+                kb_tile, scale, causal, s);
+  }
   if (dtype != 1 || bs % 16 != 0) return cudaErrorInvalidValue;
   const bool ring = bs > kWholeBlock;
-  auto* run = d == 64 ? (ring ? &dispatch_chunk<64, true>
-                              : &dispatch_chunk<64, false>)
-                      : (ring ? &dispatch_chunk<128, true>
-                              : &dispatch_chunk<128, false>);
+  auto* run = d == 64    ? (ring ? &dispatch_chunk<64, 64, true>
+                                 : &dispatch_chunk<64, 64, false>)
+              : d == 128 ? (ring ? &dispatch_chunk<128, 128, true>
+                                 : &dispatch_chunk<128, 128, false>)
+                         : (ring ? &dispatch_chunk<192, 128, true>
+                                 : &dispatch_chunk<192, 128, false>);
   return run(tile_block, q_sorted, q_pos, k_blocks, v_blocks, o, m, l, bh,
              n_tiles, num_q_heads, group, nb, bs, n_tokens, q_tile, scale,
              causal, s);

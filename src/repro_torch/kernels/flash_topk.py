@@ -16,7 +16,8 @@ blocks -1e30, the own block +1e30, sentinel ``nb`` for slots at or below
 Device contract: a CPU tensor takes the plain PyTorch version
 (``kernels/ref.py::flash_topk_ref``); a CUDA tensor launches the kernel
 or raises — there is no fallback.  The kernel takes q and centroids of
-one dtype, bf16 or fp32, 16-byte aligned, head_dim 64 or 128, ``top_k``
+one dtype, bf16 or fp32, 16-byte aligned, head_dim 64 or 128 (or latent
+attention's 192 at ``top_k`` up to 32), ``top_k``
 up to :data:`MAX_TOP_K` (the rows a CTA covers shrink as ``top_k`` grows
 so the shared-memory lists fit: :func:`rows_per_cta`) and a GQA group of
 at most that many rows.  ``top_k`` at or above nb gives every valid
@@ -37,7 +38,7 @@ from repro_torch.kernels import ref, runtime
 LAUNCHES = 0
 
 GRIDS = ("grouped", "flat")
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 192)
 MAX_TOP_K = 1024      # 16 rows a CTA with 128 KB of lists
 _REG_MAX_K = 32       # register lists up to this top_k, 128 rows a CTA
 _LIST_BYTES = 131072
@@ -66,6 +67,9 @@ def check_contract(q: torch.Tensor, centroids: torch.Tensor, top_k: int,
     if d not in _HEAD_DIMS or centroids.shape[-1] != d:
         problems.append(f"head_dim in {_HEAD_DIMS} (got {d}/"
                         f"{centroids.shape[-1]})")
+    elif d == 192 and top_k > _REG_MAX_K:
+        problems.append(f"at head_dim 192 a top_k of at most {_REG_MAX_K}, "
+                        f"the register lists (got {top_k})")
     if not 1 <= top_k <= MAX_TOP_K:
         problems.append(f"top_k in 1..{MAX_TOP_K}, the limit the "
                         f"shared-memory lists of 16 rows set (got {top_k})")

@@ -23,8 +23,9 @@ the TPU kernel, unvisited blocks come back as zeros, not garbage.
 Device contract: a CPU tensor takes the plain PyTorch version
 (``kernels/ref.py::moba_bwd_ref``); a CUDA tensor launches the kernel or
 raises — there is no fallback.  The kernel takes q_sorted, dO and K/V
-blocks of one dtype, bf16 or fp32, fp32 lse/delta, and head_dim 64 or
-128; in bf16 a block of any multiple of 16 keys (split across
+blocks of one dtype, bf16 or fp32, fp32 lse/delta, and (q/k, v) widths
+(64, 64), (128, 128) or latent attention's (192, 128)
+(``moba_fwd.WIDTHS``); in bf16 a block of any multiple of 16 keys (split across
 ``ceil(bs / SPLIT_KEYS)`` CTAs, one dQ partial each).  ``grid`` and
 ``kb_tile`` keep the reference's API and do not change the launch.
 
@@ -38,12 +39,12 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ref, runtime
+from repro_torch.kernels.moba_fwd import WIDTHS
 
 LAUNCHES = 0
 
 GRIDS = ("grouped", "flat")
-_HEAD_DIMS = (64, 128)
-_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 10
+_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 # tiles per segment of a key block's run: pass 1 runs one CTA a segment
 RUN_TILES = 8
@@ -94,6 +95,7 @@ def check_contract(q_sorted, do_sorted, lse_sorted, delta_sorted, k_blocks,
     """Raise a shaped error for inputs the CUDA kernel does not take."""
     bh, ln, d = q_sorted.shape
     bkv, _, bs, _ = k_blocks.shape
+    widths = (d, k_blocks.shape[-1], v_blocks.shape[-1], do_sorted.shape[-1])
     problems = []
     if q_sorted.dtype not in runtime.DTYPE_CODES or any(
             t.dtype != q_sorted.dtype for t in (do_sorted, k_blocks,
@@ -107,8 +109,10 @@ def check_contract(q_sorted, do_sorted, lse_sorted, delta_sorted, k_blocks,
     if q_sorted.dtype == torch.bfloat16 and bs % _BF16_BLOCK_GRAIN:
         problems.append(f"in bf16 a block of a multiple of "
                         f"{_BF16_BLOCK_GRAIN} keys (got {bs})")
-    if d not in _HEAD_DIMS:
-        problems.append(f"head_dim in {_HEAD_DIMS} (got {d})")
+    if widths[0] != widths[1] or widths[2] != widths[3] or \
+            widths[1:3] not in WIDTHS:
+        problems.append(f"head_dim (q/k, v) in {WIDTHS} (got q/k/v/dO "
+                        f"{widths})")
     if q_tile < 1 or ln != tile_block.shape[1] * q_tile:
         problems.append(f"L = tiles x q_tile (got q_tile {q_tile}, L {ln}, "
                         f"{tile_block.shape[1]} tiles)")
@@ -136,8 +140,9 @@ def moba_bwd(tile_block: torch.Tensor, q_sorted: torch.Tensor,
              num_q_heads: int, group: int, causal: bool = True,
              q_tile: int = 128, kb_tile: int = 0, grid: str = "grouped"
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Backward over the sorted layout.  Returns (dq_sorted (BH, L, d),
-    dk (BH, nb, bs, d), dv (BH, nb, bs, d)), all fp32; dk/dv are per
+    """Backward over the sorted layout (do_sorted and v_blocks dv wide).
+    Returns (dq_sorted (BH, L, d), dk (BH, nb, bs, d), dv (BH, nb, bs,
+    dv)), all fp32; dk/dv are per
     query head (the caller sums the GQA group) and zero on blocks no tile
     visits."""
     if grid not in GRIDS:
@@ -172,16 +177,16 @@ def launch(tables, q_sorted, q_pos, do_sorted, lse_sorted, delta_sorted,
     inputs and the segment ``tables`` of :func:`segments`."""
     global LAUNCHES
     bh, ln, d = q_sorted.shape
-    _, nb, bs, _ = k_blocks.shape
+    _, nb, bs, dv_w = v_blocks.shape
     n_seg = tables[0].shape[1]
     dev = q_sorted.device
     splits = dq_partials(bs, q_sorted.dtype)
     dq = torch.empty((splits, bh, ln, d), dtype=torch.float32, device=dev)
     dk = torch.empty((bh, nb, bs, d), dtype=torch.float32, device=dev)
-    dv = torch.empty_like(dk)
+    dv = ref.empty_as(dk, dv_w)
     part_dk = torch.empty((bh, n_seg, bs, d), dtype=torch.float32,
                           device=dev)
-    part_dv = torch.empty_like(part_dk)
+    part_dv = ref.empty_as(part_dk, dv_w)
     ptr = runtime.ptr
     lib = runtime.bind("moba_bwd", "moba_bwd", _ARGTYPES)
     with torch.cuda.device(dev):
@@ -190,7 +195,7 @@ def launch(tables, q_sorted, q_pos, do_sorted, lse_sorted, delta_sorted,
             ptr(lse_sorted), ptr(delta_sorted), ptr(k_blocks),
             ptr(v_blocks), ptr(dq), ptr(dk), ptr(dv), ptr(part_dk),
             ptr(part_dv), bh, ln // q_tile, n_seg, num_q_heads, group, nb,
-            bs, d, n_tokens, q_tile, float(scale), int(causal),
+            bs, d, dv_w, n_tokens, q_tile, float(scale), int(causal),
             runtime.DTYPE_CODES[q_sorted.dtype], runtime.stream_of(q_sorted))
     runtime.check(err, f"moba_bwd (q_sorted {tuple(q_sorted.shape)}, "
                        f"k_blocks {tuple(k_blocks.shape)})")

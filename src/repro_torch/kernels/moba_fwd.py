@@ -13,12 +13,14 @@ chunks (TF32 would break the fp32 tolerances).
 Device contract: a CPU tensor takes the plain PyTorch version
 (``kernels/ref.py::moba_partials_ref``); a CUDA tensor launches the
 kernel or raises — there is no fallback.  The kernel takes q_sorted and
-K/V blocks of one dtype, bf16 or fp32; head_dim 64 or 128; a q tile of
+K/V blocks of one dtype, bf16 or fp32; (q/k, v) widths (64, 64), (128,
+128) or latent attention's (192, 128) (:data:`WIDTHS`); a q tile of
 at most 128 rows; ``kb_tile`` a multiple of 16 up to 128 that divides
 the block size (the reference's rule: the fp32 body streams K/V in
 ``kb_tile`` chunks, and in bf16 it makes the block any multiple of 16
-keys that ``kb_tile`` divides: 512 and 1024 included).  ``grid`` keeps the reference's API; both grids
-reach the one kernel.
+keys that ``kb_tile`` divides: 512 and 1024 included; at q/k 192 the
+fp32 body's shared memory takes chunks of at most 64 keys).  ``grid``
+keeps the reference's API; both grids reach the one kernel.
 
 ``LAUNCHES`` counts kernel launches (and nothing else).
 """
@@ -34,17 +36,22 @@ from repro_torch.kernels import ref, runtime
 LAUNCHES = 0
 
 GRIDS = ("grouped", "flat")
-_HEAD_DIMS = (64, 128)
+# (q/k, v) head widths the kernel takes
+WIDTHS = ((64, 64), (128, 128), (192, 128))
 _MAX_Q_TILE = 128
 _KB_GRAIN = 16
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+# the fp32 body's largest K/V chunk at q/k 192 (its shared memory)
+_KB_MAX_192 = 64
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
-def resolve_kb_tile(kb_tile: int, block_size: int) -> int:
+def resolve_kb_tile(kb_tile: int, block_size: int, head_dim: int = 64,
+                    dtype: torch.dtype = torch.bfloat16) -> int:
     """The reference's rule: 0 = auto ``min(block_size, 128)``, and never
-    more than the block."""
-    return min(kb_tile or min(block_size, 128), block_size)
+    more than the block; auto at q/k 192 in fp32 takes 64."""
+    cap = _KB_MAX_192 if head_dim == 192 and dtype == torch.float32 else 128
+    return min(kb_tile or min(block_size, cap), block_size)
 
 
 def check_contract(tile_block, q_sorted, q_pos, k_blocks, v_blocks,
@@ -53,6 +60,7 @@ def check_contract(tile_block, q_sorted, q_pos, k_blocks, v_blocks,
     """Raise a shaped error for inputs the CUDA kernel does not take."""
     bh, ln, d = q_sorted.shape
     bkv, nb, bs, _ = k_blocks.shape
+    widths = (d, k_blocks.shape[-1], v_blocks.shape[-1])
     problems = []
     if q_sorted.dtype not in runtime.DTYPE_CODES or \
             k_blocks.dtype != q_sorted.dtype or \
@@ -60,8 +68,13 @@ def check_contract(tile_block, q_sorted, q_pos, k_blocks, v_blocks,
         problems.append(f"q_sorted and K/V of one dtype, bf16 or fp32 (got "
                         f"{q_sorted.dtype}/{k_blocks.dtype}/"
                         f"{v_blocks.dtype})")
-    if d not in _HEAD_DIMS:
-        problems.append(f"head_dim in {_HEAD_DIMS} (got {d})")
+    if widths[0] != widths[1] or widths[::2] not in WIDTHS:
+        problems.append(f"head_dim (q/k, v) in {WIDTHS} (got q/k/v "
+                        f"{widths})")
+    elif d == 192 and q_sorted.dtype == torch.float32 and \
+            kb_tile > _KB_MAX_192:
+        problems.append(f"at q/k 192 in fp32 a kb_tile of at most "
+                        f"{_KB_MAX_192} (got {kb_tile})")
     if not 1 <= q_tile <= _MAX_Q_TILE or ln != tile_block.shape[1] * q_tile:
         problems.append(f"a q tile of 1..{_MAX_Q_TILE} rows with L = tiles "
                         f"x q_tile (got q_tile {q_tile}, L {ln}, "
@@ -92,8 +105,9 @@ def moba_fwd(tile_block: torch.Tensor, q_sorted: torch.Tensor,
              grid: str = "grouped"
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """tile_block (BH, T) int32; q_sorted (BH, L, d); q_pos (BH, L) int32
-    (-1 = pad); k_blocks/v_blocks (BKV, nb, bs, d).  Returns the partials
-    (o (BH, L, d), m (BH, L), l (BH, L)), all fp32."""
+    (-1 = pad); k_blocks (BKV, nb, bs, d); v_blocks (BKV, nb, bs, dv).
+    Returns the partials (o (BH, L, dv), m (BH, L), l (BH, L)), all
+    fp32."""
     if grid not in GRIDS:
         raise ValueError(f"unknown moba_fwd grid {grid!r}: expected "
                          f"'grouped' or 'flat'")
@@ -105,7 +119,8 @@ def moba_fwd(tile_block: torch.Tensor, q_sorted: torch.Tensor,
     if q_sorted.device.type != "cuda":
         raise ValueError(f"moba_fwd: tensors on {q_sorted.device}; expected "
                          f"cpu (plain version) or cuda (kernel)")
-    kb_tile = resolve_kb_tile(kb_tile, block_size)
+    kb_tile = resolve_kb_tile(kb_tile, block_size, q_sorted.shape[-1],
+                              q_sorted.dtype)
     tile_block, q_sorted, q_pos, k_blocks, v_blocks = (
         t.contiguous() for t in (tile_block, q_sorted, q_pos, k_blocks,
                                  v_blocks))
@@ -122,9 +137,9 @@ def launch(tile_block, q_sorted, q_pos, k_blocks, v_blocks, *, scale,
     (``kb_tile`` already resolved)."""
     global LAUNCHES
     bh, ln, d = q_sorted.shape
-    _, nb, bs, _ = k_blocks.shape
+    _, nb, bs, dv = v_blocks.shape
     dev = q_sorted.device
-    o = torch.empty((bh, ln, d), dtype=torch.float32, device=dev)
+    o = torch.empty((bh, ln, dv), dtype=torch.float32, device=dev)
     m = torch.empty((bh, ln), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
     ptr = runtime.ptr
@@ -133,7 +148,7 @@ def launch(tile_block, q_sorted, q_pos, k_blocks, v_blocks, *, scale,
         err = lib.moba_fwd(
             ptr(tile_block), ptr(q_sorted), ptr(q_pos), ptr(k_blocks),
             ptr(v_blocks), ptr(o), ptr(m), ptr(l), bh, tile_block.shape[1],
-            num_q_heads, group, nb, bs, d, n_tokens, q_tile, kb_tile,
+            num_q_heads, group, nb, bs, d, dv, n_tokens, q_tile, kb_tile,
             float(scale), int(causal), runtime.DTYPE_CODES[q_sorted.dtype],
             runtime.stream_of(q_sorted))
     runtime.check(err, f"moba_fwd (q_sorted {tuple(q_sorted.shape)}, "

@@ -9,6 +9,9 @@ Counterpart of the reference's ``kernels/ops.py::flash_moba``:
   bwd:  delta = rowsum(dO ∘ O) → gather to the sorted layout → backward
         kernel (recompute) → segment-sum dQ, group-reduce dK/dV
 
+q and k may be wider than v (latent attention: q/k 192, v 128); the
+output and dO take v's width, dQ and dK q's.
+
 Ragged query lengths (Nq not a multiple of the q tile) are padded to the
 tile inside the pipeline: padded rows route to the sentinel block, so
 their layout slots carry ``q_pos = -1``, which the kernels mask, and the
@@ -84,6 +87,7 @@ def sorted_layout(qf: torch.Tensor, sel: torch.Tensor, nq: int, nb: int,
 def _fwd_pipeline(q, k, v, meta: _Meta):
     b, h, nq, d = q.shape
     _, hkv, n, _ = k.shape
+    dv = v.shape[-1]
     g = h // hkv
     bs, tk = meta.block_size, meta.top_k
     tile = min(meta.q_tile, nq)
@@ -107,7 +111,7 @@ def _fwd_pipeline(q, k, v, meta: _Meta):
 
     rows = torch.arange(bh, device=q.device)[:, None]
     slots = lay.pair_slot.reshape(bh, nq_p * tk).long()
-    out, lse = merge_partials(o_l[rows, slots].reshape(bh, nq_p, tk, d),
+    out, lse = merge_partials(o_l[rows, slots].reshape(bh, nq_p, tk, dv),
                               m_l.gather(1, slots).reshape(bh, nq_p, tk),
                               l_l.gather(1, slots).reshape(bh, nq_p, tk))
     return out[:, :nq], lse[:, :nq], lay, q_sorted, q_pos
@@ -124,8 +128,8 @@ class FlashMoBA(torch.autograd.Function):
             ctx.meta = meta
             ctx.save_for_backward(q, k, v, out, lse, lay.tile_block,
                                   lay.pair_slot, q_sorted, q_pos)
-            b, h, nq, d = q.shape
-            return out.reshape(b, h, nq, d).to(q.dtype)
+            b, h, nq, _ = q.shape
+            return out.reshape(b, h, nq, v.shape[-1]).to(q.dtype)
 
     @staticmethod
     def backward(ctx, g_out):
@@ -139,6 +143,7 @@ class FlashMoBA(torch.autograd.Function):
             ctx.saved_tensors
         b, h, nq, d = q.shape
         _, hkv, n, _ = k.shape
+        dvw = v.shape[-1]
         g = h // hkv
         bs, tk = meta.block_size, meta.top_k
         tile = min(meta.q_tile, nq)
@@ -148,7 +153,7 @@ class FlashMoBA(torch.autograd.Function):
         k_blocks, nb = flatten_kv_blocks(k, bs)
         v_blocks, _ = flatten_kv_blocks(v, bs)
 
-        do = g_out.contiguous().reshape(bh, nq, d)
+        do = g_out.contiguous().reshape(bh, nq, dvw)
         delta = (do.float() * out).sum(dim=-1)                # (BH, Nq)
 
         # per-query tensors to the sorted layout, dO in the kernel's dtype
@@ -177,9 +182,9 @@ class FlashMoBA(torch.autograd.Function):
         visited.scatter_(1, tile_block.long(), True)
         visited = visited[:, :nb, None, None]
         dk = (dk_bh * visited).reshape(b, hkv, g, nb, bs, d).sum(dim=2)
-        dv = (dv_bh * visited).reshape(b, hkv, g, nb, bs, d).sum(dim=2)
+        dv = (dv_bh * visited).reshape(b, hkv, g, nb, bs, dvw).sum(dim=2)
         dk = dk.reshape(b, hkv, nb * bs, d)[:, :, :n]
-        dv = dv.reshape(b, hkv, nb * bs, d)[:, :, :n]
+        dv = dv.reshape(b, hkv, nb * bs, dvw)[:, :, :n]
         return (dq.reshape(b, h, nq, d).to(q.dtype), dk.to(k.dtype),
                 dv.to(v.dtype), None)
 
@@ -190,11 +195,13 @@ def flash_moba(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                kb_tile: int = 0, grid: str = "grouped") -> torch.Tensor:
     """FlashMoBA attention through the Hopper kernels.
 
-    q (B, H, Nq, d); k, v (B, Hkv, N, d).  The queries are the contiguous
-    suffix of the keys (training / prefill), so ``q_positions`` is not
-    read; it stays for the reference's signature.  ``grid`` ('grouped' |
-    'flat') and ``kb_tile`` (the forward's K/V streaming granularity, 0 =
-    auto) keep the reference's options.  Nq may be ragged.
+    q (B, H, Nq, d); k (B, Hkv, N, d); v (B, Hkv, N, dv) (dv = d but for
+    latent attention's 192 / 128); the output is dv wide.  The queries
+    are the contiguous suffix of the keys (training / prefill), so
+    ``q_positions`` is not read; it stays for the reference's signature.
+    ``grid`` ('grouped' | 'flat') and ``kb_tile`` (the forward's K/V
+    streaming granularity, 0 = auto) keep the reference's options.  Nq
+    may be ragged.
     """
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)

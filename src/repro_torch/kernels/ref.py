@@ -36,6 +36,16 @@ def kv_rows(bh: int, num_q_heads: int, group: int,
         + (r % num_q_heads) // group
 
 
+def empty_as(t: torch.Tensor, width: int) -> torch.Tensor:
+    """An empty tensor like ``t`` but ``width`` wide in its last dim:
+    ``torch.empty_like`` where the widths agree (the same operations as
+    always), a new shape only where they differ (latent attention's
+    dV)."""
+    if t.shape[-1] == width:
+        return torch.empty_like(t)
+    return t.new_empty(t.shape[:-1] + (width,))
+
+
 # ---------------------------------------------------------------- centroids
 def centroids_ref(k: torch.Tensor, block_size: int) -> torch.Tensor:
     """k: (BKV, N, d) -> (BKV, nb, d) in k.dtype; the ragged tail block is
@@ -100,7 +110,7 @@ def flash_topk_merge_ref(q: torch.Tensor, centroids: torch.Tensor,
 
 # ------------------------------------------------------------- fwd partials
 class MobaPartials(NamedTuple):
-    o: torch.Tensor   # (BH, L, d) fp32 un-normalised partial outputs
+    o: torch.Tensor   # (BH, L, dv) fp32 un-normalised partial outputs
     m: torch.Tensor   # (BH, L) fp32 row max (NEG_INF for masked slots)
     l: torch.Tensor   # (BH, L) fp32 sum of exp
 
@@ -139,7 +149,7 @@ def _tile_operands(tile_block, q_sorted, q_pos, k_blocks, v_blocks, kv,
                    t0: int, t1: int):
     """Tiles [t0, t1) of the sorted layout: their block ids (BH, Tc), q
     (BH, Tc, tq, d) fp32, q_pos (BH, Tc, tq), and the K/V of each tile's
-    block (BH, Tc, bs, d) fp32."""
+    block (BH, Tc, bs, d / dv) fp32."""
     bh, ln, d = q_sorted.shape
     nb = k_blocks.shape[1]
     tq = ln // tile_block.shape[1]
@@ -160,13 +170,14 @@ def moba_partials_ref(tile_block: torch.Tensor, q_sorted: torch.Tensor,
     """Plain version of the forward kernel, full fp32.
 
     tile_block (BH, T) int32; q_sorted (BH, L, d); q_pos (BH, L) int32
-    (-1 = pad); k_blocks/v_blocks (BKV, nb, bs, d).  Each tile attends
-    to its one key block."""
-    bh, ln, d = q_sorted.shape
-    nb = k_blocks.shape[1]
+    (-1 = pad); k_blocks (BKV, nb, bs, d), v_blocks (BKV, nb, bs, dv).
+    Each tile attends to its one key block."""
+    bh, ln, _ = q_sorted.shape
+    nb, dv = k_blocks.shape[1], v_blocks.shape[-1]
     n_tiles = tile_block.shape[1]
     kv = kv_rows(bh, num_q_heads, group, q_sorted.device)
-    o = torch.empty((bh, ln, d), dtype=torch.float32, device=q_sorted.device)
+    o = torch.empty((bh, ln, dv), dtype=torch.float32,
+                    device=q_sorted.device)
     m = torch.empty((bh, ln), dtype=torch.float32, device=q_sorted.device)
     l = torch.empty_like(m)
     tq = ln // n_tiles
@@ -178,7 +189,7 @@ def moba_partials_ref(tile_block: torch.Tensor, q_sorted: torch.Tensor,
         mask = _tile_mask(qp, tb[..., None], block_size, nb, n_tokens,
                           causal)
         oc, mc, lc = _softmax_partials(s, mask, vt)
-        o[:, t0 * tq:t1 * tq] = oc.reshape(bh, -1, d)
+        o[:, t0 * tq:t1 * tq] = oc.reshape(bh, -1, dv)
         m[:, t0 * tq:t1 * tq] = mc.reshape(bh, -1)
         l[:, t0 * tq:t1 * tq] = lc.reshape(bh, -1)
     return MobaPartials(o, m, l)
@@ -203,7 +214,7 @@ def merge_partials(o_parts: torch.Tensor, m_parts: torch.Tensor,
 class MobaGrads(NamedTuple):
     dq_sorted: torch.Tensor  # (BH, L, d) fp32
     dk_blocks: torch.Tensor  # (BH, nb, bs, d) fp32, per query head
-    dv_blocks: torch.Tensor  # (BH, nb, bs, d) fp32, per query head
+    dv_blocks: torch.Tensor  # (BH, nb, bs, dv) fp32, per query head
 
 
 def moba_bwd_ref(tile_block: torch.Tensor, q_sorted: torch.Tensor,
@@ -218,9 +229,10 @@ def moba_bwd_ref(tile_block: torch.Tensor, q_sorted: torch.Tensor,
     tiles; unvisited blocks are zero).
 
     lse_sorted / delta_sorted: per-slot final logsumexp and
-    rowsum(dO ∘ O) of the slot's query."""
+    rowsum(dO ∘ O) of the slot's query.  do_sorted and v_blocks are dv
+    wide, q_sorted and k_blocks d."""
     bh, ln, d = q_sorted.shape
-    nb = k_blocks.shape[1]
+    nb, dvw = k_blocks.shape[1], v_blocks.shape[-1]
     bs = block_size
     n_tiles = tile_block.shape[1]
     tq = ln // n_tiles
@@ -229,14 +241,14 @@ def moba_bwd_ref(tile_block: torch.Tensor, q_sorted: torch.Tensor,
     dq = torch.empty((bh, ln, d), dtype=torch.float32, device=dev)
     # segment nb of each row collects the inactive tiles and is dropped
     dk = torch.zeros((bh * (nb + 1), bs, d), dtype=torch.float32, device=dev)
-    dv = torch.zeros_like(dk)
+    dv = empty_as(dk, dvw).zero_()
     row0 = torch.arange(bh, device=dev)[:, None] * (nb + 1)
     for t0 in range(0, n_tiles, _TILE_CHUNK):
         t1 = min(t0 + _TILE_CHUNK, n_tiles)
         tb, qt, qp, kt, vt = _tile_operands(tile_block, q_sorted, q_pos,
                                             k_blocks, v_blocks, kv, t0, t1)
         sl = slice(t0 * tq, t1 * tq)
-        dot = do_sorted[:, sl].reshape(bh, t1 - t0, tq, d).float()
+        dot = do_sorted[:, sl].reshape(bh, t1 - t0, tq, dvw).float()
         lse = lse_sorted[:, sl].reshape(bh, t1 - t0, tq, 1)
         delta = delta_sorted[:, sl].reshape(bh, t1 - t0, tq, 1)
         mask = _tile_mask(qp, tb[..., None], bs, nb, n_tokens, causal)
@@ -249,9 +261,9 @@ def moba_bwd_ref(tile_block: torch.Tensor, q_sorted: torch.Tensor,
         dk.index_add_(0, seg, torch.matmul(ds.transpose(-1, -2), qt)
                       .reshape(-1, bs, d))
         dv.index_add_(0, seg, torch.matmul(p.transpose(-1, -2), dot)
-                      .reshape(-1, bs, d))
+                      .reshape(-1, bs, dvw))
     dk = dk.reshape(bh, nb + 1, bs, d)[:, :nb]
-    dv = dv.reshape(bh, nb + 1, bs, d)[:, :nb]
+    dv = dv.reshape(bh, nb + 1, bs, dvw)[:, :nb]
     return MobaGrads(dq, dk, dv)
 
 

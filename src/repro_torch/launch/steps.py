@@ -26,7 +26,8 @@ from repro_torch.optim import adamw
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     backend: str = "sparse", remat: bool = True,
-                    accum_in_loss: bool = False):
+                    accum_in_loss: bool = False,
+                    state: Optional[dict] = None):
     """One optimizer step: ``train_step(params, opt_state, batch) ->
     (params, opt_state, {'loss', 'lr', 'grad_norm'})`` with ``batch``
     {'tokens': (B, S+1)} and, for the vision and encoder-decoder
@@ -45,13 +46,22 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     ``autograd.grad`` differentiates the whole; the reference expresses
     this as a scan over rematted chunks so the gradient reduction happens
     once a step.  Either way one chunk's activations are live at a time
-    and the loss is the mean of the chunks' losses."""
+    and the loss is the mean of the chunks' losses.
+
+    A ``LatentMoEConfig`` model trains with its routing ``state``
+    (``transformer.init_router_state``, updated in place): the step moves
+    the routing bias after the optimizer and returns the step's
+    per-expert pair counts as ``expert_counts``; when a layer's held
+    pairs outgrew their bounded buffer it takes its gradients again over
+    every pair first (``retaken``; ``transformer.train_functions``;
+    chosen here, once)."""
     lr_fn = adamw.cosine_schedule(tcfg)
     m = tcfg.microbatch if tcfg.microbatch and tcfg.microbatch > 1 else 1
+    loss_fn, retake, after_step = T.train_functions(cfg, state)
 
     def chunk_loss(params, chunk):
-        return T.lm_loss(params, chunk, cfg, backend=backend,
-                         remat=remat)[0]
+        return loss_fn(params, chunk, cfg, backend=backend,
+                       remat=remat)[0]
 
     def chunks(batch):
         rows = next(iter(batch.values())).shape[0]
@@ -69,6 +79,21 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     def _train_step(params, opt_state, batch):
         leaves = [leaf.requires_grad_() for _, leaf in
                   adamw.tree_leaves(params)]
+        loss, grads = gradients(params, leaves, batch)
+        if retake is not None and retake():
+            del loss, grads
+            loss, grads = gradients(params, leaves, batch)
+        grads = adamw.tree_like(params, grads)
+        with tracing.span("train.optimizer"):
+            params, opt_state, om = adamw.adamw_update(
+                params, grads, opt_state, tcfg, lr_fn)
+        out = {"loss": loss.detach()}
+        out.update(om)
+        if after_step is not None:
+            after_step(out)
+        return params, opt_state, out
+
+    def gradients(params, leaves, batch):
         if m == 1:
             with tracing.span("train.forward"):
                 loss = chunk_loss(params, batch)
@@ -93,13 +118,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     gc = torch.autograd.grad(lc, leaves)
                     loss = loss + lc.detach() / m
                     grads = [a + g / m for a, g in zip(grads, gc)]
-        grads = adamw.tree_like(params, grads)
-        with tracing.span("train.optimizer"):
-            params, opt_state, om = adamw.adamw_update(
-                params, grads, opt_state, tcfg, lr_fn)
-        out = {"loss": loss.detach()}
-        out.update(om)
-        return params, opt_state, out
+        return loss, grads
 
     return train_step
 

@@ -1,4 +1,5 @@
-"""Model primitives: RMSNorm, RoPE, SwiGLU MLP, GQA attention layers.
+"""Model primitives: RMSNorm, RoPE, SwiGLU MLP, GQA attention layers and
+latent attention (MLA).
 
 Functional style as in the reference: params are plain dicts of tensors
 (the JAX package's layout, so one set of weights feeds both), and
@@ -16,6 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import routing
 from repro_torch.core.attention import attention_dispatch
@@ -220,6 +222,69 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                                backend=backend, causal=causal)
     o = o.permute(0, 2, 1, 3).reshape(b, n, h * dh)
     return o @ wcast(p["wo"], dt), cache
+
+
+# ------------------------------------------------------ latent attention
+def mla_shapes(cfg) -> dict:
+    """Leaf shapes of one latent attention layer (``cfg`` a
+    ``LatentMoEConfig``): ``wq`` to every head's q/k-wide query,
+    ``wkv_a`` to the latent and the shared RoPE key, ``kv_norm_scale``,
+    ``wkv_b`` from the latent to every head's [k_nope, v], ``wo``."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+    return {"wq": (d, h * m.qk_head_dim),
+            "wkv_a": (d, m.kv_lora_rank + m.qk_rope_head_dim),
+            "kv_norm_scale": (m.kv_lora_rank,),
+            "wkv_b": (m.kv_lora_rank,
+                      h * (m.qk_nope_head_dim + m.v_head_dim)),
+            "wo": (h * m.v_head_dim, d)}
+
+
+def init_mla(gen: torch.Generator, cfg) -> dict:
+    return _init_leaves(gen, mla_shapes(cfg), ())
+
+
+def mla_kv(p: dict, x: torch.Tensor, cfg, positions):
+    """Latent attention's keys and values: x (B, N, d_model) down to the
+    latent and the RoPE key, the latent's RMSNorm, up to every head's
+    k_nope and v; RoPE on the key part that every head shares.  Returns
+    k (B, H, N, qk_head_dim) and v (B, H, N, v_head_dim)."""
+    m, h, dt = cfg.mla, cfg.num_heads, x.dtype
+    b, n, _ = x.shape
+    c, k_pe = (x @ wcast(p["wkv_a"], dt)).split(
+        [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c = rms_norm(c, p["kv_norm_scale"], cfg.rms_norm_eps)
+    kv = _split_heads(c @ wcast(p["wkv_b"], dt), h,
+                      m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k_pe = apply_rope(k_pe[:, None], positions, cfg.attention.rope_theta)
+    k = torch.cat([k_nope, k_pe.expand(b, h, n, m.qk_rope_head_dim)],
+                  dim=-1)
+    return k, v
+
+
+def apply_mla(p: dict, x: torch.Tensor, cfg, *, positions=None,
+              backend: str = "flash") -> torch.Tensor:
+    """Latent attention (DeepSeek-V2 §2.1, no query latent) over a
+    sequence's own keys, cache-free (training): q = x·W_q split into
+    q_nope and q_pe, RoPE (half-split pairs) on q_pe and the shared key
+    part, q/k ``qk_head_dim`` and v ``v_head_dim`` wide, softmax scale
+    qk_head_dim^-½, then ``attention.kind`` (MoBA routes on the whole
+    q/k width) and W_o.  The latent projection, its norm, the
+    up-projection and the key's RoPE run in a ``model.mla.kv`` region."""
+    m, h, dt = cfg.mla, cfg.num_heads, x.dtype
+    b, n, _ = x.shape
+    if positions is None:
+        positions = torch.arange(n, device=x.device)
+    q = _split_heads(x @ wcast(p["wq"], dt), h, m.qk_head_dim)
+    q_nope, q_pe = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    q = torch.cat([q_nope, apply_rope(q_pe, positions,
+                                      cfg.attention.rope_theta)], dim=-1)
+    with tracing.region("model.mla.kv") as r:
+        k, v = r.output(*mla_kv(p, r.input(x), cfg, positions))
+    o = attention_dispatch(cfg.attention, cfg.attention.kind, q, k, v,
+                           q_positions=positions, backend=backend)
+    o = o.permute(0, 2, 1, 3).reshape(b, n, h * m.v_head_dim)
+    return o @ wcast(p["wo"], dt)
 
 
 def _dense_cache_attend(q, k, v, cache, cfg: ModelConfig, kind: str,

@@ -31,6 +31,11 @@ when the model's is and ``encoder_bidirectional_moba`` is set, else
 ``dense``; it passes ``causal=False``, which lifts the dense mask but not
 MoBA's (ROADMAP.md §C).
 
+A ``LatentMoEConfig`` model (``family`` ``latent_moe``: latent attention
+in every layer, a leading dense layer, then held-expert MoE layers) is
+not a repeating pattern: :func:`latent_lm_loss` and its helpers run it,
+training only, with unstacked ``layers/layer_ii`` leaves.
+
 Caches are paged pools (the serving engine; attention slots only) or
 dense per-sequence caches (the fixed serving loop, :func:`init_caches`;
 Mamba-2 state for ``ssm`` slots, a ``decoder`` slot's self-attention
@@ -479,3 +484,186 @@ def decode_step(params, token: torch.Tensor, cfg: ModelConfig, caches,
                                  positions=pos, page_state=page_state,
                                  route_map=route_map)
     return logits, caches
+
+
+# ------------------------------------------------- latent attention + MoE
+def latent_param_shapes(cfg) -> Dict[str, Any]:
+    """Leaf shapes of a ``LatentMoEConfig`` model: the embedding, head and
+    final norm, and ``layers/layer_ii`` blocks (not stacked): latent
+    attention (``layers.mla_shapes``), two norms, and a SwiGLU ``mlp``
+    for the first ``first_k_dense`` layers, a held-expert ``moe``
+    (``moe.held_moe_shapes``) after them."""
+    d = cfg.d_model
+    tree: Dict[str, Any] = {"embed": (cfg.vocab_size, d),
+                            "final_norm": (d,),
+                            "lm_head": (d, cfg.vocab_size), "layers": {}}
+    for i in range(cfg.num_layers):
+        ffn = ({"mlp": L.mlp_shapes(d, cfg.d_ff)} if i < cfg.first_k_dense
+               else {"moe": MOE.held_moe_shapes(cfg)})
+        tree["layers"][f"layer_{i:02d}"] = {
+            "norm1": (d,), "attn": L.mla_shapes(cfg), "norm2": (d,), **ffn}
+    return tree
+
+
+def init_latent_lm(gen: torch.Generator, cfg) -> dict:
+    """Random fp32 params of :func:`latent_param_shapes` on
+    ``gen.device``: embed ~ N(0, 0.02²), matrices ~ N(0, 1/fan_in) (an
+    expert stack's fan-in is its middle dim), norm scales 1."""
+    dev = gen.device
+
+    def walk(t):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif len(v) == 1:
+                out[k] = torch.ones(v, device=dev)
+            else:
+                out[k] = torch.randn(v, generator=gen, device=dev).mul_(
+                    v[-2] ** -0.5)
+        return out
+
+    params = walk(latent_param_shapes(cfg))
+    params["embed"].normal_(0.0, 0.02, generator=gen)
+    return params
+
+
+def init_router_state(cfg, device) -> dict:
+    """The routing state a ``LatentMoEConfig`` model trains with, which
+    is no parameter: ``router_bias`` and the step's ``expert_counts``,
+    each (MoE layers, every expert) fp32 zeros, and ``held_over``, set
+    when a layer call's held pairs outgrew their bounded buffer (0-d
+    bool)."""
+    shape = (cfg.num_layers - cfg.first_k_dense, cfg.moe.num_experts)
+    return {"router_bias": torch.zeros(shape, device=device),
+            "expert_counts": torch.zeros(shape, device=device),
+            "held_over": torch.zeros((), dtype=torch.bool, device=device)}
+
+
+def latent_block(p: dict, x: torch.Tensor, cfg, bias, *, positions=None,
+                 backend: str = "flash", bound: int = 0, over=None):
+    """One pre-norm block: latent attention (a ``model.attn.<kind>``
+    region), then the SwiGLU MLP or the held-expert MoE (``model.mlp``;
+    ``bound`` and ``over`` as ``moe.apply_held_moe``'s).  Returns (x,
+    balance loss or None, per-expert counts or None)."""
+    with tracing.region(f"model.attn.{cfg.attention.kind}") as r:
+        y = L.rms_norm(r.input(x), p["norm1"], cfg.rms_norm_eps)
+        h = r.output(L.apply_mla(p["attn"], y, cfg, positions=positions,
+                                 backend=backend))
+    x = x + h
+    aux = counts = None
+    with tracing.region("model.mlp") as r:
+        y = L.rms_norm(r.input(x), p["norm2"], cfg.rms_norm_eps)
+        if bias is None:
+            h = r.output(L.apply_mlp(p["mlp"], y))
+        else:
+            h, aux, counts = MOE.apply_held_moe(p["moe"], y, cfg, bias,
+                                                bound, over)
+            h, aux = r.output(h, aux)
+    return x + h, aux, counts
+
+
+def latent_lm_apply(params, tokens: torch.Tensor, cfg, *,
+                    backend: str = "flash", remat: bool = False,
+                    state: Optional[dict] = None, bounded: bool = False):
+    """tokens (B, S) -> (logits (B, S, V), the MoE layers' balance loss
+    summed).  ``state`` (:func:`init_router_state`) gives the routing
+    bias and gathers the pairs each expert got into ``expert_counts``
+    (zero bias and no count without it); ``remat`` checkpoints each
+    layer, and a layer's counts are taken from its first forward only.
+    ``bounded`` (with ``state``) puts the held pairs through buffers of
+    ``moe.held_bound`` rows and sets ``held_over`` when they outgrow one,
+    in the forward or its recompute; else through every pair's row."""
+    dt = getattr(torch, cfg.dtype)
+    x = params["embed"][tokens.long()].to(dt)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    bias = (state["router_bias"] if state is not None else
+            torch.zeros((cfg.num_layers - cfg.first_k_dense,
+                         cfg.moe.num_experts), device=x.device))
+    over = state["held_over"] if bounded else None
+    bound = MOE.held_bound(tokens.numel(), cfg) if bounded else 0
+    for i in range(cfg.num_layers):
+        p = params["layers"][f"layer_{i:02d}"]
+        j = i - cfg.first_k_dense
+        b = None if j < 0 else bias[j]
+        if remat:
+            x, a, c = torch.utils.checkpoint.checkpoint(
+                latent_block, p, x, cfg, b, backend=backend, bound=bound,
+                over=over, use_reentrant=False)
+        else:
+            x, a, c = latent_block(p, x, cfg, b, backend=backend,
+                                   bound=bound, over=over)
+        if a is not None:
+            aux = aux + a
+            if state is not None:
+                state["expert_counts"][j].add_(c)
+    with tracing.region("model.head") as r:
+        x = L.rms_norm(r.input(x), params["final_norm"], cfg.rms_norm_eps)
+        logits = r.output(x @ params["lm_head"].to(dt))
+    return logits, aux
+
+
+def latent_lm_loss(params, batch: dict, cfg, backend: str = "flash",
+                   remat: bool = False, state: Optional[dict] = None,
+                   bounded: bool = False):
+    """:func:`lm_loss` of a ``LatentMoEConfig`` model: the mean next-token
+    cross entropy plus the MoE layers' balance losses."""
+    tokens = batch["tokens"]
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    logits, aux = latent_lm_apply(params, inp, cfg, backend=backend,
+                                  remat=remat, state=state, bounded=bounded)
+    with tracing.region("model.head") as r:
+        logits = r.input(logits)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt_logit = logits.gather(-1, tgt.long()[..., None])[..., 0].float()
+        ll = tgt_logit - lse.float()
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones_like(ll)
+        loss = r.output(-(ll * mask).sum() / torch.clamp(mask.sum(),
+                                                         min=1.0))
+    return loss + aux, {"ce": loss, "aux": aux}
+
+
+def train_functions(cfg, state: Optional[dict] = None):
+    """(loss, retake, after_step) of a training step, chosen once when
+    the step is built: :func:`lm_loss` and no hooks for every model but a
+    ``LatentMoEConfig`` one, which takes :func:`latent_lm_loss` over
+    ``state`` (:func:`init_router_state`), its held pairs in bounded
+    buffers.  ``retake()``, before the optimizer, reads ``held_over``
+    back (the step's one read of the device) and, when a layer call's
+    held pairs outgrew their buffer, clears the step's counts and returns
+    True: the step then takes its gradients again, over every pair.  ``after_step(out)``, after the optimizer, moves the routing bias
+    by the step's counts, hands them on as ``expert_counts`` (and
+    ``retaken``) and zeroes them."""
+    if cfg.family != "latent_moe":
+        return lm_loss, None, None
+    if state is None:
+        raise ValueError(f"{cfg.name} trains with a routing state "
+                         f"(transformer.init_router_state)")
+    rate = cfg.router.bias_rate
+    bounded = [True]
+
+    def loss(params, batch, cfg, backend, remat):
+        return latent_lm_loss(params, batch, cfg, backend=backend,
+                              remat=remat, state=state, bounded=bounded[0])
+
+    @torch.no_grad()
+    def retake() -> bool:
+        if not bool(state["held_over"]):
+            return False
+        state["held_over"].zero_()
+        state["expert_counts"].zero_()
+        bounded[0] = False
+        return True
+
+    @torch.no_grad()
+    def after_step(out: dict) -> None:
+        counts = state["expert_counts"]
+        MOE.update_router_bias(state["router_bias"], counts, rate)
+        out["expert_counts"] = counts.clone()
+        out["retaken"] = not bounded[0]
+        bounded[0] = True
+        counts.zero_()
+
+    return loss, retake, after_step

@@ -18,10 +18,27 @@ Ranges are named ``<layer>.<what>``:
       (and the loss of ``lm_loss``); a block's views of the stacked
       weights.  Under ``remat`` the forward ranges open again inside
       ``train.backward``, on the autograd thread: that is the recompute.
+  model.mla.kv
+      ``models/layers.py``, inside a latent-attention block's
+      ``model.attn.<kind>``: the latent down-projection, its RMSNorm, the
+      up-projection to every head's key and value, and the shared key's
+      RoPE.
+  model.moe.route, model.moe.dispatch, model.moe.experts,
+  model.moe.combine, model.moe.shared
+      ``models/moe.py::apply_held_moe``, inside ``model.mlp``: sigmoid
+      scores, the biased top-k, the weights, the balance loss and the
+      pairs sorted by expert; the held pairs' rows gathered into a
+      buffer of a row count fixed on the host; the held experts'
+      grouped SwiGLU; the weighted sum back to the tokens; the shared
+      experts.  Nothing is read back.  The step's per-expert pair
+      counts are its counter (``expert_counts`` of the training step's
+      output, with ``retaken``, whether the step took its gradients
+      again over every pair; ``moe.routing_counters`` reads them).
   model.attn.<kind>.bwd, model.mlp.bwd, model.head.bwd, model.weights.bwd
       the backward of those regions, on the thread autograd runs it on;
       ``model.weights.bwd`` assembles a block's weight gradients into the
-      stacks'.
+      stacks' (and ``model.mla.kv.bwd``, ``model.moe.<what>.bwd`` those of
+      the regions inside a block).
   kernel.flash_moba, kernel.flash_moba_bwd, kernel.moba_decode,
   kernel.swa, kernel.swa_bwd
       ``kernels/ops.py``, ``kernels/moba_decode.py`` and
